@@ -1,0 +1,20 @@
+"""Architecture registry of the port: ``get_config("<arch-id>")``.
+
+Only the architectures whose model family the port runs are registered;
+``"<arch>-smoke"`` returns the mechanically reduced variant.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ExitConfig, ModelConfig
+from repro_torch.configs.granite_3_2b import CONFIG as _granite
+
+ARCHS = {c.name: c for c in (_granite,)}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name.endswith("-smoke"):
+        return ARCHS[name[: -len("-smoke")]].reduced()
+    return ARCHS[name]
+
+
+__all__ = ["ARCHS", "ExitConfig", "ModelConfig", "get_config"]

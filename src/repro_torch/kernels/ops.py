@@ -1,0 +1,92 @@
+"""Public wrappers of the port's kernels.
+
+Dispatch goes by the device of the tensors, never by what is installed:
+a CPU tensor takes the plain PyTorch version (``kernels/ref.py``); a CUDA
+tensor launches the hand-written kernel, or raises — there is no fallback.
+Each wrapper checks device, dtype, shape and contiguity before it launches,
+and adds one to ``LAUNCHES[<kernel>]`` for every kernel launch (CPU calls
+never count).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import exit_head as _exit
+from repro_torch.kernels import paged_attention as _pattn
+from repro_torch.kernels import ref
+
+LAUNCHES = {"paged_gqa_attention": 0, "exit_head_entropy": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_card(*tensors) -> bool:
+    """True when every tensor is on a CUDA device, False when every one is
+    on the CPU; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("repro_torch kernels: tensors on different cards")
+        return True
+    raise ValueError(f"repro_torch kernels: unsupported devices {kinds}")
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"repro_torch kernels: {msg}")
+
+
+def exit_head_entropy(x, w):
+    """x [..., D], w [D, V] -> entropy of softmax(x @ w) [...] fp32."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if not _on_card(x2, w):
+        return ref.exit_head_entropy_ref(x2, w).reshape(lead)
+    _require(x2.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
+             f"exit_head_entropy takes bf16, got {x2.dtype} / {w.dtype}")
+    _require(w.ndim == 2 and w.shape[0] == x2.shape[1],
+             f"exit_head_entropy shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    _require(x2.is_contiguous() and w.is_contiguous(),
+             "exit_head_entropy takes contiguous x and w")
+    _require(x2.shape[0] > 0, "exit_head_entropy on zero rows")
+    out = _exit.entropy_cuda(x2, w)
+    LAUNCHES["exit_head_entropy"] += 1
+    return out.reshape(lead)
+
+
+def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):
+    """Paged GQA decode attention: q [B, 1, Nq, H], pools
+    [n_pages, P, Nkv, H], tbl [B, pps] int32 (sentinel entries allowed —
+    clipped, and always masked by ``pos``), pos [B] int32 -> [B, 1, Nq, H]."""
+    if not _on_card(q, pool_k, pool_v, tbl, pos):
+        return ref.paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos)
+    _require(q.ndim == 4 and q.shape[1] == 1,
+             f"paged_gqa_attention decodes one token, q {tuple(q.shape)}")
+    b, _, nq, hd = q.shape
+    _require(pool_k.ndim == 4 and pool_k.shape == pool_v.shape
+             and pool_k.shape[3] == hd and nq % pool_k.shape[2] == 0,
+             f"paged_gqa_attention pools {tuple(pool_k.shape)} / "
+             f"{tuple(pool_v.shape)} for q {tuple(q.shape)}")
+    _require(q.dtype == pool_k.dtype == pool_v.dtype == torch.bfloat16,
+             "paged_gqa_attention takes bf16 q and pools")
+    _require(tbl.dtype == torch.int32 and pos.dtype == torch.int32,
+             "paged_gqa_attention takes int32 tbl and pos")
+    _require(tbl.ndim == 2 and tbl.shape[0] == b and pos.shape == (b,),
+             f"paged_gqa_attention tbl {tuple(tbl.shape)} pos "
+             f"{tuple(pos.shape)} for batch {b}")
+    _require(all(t.is_contiguous() for t in (q, pool_k, pool_v, tbl, pos)),
+             "paged_gqa_attention takes contiguous tensors")
+    _require(pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0,
+             "paged_gqa_attention pools must be 16-byte aligned")
+    page, nkv = pool_k.shape[1], pool_k.shape[2]
+    _require(_pattn.supported(page, hd, nq // nkv),
+             f"paged_gqa_attention has no instance for page={page}, "
+             f"head_dim={hd}, group={nq // nkv}")
+    out = _pattn.attention_cuda(q, pool_k, pool_v, tbl, pos)
+    LAUNCHES["paged_gqa_attention"] += 1
+    return out

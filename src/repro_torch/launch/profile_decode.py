@@ -1,0 +1,93 @@
+"""Where a decode step's time goes, on the card.
+
+    python -m repro_torch.launch.profile_decode [--arch granite-3-2b]
+        [--slots 16] [--prompt-len 128] [--steps 8] [--json PATH]
+
+Fills every slot of a paged, segmented scheduler with a prompt, then
+profiles ``--steps`` decode polls with ``torch.profiler`` (CPU and CUDA
+activity).  Reports the host wall time per step, the device kernel time per
+step (sum over CUDA kernels), the device busy share (kernel time / wall
+time), CUDA kernel launches per step, and the kernels that take the most
+device time.  Weights are random (seeded); the card is required.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models.model import Model
+from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
+                                           SchedulerConfig)
+
+
+def profile_decode(arch: str = "granite-3-2b", slots: int = 16,
+                   prompt_len: int = 128, steps: int = 8, seed: int = 0):
+    model = Model(get_config(arch), device="cuda")
+    params = model.init(seed)
+    warm = 2
+    max_new = warm + steps + 2
+    max_len = prompt_len + max_new
+    max_len += (-max_len) % 16
+    sched = ContinuousBatchScheduler(
+        model, params, SchedulerConfig(n_slots=slots, max_len=max_len,
+                                       paged=True, segmented=True),
+        device="cuda")
+    rs = np.random.RandomState(seed)
+    for _ in range(slots):
+        sched.submit(Request(tokens=rs.randint(0, model.cfg.vocab_size,
+                                               prompt_len), max_new=max_new))
+    t0 = time.perf_counter()
+    sched.prefill_poll()                      # every slot admitted at once
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    for _ in range(warm):
+        sched.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sched.step()                      # ends in the token readback
+        wall_s = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "arch": arch, "slots": slots, "prompt_len": prompt_len,
+        "steps": steps,
+        "prefill_s_per_token_step": prefill_s / prompt_len,
+        "wall_ms_per_step": wall_s / steps * 1e3,
+        "device_ms_per_step": dev_us / steps / 1e3,
+        "device_busy_share": (dev_us / 1e6) / wall_s if wall_s else 0.0,
+        "cuda_kernels_per_step": launches / steps,
+        "top_kernels": [{"name": e.key[:80],
+                         "ms_per_step": e.self_device_time_total / steps / 1e3,
+                         "calls_per_step": e.count / steps} for e in top],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--slots", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--json", default="")
+    args = ap.parse_args(argv)
+    out = profile_decode(args.arch, args.slots, args.prompt_len, args.steps)
+    print(json.dumps(out, indent=1))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

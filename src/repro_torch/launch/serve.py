@@ -1,0 +1,156 @@
+"""Open-loop Poisson serving through the port's continuous-batching
+scheduler (single pool).
+
+    python -m repro_torch.launch.serve --arch granite-3-2b --paged \\
+        --requests 32 --slots 16 --prompt-len 256 --max-new 32
+
+Requests arrive at Poisson times (seeded), prompts are uniform in
+``[prompt_len // 4, prompt_len]`` tokens, and ``prefix_share`` of them begin
+with one common ``prefix_len``-token prefix (so the paged arena's prefix
+cache can hit).  Reports p50/p95 request latency and sustained tok/s on the
+host clock, around work that ends with the per-step token readback.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.models.model import Model
+from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
+                                           SchedulerConfig)
+
+
+def poisson_trace(rs: np.random.RandomState, rate: float, n_requests: int,
+                  prompt_len: int):
+    """Homogeneous Poisson arrivals and uniform prompt lengths in
+    ``[max(1, prompt_len // 4), prompt_len]`` (the reference's draw order:
+    all gaps first, then all lengths)."""
+    arrivals = np.cumsum(rs.exponential(1.0 / rate, n_requests))
+    lengths = rs.randint(max(1, prompt_len // 4), prompt_len + 1, n_requests)
+    return arrivals, lengths
+
+
+def _drive_open_loop(sched, reqs, arrivals):
+    """Submit each request at its arrival offset and poll until every
+    request completes.  Returns (t0, makespan_seconds)."""
+    t0 = time.time()
+    i = 0
+    while len(sched.completed) < len(reqs):
+        now = time.time() - t0
+        while i < len(reqs) and arrivals[i] <= now:
+            sched.submit(reqs[i])
+            i += 1
+        if sched.has_work:
+            sched.tick()
+        elif i < len(reqs):
+            time.sleep(min(0.002, max(0.0, arrivals[i] - now)))
+    return t0, time.time() - t0
+
+
+def serve_poisson(arch: str, *, rate: float = 4.0, n_requests: int = 32,
+                  slots: int = 8, prompt_len: int = 16, max_new: int = 32,
+                  threshold: float = 0.5, prefill_chunk: int = 16,
+                  paged: bool = False, page_size: int = 16,
+                  segmented: bool = True, prefix_share: float = 0.0,
+                  prefix_len: int = 0, seed: int = 0, params=None,
+                  device="cuda", quiet: bool = False):
+    """Serve a seeded Poisson trace; returns a stats dict (latency
+    percentiles, sustained tok/s, exit statistics, prefix-cache hits).
+    ``params`` default to ``Model(arch).init(seed)`` on ``device``."""
+    cfg = get_config(arch)
+    model = Model(cfg, device=device)
+    if params is None:
+        params = model.init(seed)
+    max_len = prompt_len + max_new
+    if paged:                          # page-pool arenas need whole pages
+        max_len += (-max_len) % page_size
+    sched = ContinuousBatchScheduler(
+        model, params,
+        SchedulerConfig(n_slots=slots, max_len=max_len,
+                        prefill_chunk=min(prefill_chunk, max(1, prompt_len)),
+                        exit_threshold=threshold, paged=paged,
+                        page_size=page_size, segmented=segmented),
+        device=device)
+
+    rs = np.random.RandomState(seed)
+    arrivals, lengths = poisson_trace(rs, rate, n_requests, prompt_len)
+    prefix = rs.randint(0, cfg.vocab_size, prefix_len)
+    shared = set(rs.choice(n_requests, int(round(prefix_share * n_requests)),
+                           replace=False).tolist())
+    reqs = []
+    for j, n in enumerate(lengths):
+        toks = rs.randint(0, cfg.vocab_size, int(n))
+        if j in shared:
+            k = min(int(n), prefix_len)
+            toks[:k] = prefix[:k]
+        reqs.append(Request(tokens=toks, max_new=max_new))
+
+    # warm up outside the timed trace (one admission + one step)
+    sched.submit(Request(tokens=rs.randint(0, cfg.vocab_size,
+                                           int(lengths[0])), max_new=1))
+    sched.run()
+    sched.reset_stats()
+
+    t0, makespan = _drive_open_loop(sched, reqs, arrivals)
+    lat = np.asarray([r.t_done - (t0 + arrivals[j])
+                      for j, r in enumerate(reqs)])
+    total_tokens = sum(len(r.out_tokens) for r in reqs)
+    stats = {
+        "requests": n_requests,
+        "slots": slots,
+        "rate_req_s": rate,
+        "makespan_s": makespan,
+        "p50_latency_s": float(np.percentile(lat, 50)),
+        "p95_latency_s": float(np.percentile(lat, 95)),
+        "sustained_tok_s": total_tokens / makespan,
+        "tokens": total_tokens,
+        "host_ms": sched.host_ms_total,
+        "device_ms": sched.device_ms_total,
+        "stage_calls": dict(sched.stage_calls),
+        "exit_stats": sched.exit_stats(),
+        "outputs": [list(r.out_tokens) for r in reqs],
+    }
+    if paged:
+        stats["prefix_hit_tokens"] = sched.prefix_hit_tokens
+        stats["prefill_chunks_skipped"] = sched.prefill_chunks_skipped
+    if not quiet:
+        print(f"arch={cfg.name} poisson rate={rate}/s requests={n_requests} "
+              f"slots={slots}" + (" paged" if paged else "")
+              + f" device={model.device}")
+        print(f"  p50={stats['p50_latency_s']*1e3:.0f}ms "
+              f"p95={stats['p95_latency_s']*1e3:.0f}ms "
+              f"sustained={stats['sustained_tok_s']:.1f} tok/s "
+              f"makespan={makespan:.2f}s")
+    return stats
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="granite-3-2b-smoke")
+    ap.add_argument("--rate", type=float, default=4.0)
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--threshold", type=float, default=0.5)
+    ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--monolithic", action="store_true",
+                    help="one decode_step per token instead of segments")
+    ap.add_argument("--prefix-share", type=float, default=0.0)
+    ap.add_argument("--prefix-len", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    serve_poisson(args.arch, rate=args.rate, n_requests=args.requests,
+                  slots=args.slots, prompt_len=args.prompt_len,
+                  max_new=args.max_new, threshold=args.threshold,
+                  paged=args.paged, segmented=not args.monolithic,
+                  prefix_share=args.prefix_share, prefix_len=args.prefix_len,
+                  seed=args.seed, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,204 @@
+"""Execution plan + the dense decode layer.
+
+Every architecture compiles to a PLAN, an ordered list of steps
+
+    ("scan",  kind, n_units, layer0)   — n_units stacked layers of one kind
+    ("shared_attn", site_idx)          — zamba2 weight-shared attention block
+    ("exit", exit_idx, layer)          — early-exit head / partition boundary
+
+exactly as in the reference.  Stacked blocks keep their leading layer axis
+([n_units, ...]); decode walks it in a Python loop.  Only the ``dense``
+kind is ported so far.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import (apply_norm, init_norm, scaled_init,
+                                       tree_leaves, tree_map)
+
+
+# ---------------------------------------------------------------------------
+# Plan construction (a copy of the reference's)
+# ---------------------------------------------------------------------------
+
+def layer_kind(cfg, i: int) -> str:
+    if cfg.family in ("dense", "vlm"):
+        return "dense"
+    if cfg.family == "moe":
+        m = cfg.moe
+        if i < m.first_dense_layers:
+            return "dense"
+        if m.layer_period > 1:
+            return "pair"
+        return "moe"
+    if cfg.family == "hybrid":
+        return "mamba"
+    if cfg.family == "ssm":
+        return "slstm" if i in cfg.ssm.slstm_layers else "mlstm"
+    if cfg.family == "encdec":
+        return "decx"
+    raise ValueError(cfg.family)
+
+
+def shared_attn_sites(cfg) -> Tuple[int, ...]:
+    if not cfg.shared_attn_period:
+        return ()
+    p = cfg.shared_attn_period
+    return tuple(i for i in range(cfg.num_layers) if i % p == p - 1)
+
+
+def build_plan(cfg) -> List[Tuple]:
+    """Returns the ordered plan (see module docstring)."""
+    L = cfg.num_layers
+    exits = set(cfg.exits.exit_layers)
+    sa = set(i + 1 for i in shared_attn_sites(cfg))
+    bounds = {0, L} | exits | sa
+    for i in range(1, L):
+        if layer_kind(cfg, i) != layer_kind(cfg, i - 1):
+            bounds.add(i)
+    if cfg.family == "moe" and cfg.moe.layer_period > 1:
+        period = cfg.moe.layer_period
+        bounds = {b for b in bounds
+                  if b <= cfg.moe.first_dense_layers
+                  or (b - cfg.moe.first_dense_layers) % period == 0
+                  or b == L}
+    bl = sorted(bounds)
+    plan: List[Tuple] = []
+    exit_idx = 0
+    sa_idx = 0
+    for a, b in zip(bl[:-1], bl[1:]):
+        kind = layer_kind(cfg, a)
+        n = b - a
+        if kind == "pair":
+            n = n // cfg.moe.layer_period
+        plan.append(("scan", kind, n, a))
+        if b in sa:
+            plan.append(("shared_attn", sa_idx))
+            sa_idx += 1
+        if b in exits:
+            plan.append(("exit", exit_idx, b))
+            exit_idx += 1
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _require_ported(kind: str):
+    if kind != "dense":
+        raise NotImplementedError(
+            f"repro_torch: layer kind {kind!r} is not ported yet")
+
+
+def _init_dense_layer(gen, cfg, device):
+    return {
+        "ln1": init_norm(cfg.norm, cfg.d_model, device),
+        "attn": attn.init_gqa(gen, cfg, device),
+        "ln2": init_norm(cfg.norm, cfg.d_model, device),
+        "ffn": ffn_mod.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.act, device),
+    }
+
+
+def init_scan_block(gen, cfg, kind: str, n_units: int, device="cpu"):
+    """Stacked params [n_units, ...] for a block of one kind."""
+    _require_ported(kind)
+    layers = [_init_dense_layer(gen, cfg, device) for _ in range(n_units)]
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
+
+
+def init_exit_head(gen, cfg, device="cpu"):
+    hid = cfg.exits.head_hidden
+    p = {"norm": init_norm(cfg.norm, cfg.d_model, device)}
+    if hid:
+        p["w_h"] = scaled_init(gen, (cfg.d_model, hid), cfg.d_model,
+                               device=device)
+        p["w"] = scaled_init(gen, (hid, cfg.vocab_size), hid, device=device)
+    else:
+        p["w"] = scaled_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model,
+                             device=device)
+    return p
+
+
+def exit_head_hidden(cfg, p, x):
+    """The exit head's pre-vocab hidden state (norm + optional gelu MLP),
+    shared by the full-logits head and the fused entropy probe."""
+    h = apply_norm(cfg.norm, x, p["norm"])
+    if "w_h" in p:
+        h = torch.nn.functional.gelu(
+            torch.matmul(h, p["w_h"].to(h.dtype)), approximate="tanh")
+    return h
+
+
+def exit_head_logits(cfg, p, x):
+    h = exit_head_hidden(cfg, p, x)
+    return torch.matmul(h, p["w"].to(h.dtype)).float()
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+# Scan kinds whose decode cache is attention KV (paged-arena eligible).
+PAGED_KINDS = frozenset({"dense", "moe", "pair", "enc"})
+
+
+def init_layer_cache(cfg, kind: str, batch: int, cache_len: int,
+                     device="cpu"):
+    """Contiguous decode cache for ONE layer: (k, v) [B, S, Nkv, H] bf16."""
+    _require_ported(kind)
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            torch.zeros(shape, dtype=torch.bfloat16, device=device))
+
+
+def init_layer_cache_paged(cfg, kind: str, batch: int, n_pages: int,
+                           page_size: int, device="cpu"):
+    """Paged decode cache for ONE layer: global (k, v) pools
+    [n_pages, P, Nkv, H] bf16, indexed through the slot block table."""
+    _require_ported(kind)
+    shape = (n_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            torch.zeros(shape, dtype=torch.bfloat16, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Decode (single token, cache-carrying)
+# ---------------------------------------------------------------------------
+
+def decode_layer(cfg, kind: str, lp, x, cache, position, window,
+                 paged=None, write_mask=None):
+    """One-token decode through one layer; the layer's cache is updated in
+    place.  Returns (x, cache).  ``paged`` (an ``attn.PagedKV``) selects the
+    paged pools; ``write_mask`` gates contiguous-row writes."""
+    _require_ported(kind)
+    h = apply_norm(cfg.norm, x, lp["ln1"])
+    if paged is not None:
+        y, new = attn.gqa_decode_paged(cfg, lp["attn"], h, cache[0], cache[1],
+                                       position, paged)
+    else:
+        y, new = attn.gqa_decode(cfg, lp["attn"], h, cache[0], cache[1],
+                                 position, window=window,
+                                 write_mask=write_mask)
+    x = x + y
+    h = apply_norm(cfg.norm, x, lp["ln2"])
+    return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), new
+
+
+def decode_scan_block(cfg, kind: str, bparams, x, caches, position, window,
+                      paged=None, write_mask=None):
+    """Decode through a stacked block: a loop over its layer axis.  Layer
+    i's params and cache are views ``[i]`` of the stacked tensors, so the
+    in-place cache writes land in the stacked caches."""
+    n = tree_leaves(bparams)[0].shape[0]
+    for i in range(n):
+        lp = tree_map(lambda a: a[i], bparams)
+        cc = tree_map(lambda a: a[i], caches)
+        x, _ = decode_layer(cfg, kind, lp, x, cc, position, window, paged,
+                            write_mask)
+    return x, caches

@@ -1,0 +1,277 @@
+"""The Model: plan-driven decoder with early exits (dense family).
+
+Public surface, as in the reference:
+
+    m = Model(config, device="cuda")
+    params  = m.init(seed)
+    cache   = m.init_decode_cache(batch, cache_len)
+    logits, ee, cache = m.decode_step(params, cache, tokens, position)
+
+Depth-segmented decode: the plan compiles into ``decode_segments`` — runs of
+plan steps bounded by exit heads.  The serving scheduler runs only the
+segments each token still needs:
+
+    x          = m.embed_decode_tokens(params, tokens)
+    x, cache   = m.decode_segment(params, cache, x, seg, pos, alive)
+    entropy    = m.exit_probe_entropy(params, seg.exit_index, x)  # kernel
+    logits     = m.finalize_decode(params, x)
+
+``alive`` [B] gates per-slot work: an exited slot's hidden state is frozen
+(passthrough) and its KV rows are not written; every slot's token comes
+from ``finalize_decode`` over its possibly early-frozen hidden state.
+
+Decode caches are updated in place (the reference donates them); the
+functions still return them so call sites read like the reference's.
+Params are plain nested dicts of tensors with the reference's tree layout,
+so ``bridge.params_from_jax`` maps one onto the other leaf by leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import blocks as B
+from repro_torch.models.common import (apply_norm, embed, init_norm,
+                                       normal_init, resolve_device, tree_map,
+                                       unembed)
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthSegment:
+    """A run of plan steps bounded by exit heads (see the reference)."""
+    index: int
+    steps: Tuple[Tuple, ...]
+    exit_index: Optional[int]
+    layers: int
+    layer_frac: float              # layers / num_layers
+
+
+def _entropy(logits):
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.sum(torch.exp(logp) * logp, dim=-1)
+
+
+def _row_where(mask, axis):
+    """Per-leaf row select: ``new`` where ``mask`` along ``axis``."""
+    def f(new, old):
+        shape = [1] * new.ndim
+        shape[axis] = -1
+        return torch.where(mask.reshape(shape), new, old)
+    return f
+
+
+class Model:
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.plan = B.build_plan(cfg)
+        self.n_exits = sum(1 for s in self.plan if s[0] == "exit")
+        self.decode_segments = self._build_decode_segments()
+
+    # ------------------------------------------------------------------
+    # Init
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0) -> Dict[str, Any]:
+        """Random params from a seeded ``torch.Generator`` on the model's
+        device, with the reference's distributions: embed N(0, 0.02),
+        matmul weights N(0, 1/fan_in), bf16 for rank >= 2, fp32 norms."""
+        cfg, dev = self.cfg, self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params: Dict[str, Any] = {
+            "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model),
+                                 std=0.02, dtype=torch.bfloat16, device=dev),
+            "final_norm": init_norm(cfg.norm, cfg.d_model, dev),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = normal_init(
+                gen, (cfg.vocab_size, cfg.d_model), std=0.02,
+                dtype=torch.bfloat16, device=dev)
+        if cfg.shared_attn_period or cfg.family == "encdec" or cfg.mtp_depth:
+            raise NotImplementedError(
+                f"repro_torch: {cfg.name} needs blocks not ported yet")
+        params["blocks"] = [
+            self._cast(B.init_scan_block(gen, cfg, kind, n, dev))
+            for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]
+        if self.n_exits:
+            params["exit_heads"] = [
+                self._cast(B.init_exit_head(gen, cfg, dev))
+                for _ in range(self.n_exits)]
+        return params
+
+    @staticmethod
+    def _cast(tree):
+        """Matmul weights -> bf16; norms stay fp32 (rank <= 1)."""
+        return tree_map(
+            lambda a: a.to(torch.bfloat16) if a.ndim >= 2 else a, tree)
+
+    # ------------------------------------------------------------------
+    # Decode caches
+    # ------------------------------------------------------------------
+    def _window(self, long_mode: bool) -> int:
+        cfg = self.cfg
+        if cfg.attention == "sliding":
+            return cfg.sliding_window
+        if long_mode:
+            return cfg.long_context_window
+        return 0
+
+    def cache_len_for(self, seq_len: int, long_mode: bool) -> int:
+        w = self._window(long_mode)
+        return min(seq_len, w) if w else seq_len
+
+    def _stack(self, per):
+        return tree_map(lambda *xs: torch.stack(xs), *per)
+
+    def init_decode_cache(self, batch_size: int, seq_len: int, *,
+                          long_mode: bool = False):
+        """Contiguous cache: per block, (k, v) [n_layers, B, S, Nkv, H]."""
+        clen = self.cache_len_for(seq_len, long_mode)
+        return {"blocks": [
+            self._stack([B.init_layer_cache(self.cfg, kind, batch_size, clen,
+                                            self.device) for _ in range(n)])
+            for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]}
+
+    def init_decode_cache_paged(self, batch_size: int, n_pages: int,
+                                page_size: int):
+        """Paged cache: per block, (k, v) pools
+        [n_layers, n_pages, P, Nkv, H]; slots address them through the
+        scheduler's block table, not a batch axis."""
+        return {"blocks": [
+            self._stack([B.init_layer_cache_paged(
+                self.cfg, kind, batch_size, n_pages, page_size, self.device)
+                for _ in range(n)])
+            for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]}
+
+    def merge_decode_cache(self, take_new, new_cache, old_cache):
+        """Row-wise merge of contiguous caches: slot b takes ``new_cache``
+        where take_new[b].  Caches are stacked [n_layers, B, ...] (batch
+        axis 1); ``old_cache`` is overwritten in place.  (Paged pools need
+        no merge: their writes are gated per row inside the attention
+        step.)"""
+        for new, old in zip(new_cache["blocks"], old_cache["blocks"]):
+            tree_map(lambda n, o: o.copy_(_row_where(take_new, 1)(n, o)),
+                     new, old)
+        return old_cache
+
+    # ------------------------------------------------------------------
+    # Decode
+    # ------------------------------------------------------------------
+    def decode_step(self, params, cache, tokens, position, *,
+                    long_mode: bool = False, paged=None, write_mask=None):
+        """tokens [B,1] int; position [] or [B] int (per-slot positions).
+
+        ``paged`` (an ``attention.PagedKV``): attention caches are paged
+        pools addressed through its block table, writes gated by its
+        write_mask.  ``write_mask`` [B] gates contiguous-row writes (None =
+        every row writes, as in the reference step).
+
+        Returns (logits [B,V] fp32, exit_entropies [n_exits,B] fp32, cache).
+        """
+        cfg = self.cfg
+        x = embed(tokens, params["embed"])
+        window = self._window(long_mode)
+        exit_entropies = []
+        bi = 0
+        for step in self.plan:
+            if step[0] == "scan":
+                x, _ = B.decode_scan_block(
+                    cfg, step[1], params["blocks"][bi], x,
+                    cache["blocks"][bi], position, window, paged, write_mask)
+                bi += 1
+            elif step[0] == "exit":
+                lg = B.exit_head_logits(cfg, params["exit_heads"][step[1]],
+                                        x)[:, 0]
+                exit_entropies.append(_entropy(lg))
+        logits = self.finalize_decode(params, x)
+        ee = (torch.stack(exit_entropies) if exit_entropies
+              else torch.zeros((0, tokens.shape[0]), dtype=torch.float32,
+                               device=x.device))
+        return logits, ee, cache
+
+    def _build_decode_segments(self) -> List[DepthSegment]:
+        """Split the plan at exit heads into index-resolved depth segments."""
+        cfg = self.cfg
+        total = max(1, cfg.num_layers)
+        segs: List[DepthSegment] = []
+        steps: List[Tuple] = []
+        layers = 0
+        bi = sa_i = 0
+        for step in self.plan:
+            if step[0] == "scan":
+                _, kind, n, _ = step
+                steps.append(("scan", kind, bi))
+                bi += 1
+                per_unit = cfg.moe.layer_period if kind == "pair" else 1
+                layers += n * per_unit
+            elif step[0] == "shared_attn":
+                steps.append(("shared_attn", sa_i))
+                sa_i += 1
+            elif step[0] == "exit":
+                segs.append(DepthSegment(len(segs), tuple(steps), step[1],
+                                         layers, layers / total))
+                steps, layers = [], 0
+        segs.append(DepthSegment(len(segs), tuple(steps), None,
+                                 layers, layers / total))
+        return segs
+
+    def embed_decode_tokens(self, params, tokens):
+        """tokens [B,1] int -> embeddings [B,1,D]."""
+        return embed(tokens, params["embed"])
+
+    def decode_segment(self, params, cache, x, seg: DepthSegment, position,
+                       alive, *, long_mode: bool = False, paged=None,
+                       passthrough=None):
+        """One-token decode through one depth segment.
+
+        ``alive`` [B] bool gates cache writes (contiguous rows here; paged
+        pools through ``paged.write_mask``, which the caller sets).
+        ``passthrough`` (default ``alive``) selects which rows take the
+        segment's hidden output; the others keep ``x``.  With ``alive``
+        all-true this is exactly the matching slice of ``decode_step``.
+        """
+        window = self._window(long_mode)
+        x_in = x
+        if passthrough is None:
+            passthrough = alive
+        for st in seg.steps:
+            if st[0] != "scan":
+                raise NotImplementedError(
+                    "repro_torch: shared attention is not ported yet")
+            _, kind, bi = st
+            x, _ = B.decode_scan_block(
+                self.cfg, kind, params["blocks"][bi], x, cache["blocks"][bi],
+                position, window, paged,
+                None if paged is not None else alive)
+        x = torch.where(passthrough[:, None, None], x, x_in)
+        return x, cache
+
+    def exit_probe_entropy(self, params, exit_index: int, x):
+        """Entropy of exit head ``exit_index`` over decode hidden x [B,1,D],
+        through the fused exit-head kernel: the [B,V] exit logits are never
+        stored."""
+        p = params["exit_heads"][exit_index]
+        h = B.exit_head_hidden(self.cfg, p, x[:, 0, :])
+        return kops.exit_head_entropy(h, p["w"])
+
+    def finalize_decode(self, params, x):
+        """Final norm + LM head over decode hidden x [B,1,D] -> [B,V] fp32."""
+        h = apply_norm(self.cfg.norm, x, params["final_norm"])
+        return unembed(h, params.get("lm_head", params["embed"]))[:, 0]
+
+    # ------------------------------------------------------------------
+    def prefill(self, params, batch, *, long_mode: bool = False):
+        """Build a decode cache from the prompt by replaying its tokens
+        through ``decode_step`` (as the reference does).  Returns (logits
+        [B,S,V] fp32, cache)."""
+        tokens = batch["tokens"]
+        bsz, seq = tokens.shape
+        cache = self.init_decode_cache(bsz, seq, long_mode=long_mode)
+        all_logits = []
+        for t in range(seq):
+            logits, _, cache = self.decode_step(
+                params, cache, tokens[:, t:t + 1], t, long_mode=long_mode)
+            all_logits.append(logits)
+        return torch.stack(all_logits, dim=1), cache

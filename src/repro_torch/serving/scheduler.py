@@ -1,0 +1,626 @@
+"""Continuous-batching serving scheduler: request queue + slot-based KV cache.
+
+The port of the reference's single-model ``ContinuousBatchScheduler``:
+
+* A FIFO request queue feeding a fixed pool of ``n_slots`` decode slots;
+  per-slot position/length/state live on the host as numpy vectors.
+* **Chunked prefill**: an admitted request's prompt is replayed through
+  ``Model.decode_step`` ``prefill_chunk`` tokens per round;
+  ``max_prefill_chunks_per_step`` caps the chunks one ``poll()`` runs so a
+  long admission interleaves with in-flight decode.
+* **Paged KV arena** (``paged=True``): attention caches are a global pool
+  of ``page_size``-token pages addressed through per-slot block tables,
+  with the radix prefix cache skipping prefill chunks whose pages are
+  already resident.  The host block table is uploaded only when it
+  changed.
+* **Depth-segmented decode** (default): one decode step runs
+  ``segment0 -> probe0 -> segment1 -> ... -> finalize``; each probe is the
+  fused exit-head entropy kernel, slots whose normalized entropy clears the
+  threshold stop being ``alive`` (hidden passthrough, no KV writes), and
+  the host stops dispatching segments once no active slot is alive.
+  ``segmented=False`` runs the monolithic ``decode_step`` instead.
+* **Device exit counters**, flushed to the host every ``flush_every`` steps.
+
+Host/device traffic per decode step: one upload of (tokens, positions,
+active), one upload of the block table when it changed, one read per exit
+probe (the intended short-circuit), and one readback of the step's tokens.
+
+Not ported yet (``SchedulerConfig`` rejects them): ``async_decode``,
+``temperature > 0``; speculative ``propose``/``verify`` and slot migration
+(``export_slot``/``import_slot``) have no counterpart here yet.
+
+Typical use::
+
+    sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
+        n_slots=8, max_len=192, exit_threshold=0.6))
+    for prompt in prompts:
+        sched.submit(Request(tokens=prompt, max_new=32))
+    sched.run()
+    outs = [r.out_tokens for r in sched.completed]
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.early_exit import exit_stats_dict, first_exit_index
+from repro_torch.models.attention import PagedKV
+from repro_torch.models.common import resolve_device
+from repro_torch.serving.paged import (PageAllocator, RadixPrefixCache,
+                                       chunk_digests)
+
+FLUSH_EVERY = 32                       # decode steps between counter reads
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request.  ``tokens`` is the prompt [S0] int;
+    ``out_tokens`` is filled by the scheduler (the first token comes from
+    the prompt's last logits)."""
+    tokens: Any
+    max_new: int = 32
+    eos_id: Optional[int] = None
+    req_id: int = -1
+    # --- filled by the scheduler ---
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_done: float = 0.0
+    slot: int = -1
+    done: bool = False
+
+
+@dataclasses.dataclass
+class SchedulerConfig:
+    n_slots: int = 8
+    max_len: int = 256                 # per-slot logical sequence capacity
+    prefill_chunk: int = 16            # tokens per prefill round
+    exit_threshold: float = 0.5
+    temperature: float = 0.0           # 0 = greedy (the only ported mode)
+    max_prefill_chunks_per_step: int = 0   # 0 = whole prompt in one poll
+    segmented: bool = True
+    paged: bool = False                # pool of n_slots full rows of pages
+    page_size: int = 16
+    async_decode: bool = False         # not ported: rejected
+
+    def __post_init__(self):
+        if self.async_decode:
+            raise ValueError("repro_torch: async_decode is not ported yet")
+        if self.temperature > 0.0:
+            raise ValueError("repro_torch: sampled decode (temperature > 0) "
+                             "is not ported yet; use greedy decode")
+
+
+@dataclasses.dataclass
+class StepReport:
+    """What one ``poll()`` did."""
+    admitted: List[Request] = dataclasses.field(default_factory=list)
+    prefill_chunks: int = 0
+    prefill_tokens: int = 0
+    prefill_done: bool = False
+    decode_stepped: bool = False
+    n_active: int = 0
+    decode_segments_run: int = 0
+    decode_depth_frac: float = 0.0
+    host_ms: float = 0.0               # host time of the poll
+    device_ms: float = 0.0             # time blocked in the token readback
+    completed: List[Request] = dataclasses.field(default_factory=list)
+
+    @property
+    def worked(self) -> bool:
+        return bool(self.admitted) or self.prefill_chunks > 0 \
+            or self.decode_stepped
+
+
+@dataclasses.dataclass
+class _PendingPrefill:
+    """An admission whose chunked prompt replay is still in flight."""
+    reqs: List[Request]
+    slots: List[int]
+    tokens: Any                        # np [n_slots, n_chunks*chunk] int32
+    lengths: Any                       # np [n_slots] int32
+    lengths_d: Any                     # device copy
+    admit: Any                         # np [n_slots] bool
+    cache: Any                         # private cache (contiguous arenas)
+    last: Any                          # carried last-real-token logits
+    next_chunk: int = 0
+    n_chunks: int = 0
+    start: Any = None                  # np [n_slots] replay start (paged)
+    start_d: Any = None
+
+
+class ContinuousBatchScheduler:
+    """Slot-based continuous batching over ``Model.decode_step``.
+
+    Runs on the model's device (``device`` must match it; CUDA by default).
+    The KV caches and the exit counters are updated in place.
+    """
+
+    def __init__(self, model, params, cfg: SchedulerConfig = None,
+                 device="cuda"):
+        cfg = SchedulerConfig() if cfg is None else cfg
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"scheduler device {self.device} != model "
+                             f"device {model.device}")
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        b = cfg.n_slots
+        mcfg = model.cfg
+        self._vocab = mcfg.vocab_size
+        self._n_exits = model.n_exits
+
+        self.page_alloc: Optional[PageAllocator] = None
+        self.prefix_cache: Optional[RadixPrefixCache] = None
+        self.prefix_hit_tokens = 0
+        self.prefill_chunks_skipped = 0
+        if cfg.paged:
+            if model._window(False) != 0:
+                raise ValueError("paged mode: ring-buffer windows unsupported")
+            if cfg.page_size <= 0 or cfg.max_len % cfg.page_size:
+                raise ValueError("paged mode: max_len must be a multiple of "
+                                 "page_size")
+            self._pps = cfg.max_len // cfg.page_size
+            n_pages = b * self._pps
+            self.page_alloc = PageAllocator(n_pages, cfg.page_size)
+            # every cache leaf of the ported kinds is pool-backed, so the
+            # shared pages fully determine the replay a prefix hit skips
+            self.prefix_cache = RadixPrefixCache(self.page_alloc)
+            # host block table, sentinel = n_pages; uploaded when dirty
+            self._tbl = np.full((b, self._pps), n_pages, np.int32)
+            self._tbl_device = None
+            self._tbl_dirty = True
+            self._slot_digests: List[List[bytes]] = [[] for _ in range(b)]
+
+        self.queue: deque = deque()
+        self.completed: List[Request] = []
+        self.positions = np.zeros(b, np.int64)     # next decode position
+        self.active = np.zeros(b, bool)
+        self.current_tok = np.zeros(b, np.int32)   # token each slot feeds next
+        self.steps_taken = np.zeros(b, np.int64)
+        self.slot_req: List[Optional[Request]] = [None] * b
+        self.tokens_served = 0
+        self.exit_counts = np.zeros(self._n_exits + 1, np.int64)
+        self.depth_weighted_tokens = 0.0
+        self._last_segments_run = 0
+        self._last_depth_frac = 0.0
+        self._last_step_active = 0
+        self.n_admitted = 0
+        self.n_submitted = 0
+        self._step_idx = 0
+        self._pending: Optional[_PendingPrefill] = None
+        self._dev_s = 0.0
+        self.host_ms_total = 0.0
+        self.device_ms_total = 0.0
+
+        dev = self.device
+        self._counters = torch.zeros(self._n_exits + 1, dtype=torch.int32,
+                                     device=dev)
+        self._alive0 = torch.ones(b, dtype=torch.bool, device=dev)
+        self._first_exit0 = torch.full((b,), self._n_exits,
+                                       dtype=torch.int64, device=dev)
+        self._segments = model.decode_segments
+        self.stage_calls: Dict[str, int] = {}
+        if cfg.segmented:
+            for name in self._stage_names():
+                self.stage_calls[name] = 0
+        self.cache = self._init_cache()
+
+    def _init_cache(self):
+        cfg = self.cfg
+        if cfg.paged:
+            return self.model.init_decode_cache_paged(
+                cfg.n_slots, self.page_alloc.n_pages, cfg.page_size)
+        return self.model.init_decode_cache(cfg.n_slots, cfg.max_len)
+
+    def _stage_names(self) -> List[str]:
+        names = []
+        for seg in self._segments:
+            names.append(f"segment{seg.index}")
+            if seg.exit_index is not None:
+                names.append(f"probe{seg.exit_index}")
+        names.append("finalize")
+        return names
+
+    def _upload(self, arr: np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _tbl_dev(self):
+        """Device copy of the block table, re-uploaded only when a host-side
+        allocation or release changed it."""
+        if self._tbl_dirty:
+            self._tbl_device = self._upload(self._tbl)
+            self._tbl_dirty = False
+        return self._tbl_device
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        toks = np.asarray(req.tokens).reshape(-1)
+        if toks.size < 1 or req.max_new < 1:
+            raise ValueError("empty prompt or max_new < 1")
+        if toks.size + req.max_new > self.cfg.max_len:
+            raise ValueError(f"prompt {toks.size} + max_new {req.max_new} "
+                             f"exceeds max_len {self.cfg.max_len}")
+        req.tokens = toks.astype(np.int32)
+        if req.req_id < 0:
+            req.req_id = self.n_submitted
+        req.t_submit = time.time()
+        self.n_submitted += 1
+        self.queue.append(req)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or bool(self.active.any()) \
+            or self._pending is not None
+
+    def tick(self) -> bool:
+        """One admission/prefill/decode round; False = idle."""
+        return self.poll().worked
+
+    def poll(self) -> StepReport:
+        """One scheduler round: begin an admission if slots are free,
+        advance at most ``max_prefill_chunks_per_step`` prefill chunks, then
+        run one pool decode step."""
+        t_poll = time.perf_counter()
+        self._dev_s = 0.0
+        rep = self.prefill_poll()
+        done_before = len(self.completed)
+        rep.decode_stepped = self.step()
+        rep.n_active = self._last_step_active
+        if rep.decode_stepped:
+            rep.decode_segments_run = self._last_segments_run
+            rep.decode_depth_frac = self._last_depth_frac
+        rep.completed += self.completed[done_before:]
+        rep.device_ms = self._dev_s * 1e3
+        rep.host_ms = (time.perf_counter() - t_poll) * 1e3 - rep.device_ms
+        self.host_ms_total += rep.host_ms
+        self.device_ms_total += rep.device_ms
+        return rep
+
+    def prefill_poll(self) -> StepReport:
+        """Admission + chunked prefill only — no decode step."""
+        rep = StepReport()
+        done_before = len(self.completed)
+        if self._pending is None:
+            rep.admitted = self._begin_admit()
+        if self._pending is not None:
+            self._advance_prefill(self.cfg.max_prefill_chunks_per_step, rep)
+        rep.completed = self.completed[done_before:]
+        return rep
+
+    def run(self):
+        """Drain the queue and all slots to completion."""
+        while self.has_work:
+            if not self.poll().worked:  # pragma: no cover - defensive
+                break
+        self.flush_counters()
+
+    # ------------------------------------------------------------------
+    # admission: chunked prefill into freed slots
+    # ------------------------------------------------------------------
+    def _reserve_pages(self, slot: int, r: Request) -> Optional[int]:
+        """Paged admission: reserve the slot's whole page budget (prompt +
+        max_new), borrowing shared prefix pages from the radix tree first.
+        Returns the replay start token, or None when the pool cannot fit
+        the request (the caller defers it, head-of-line)."""
+        P = self.page_alloc.page_size
+        plen = r.tokens.size
+        total = -(-(plen + r.max_new) // P)
+        digests = chunk_digests(r.tokens, P)
+        shared: List[int] = []
+        if self.prefix_cache is not None:
+            # the last prompt token always replays, so its logits are real
+            shared = self.prefix_cache.match(digests[:(plen - 1) // P],
+                                             r.tokens)
+        need = total - len(shared)
+        if self.page_alloc.free_count < need and self.prefix_cache is not None:
+            self.prefix_cache.evict_until(need)
+        if self.page_alloc.free_count < need:
+            for pg in shared:
+                self.page_alloc.release(pg)
+            return None
+        row = shared + self.page_alloc.alloc(need)
+        self._tbl[slot, :total] = row
+        self._tbl[slot, total:] = self.page_alloc.n_pages
+        self._tbl_dirty = True
+        self._slot_digests[slot] = digests
+        self.prefix_hit_tokens += len(shared) * P
+        return len(shared) * P
+
+    def _begin_admit(self) -> List[Request]:
+        """Reserve free slots for queued requests and stage their prompts
+        as a pending chunked prefill (paged arenas prefill straight into
+        their reserved pages; contiguous ones into a private cache)."""
+        free = [i for i in range(self.cfg.n_slots) if self.slot_req[i] is None]
+        if not free or not self.queue:
+            return []
+        take: List[int] = []
+        reqs: List[Request] = []
+        starts: Dict[int, int] = {}
+        for slot in free:
+            if not self.queue:
+                break
+            r = self.queue[0]
+            if self.page_alloc is not None:
+                st = self._reserve_pages(slot, r)
+                if st is None:
+                    break              # pool full: defer, keep FIFO order
+                starts[slot] = st
+            self.queue.popleft()
+            take.append(slot)
+            reqs.append(r)
+        if not reqs:
+            return []
+        b, chunk = self.cfg.n_slots, self.cfg.prefill_chunk
+        n_chunks = -(-max(r.tokens.size for r in reqs) // chunk)
+        tokens = np.zeros((b, n_chunks * chunk), np.int32)
+        lengths = np.zeros(b, np.int32)
+        admit = np.zeros(b, bool)
+        start = np.zeros(b, np.int32)
+        now = time.time()
+        for slot, r in zip(take, reqs):
+            tokens[slot, : r.tokens.size] = r.tokens
+            lengths[slot] = r.tokens.size
+            admit[slot] = True
+            start[slot] = starts.get(slot, 0)
+            r.slot, r.t_admit = slot, now
+            self.slot_req[slot] = r
+        fresh = None if self.page_alloc is not None else self._init_cache()
+        self._pending = _PendingPrefill(
+            reqs=reqs, slots=take, tokens=tokens, lengths=lengths,
+            lengths_d=self._upload(lengths), admit=admit, cache=fresh,
+            last=torch.zeros((b, self._vocab), dtype=torch.float32,
+                             device=self.device),
+            n_chunks=n_chunks, start=start, start_d=self._upload(start))
+        return reqs
+
+    def _prefill_chunk(self, p: _PendingPrefill, lo: int, hi: int):
+        """Replay prompt tokens [lo, hi) of every row: a row writes its
+        cache only while start <= t < length, and the logits of its last
+        real token are carried in ``p.last``."""
+        model = self.model
+        toks = self._upload(p.tokens[:, lo:hi]).long()
+        t_dev = torch.arange(lo, hi, device=self.device)
+        paged = self.page_alloc is not None
+        cache = self.cache if paged else p.cache
+        for i in range(hi - lo):
+            t = t_dev[i]
+            act = (t < p.lengths_d) & (t >= p.start_d)
+            if paged:
+                logits, _, _ = model.decode_step(
+                    self.params, cache, toks[:, i:i + 1], t,
+                    paged=PagedKV(self._tbl_dev(), act))
+            else:
+                logits, _, _ = model.decode_step(
+                    self.params, cache, toks[:, i:i + 1], t, write_mask=act)
+            p.last = torch.where((t == p.lengths_d - 1)[:, None], logits,
+                                 p.last)
+
+    def _chunk_skippable(self, p: _PendingPrefill, lo: int, hi: int) -> bool:
+        """A chunk is skipped when no admitted row has a token to replay
+        in [lo, hi): prefix-cache resident (start >= hi) or past the
+        prompt (length <= lo)."""
+        rows = p.admit
+        return bool(np.all((p.start[rows] >= hi) | (p.lengths[rows] <= lo)))
+
+    def _advance_prefill(self, max_chunks: int, rep: StepReport):
+        """Run up to ``max_chunks`` pending prefill chunks (<= 0 = all);
+        when the last one lands, merge the rows into the pool (contiguous
+        arenas), publish prompt pages to the prefix tree, and go live."""
+        p = self._pending
+        chunk = self.cfg.prefill_chunk
+        paged = self.page_alloc is not None
+        budget = max_chunks if max_chunks > 0 else p.n_chunks
+        ci = p.next_chunk
+        while ci < p.n_chunks and budget > 0:
+            lo, hi = ci * chunk, (ci + 1) * chunk
+            if paged and self._chunk_skippable(p, lo, hi):
+                self.prefill_chunks_skipped += 1
+                ci += 1
+                continue
+            self._prefill_chunk(p, lo, hi)
+            rep.prefill_tokens += int(np.sum(np.clip(
+                np.minimum(p.lengths, hi) - np.maximum(p.start, lo), 0,
+                None)))
+            rep.prefill_chunks += 1
+            budget -= 1
+            ci += 1
+        p.next_chunk = ci
+        if p.next_chunk < p.n_chunks:
+            return
+        if not paged:
+            self.cache = self.model.merge_decode_cache(
+                self._upload(p.admit), p.cache, self.cache)
+        if self.prefix_cache is not None:
+            for slot, r in zip(p.slots, p.reqs):
+                n_full = r.tokens.size // self.page_alloc.page_size
+                if n_full:
+                    self.prefix_cache.insert(
+                        self._slot_digests[slot][:n_full], r.tokens,
+                        [int(pg) for pg in self._tbl[slot, :n_full]])
+        first = torch.argmax(p.last, dim=-1).cpu().numpy()  # one readback
+        for slot, r in zip(p.slots, p.reqs):
+            tok0 = int(first[slot])
+            r.out_tokens.append(tok0)
+            self.positions[slot] = p.lengths[slot]
+            self.current_tok[slot] = tok0
+            self.steps_taken[slot] = 0
+            self.active[slot] = True
+            self.n_admitted += 1
+            if r.eos_id is not None and tok0 == r.eos_id:
+                self._finish(slot)
+        self._pending = None
+        rep.prefill_done = True
+
+    # ------------------------------------------------------------------
+    # decode: one fixed-shape step over the whole pool
+    # ------------------------------------------------------------------
+    def _count_exits(self, logits, first_exit, active):
+        """Greedy tokens + first-exit histogram update (shared by the
+        monolithic step and the segmented finalize)."""
+        greedy = torch.argmax(logits, dim=-1)
+        hist = torch.nn.functional.one_hot(first_exit, self._n_exits + 1)
+        self._counters += torch.sum(hist * active[:, None], dim=0,
+                                    dtype=torch.int32)
+        return greedy
+
+    def _probe(self, exit_index: int, x, alive, first_exit, thr: float):
+        """Exit decision after a segment: fused entropy (no [B,V] logits),
+        normalized by log(V)."""
+        ent = self.model.exit_probe_entropy(self.params, exit_index, x)
+        hit = alive & (ent / float(np.log(float(self._vocab))) < thr)
+        return alive & ~hit, first_exit.masked_fill(hit, exit_index)
+
+    def _step_segmented(self, tokens, positions, active_d, thr):
+        """One decode step through the segment pipeline: run a segment,
+        probe its exit head, drop exited slots from ``alive``, and stop
+        once no *active* slot is alive (the host short-circuit where early
+        exits save compute).  ``alive`` starts all-true: inactive rows
+        compute garbage as in the monolithic step; counters are masked by
+        ``active`` and the short-circuit consults active rows only."""
+        model = self.model
+        alive = self._alive0
+        first_exit = self._first_exit0
+        x = model.embed_decode_tokens(self.params, tokens)
+        layers_run = segs_run = 0
+        probing = thr > 0.0            # normalized entropy >= 0: no exits
+        for seg in self._segments:
+            if self.page_alloc is not None:
+                wm = alive & active_d  # stale slots own no pages
+                x, self.cache = model.decode_segment(
+                    self.params, self.cache, x, seg, positions, wm,
+                    paged=PagedKV(self._tbl_dev(), wm), passthrough=alive)
+            else:
+                x, self.cache = model.decode_segment(
+                    self.params, self.cache, x, seg, positions, alive)
+            self.stage_calls[f"segment{seg.index}"] += 1
+            layers_run += seg.layers
+            segs_run += 1
+            if seg.exit_index is None or not probing:
+                continue
+            alive, first_exit = self._probe(seg.exit_index, x, alive,
+                                            first_exit, thr)
+            self.stage_calls[f"probe{seg.exit_index}"] += 1
+            # the intended per-probe read: stop once every active slot exited
+            if not bool((alive & active_d).any()):
+                break
+        logits = model.finalize_decode(self.params, x)
+        greedy = self._count_exits(logits, first_exit, active_d)
+        self.stage_calls["finalize"] += 1
+        self._last_segments_run = segs_run
+        self._last_depth_frac = layers_run / max(1, model.cfg.num_layers)
+        return greedy
+
+    def _step_monolithic(self, tokens, positions, active_d, thr):
+        paged = (PagedKV(self._tbl_dev(), active_d)
+                 if self.page_alloc is not None else None)
+        logits, ee, self.cache = self.model.decode_step(
+            self.params, self.cache, tokens, positions, paged=paged)
+        if self._n_exits:
+            idx = first_exit_index(ee, thr, self._vocab)
+        else:
+            idx = torch.zeros(tokens.shape[0], dtype=torch.int64,
+                              device=self.device)
+        self._last_segments_run = len(self._segments)
+        self._last_depth_frac = 1.0
+        return self._count_exits(logits, idx, active_d)
+
+    def step(self) -> bool:
+        self._last_step_active = int(self.active.sum())
+        if not self.active.any():
+            return False
+        thr = self.cfg.exit_threshold
+        host = np.stack([self.current_tok.astype(np.int64), self.positions,
+                         self.active.astype(np.int64)])
+        dev = self._upload(host)                   # one upload per step
+        tokens = dev[0][:, None]
+        positions = dev[1].to(torch.int32)
+        active_d = dev[2].bool()
+        if self.cfg.segmented:
+            greedy = self._step_segmented(tokens, positions, active_d, thr)
+        else:
+            greedy = self._step_monolithic(tokens, positions, active_d, thr)
+        t0 = time.perf_counter()
+        nxt = greedy.cpu().numpy()                 # one readback per step
+        self._dev_s += time.perf_counter() - t0
+        self._step_idx += 1
+        n_active = int(self.active.sum())
+        self.tokens_served += n_active
+        self.depth_weighted_tokens += self._last_depth_frac * n_active
+        for slot in np.nonzero(self.active)[0]:
+            r = self.slot_req[slot]
+            self.steps_taken[slot] += 1
+            self.positions[slot] += 1
+            if self.steps_taken[slot] >= r.max_new:
+                self._finish(slot)      # the trailing sample is discarded
+                continue
+            tok = int(nxt[slot])
+            r.out_tokens.append(tok)
+            self.current_tok[slot] = tok
+            if r.eos_id is not None and tok == r.eos_id:
+                self._finish(slot)
+        if self._step_idx % FLUSH_EVERY == 0:
+            self.flush_counters()
+        return True
+
+    def _release_slot_pages(self, slot: int):
+        """Drop the slot's block-table references; pages the prefix tree
+        also holds stay resident for later prefix hits."""
+        if self.page_alloc is None:
+            return
+        sentinel = self.page_alloc.n_pages
+        for pg in self._tbl[slot]:
+            if pg != sentinel:
+                self.page_alloc.release(int(pg))
+        self._tbl[slot] = sentinel
+        self._tbl_dirty = True
+        self._slot_digests[slot] = []
+
+    def _finish(self, slot: int):
+        r = self.slot_req[slot]
+        r.done, r.t_done = True, time.time()
+        self.completed.append(r)
+        self.slot_req[slot] = None
+        self.active[slot] = False
+        self._release_slot_pages(slot)
+
+    # ------------------------------------------------------------------
+    # exit statistics
+    # ------------------------------------------------------------------
+    def flush_counters(self) -> np.ndarray:
+        """Read the cumulative device exit histogram back to the host."""
+        self.exit_counts = self._counters.cpu().numpy().astype(np.int64)
+        return self.exit_counts
+
+    def reset_stats(self):
+        """Zero served-token accounting and exit counters (e.g. after a
+        warm-up request, so reports cover only the real trace)."""
+        self._counters.zero_()
+        self.exit_counts = np.zeros(self._n_exits + 1, np.int64)
+        self.tokens_served = 0
+        self.depth_weighted_tokens = 0.0
+        for name in self.stage_calls:
+            self.stage_calls[name] = 0
+        self.host_ms_total = 0.0
+        self.device_ms_total = 0.0
+        self.completed.clear()
+
+    def measured_depth_fraction(self) -> float:
+        """Layer-weighted fraction of the stack dispatched per token."""
+        if not self.tokens_served:
+            return 1.0
+        return self.depth_weighted_tokens / self.tokens_served
+
+    def exit_stats(self) -> Dict[str, float]:
+        self.flush_counters()
+        st = exit_stats_dict(self.exit_counts, self.tokens_served)
+        st["measured_depth"] = self.measured_depth_fraction()
+        return st

@@ -1,0 +1,89 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Imports only torch and the port, so it runs where JAX is absent:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Every test is marked ``gpu`` and skips where there is no card; whether
+there is one is decided when a test runs, never at import.
+
+Tolerances: the paged attention output is bf16 and both versions
+accumulate in fp32 and round once (one bf16 ulp at |out| < 4 is 2^-6);
+the entropy is fp32 summed in another order (1e-4 at small D, 1e-3 at
+D = 2048).
+"""
+import math
+
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _paged(dev, b, nq, nkv, hd, page=16, pps=8, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = b * pps + 3
+    pos = torch.randint(0, pps * page, (b,), generator=g, device=dev,
+                        dtype=torch.int32)
+    perm = torch.randperm(n_pages, generator=g, device=dev).to(torch.int32)
+    tbl = perm[:b * pps].reshape(b, pps).clone()
+    cols = torch.arange(pps, device=dev)[None, :]
+    tbl = torch.where(cols < (pos.long() // page + 1)[:, None], tbl,
+                      torch.full_like(tbl, n_pages))
+    q = torch.randn(b, 1, nq, hd, generator=g, device=dev).bfloat16()
+    pk = torch.randn(n_pages, page, nkv, hd, generator=g,
+                     device=dev).bfloat16()
+    pv = torch.randn(n_pages, page, nkv, hd, generator=g,
+                     device=dev).bfloat16()
+    return q, pk, pv, tbl, pos
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_gqa_kernel_matches_plain(cuda, group, hd):
+    args = _paged(cuda, 5, 2 * group, 2, hd, seed=group + hd)
+    n0 = ops.LAUNCHES["paged_gqa_attention"]
+    got = ops.paged_gqa_attention(*args)
+    want = ref.paged_gqa_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_gqa_attention"] == n0 + 1
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
+
+
+@pytest.mark.parametrize("t,d,v", [(16, 2048, 49155), (37, 96, 1000),
+                                   (1, 300, 513), (16, 256, 1024)])
+def test_exit_head_kernel_matches_plain(cuda, t, d, v):
+    g = torch.Generator(device=cuda).manual_seed(t + d + v)
+    x = torch.randn(t, d, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(d, v, generator=g, device=cuda)
+         / math.sqrt(d)).bfloat16()
+    n0 = ops.LAUNCHES["exit_head_entropy"]
+    got = ops.exit_head_entropy(x, w)
+    want = ref.exit_head_entropy_ref(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["exit_head_entropy"] == n0 + 1
+    tol = 1e-3 if d >= 2048 else 1e-4
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    q, pk, pv, tbl, pos = _paged(cuda, 2, 4, 2, 64)
+    with pytest.raises(ValueError):
+        ops.paged_gqa_attention(q.float(), pk, pv, tbl, pos)
+    with pytest.raises(ValueError):
+        ops.paged_gqa_attention(q, pk, pv, tbl.long(), pos)
+    with pytest.raises(ValueError):             # no instance for page 8
+        ops.paged_gqa_attention(q, pk[:, :8].contiguous(),
+                                pv[:, :8].contiguous(), tbl, pos)
+    x = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(ValueError):
+        ops.exit_head_entropy(x, torch.zeros(8, 5, device=cuda))

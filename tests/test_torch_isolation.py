@@ -1,0 +1,68 @@
+"""The port stands alone: importing every module of ``repro_torch`` and the
+chip smoke script loads no JAX and nothing of the reference package, and
+the entry points run on the card unless the caller asks for the CPU."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, {repo!r})
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
+             or m == "repro")
+print(len(names))
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15      # every submodule walked
+
+
+def test_entry_points_default_to_cuda():
+    """Without a card, every entry point called without ``device=`` raises
+    instead of falling back to the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_poisson
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatchScheduler
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the defaults would run on it")
+    cfg = get_config("granite-3-2b-smoke")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
+    cpu_model = Model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatchScheduler(cpu_model, cpu_model.init(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_poisson("granite-3-2b-smoke", n_requests=1)
+
+
+def test_no_import_line_names_jax_or_reference():
+    """Static twin of the subprocess check: no import statement of the
+    port or of chip_smoke.py names jax or the reference package."""
+    import re
+    pat = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "src", "repro_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(open(f, encoding="utf-8"), 1)
+            if pat.match(line)]
+    assert not hits, hits
