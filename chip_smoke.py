@@ -15,7 +15,15 @@ Phases, each fatal on failure:
      weights) serving a Poisson trace through ``serve_poisson`` with the
      paged KV arena and depth-segmented decode; both kernels' launch counts
      must go up, and each kernel is held against its plain version again on
-     inputs captured from that run.
+     inputs captured from that run;
+  5. the tiered path at full width: granite-3-2b behind the cloud/edge/
+     device cluster with an edge outage mid-trace, once through
+     ``serve_tiered_poisson`` (contiguous arenas, handoff chosen per link)
+     and once through ``TieredServingCluster`` with paged arenas and a
+     forced int8 handoff; every request must complete, in-flight slots must
+     migrate, and all four kernels must launch during the second run; the
+     int8 kernels are held against their plain versions again on a leaf
+     captured from a live export.
 Prints the per-kernel JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside this file.
@@ -39,6 +47,8 @@ PAGED_TOL = 1e-2   # bf16 output: both accumulate in fp32 and round once;
                    # one bf16 ulp of |out| < 2 is at most 2^-7 = 0.0078
 ENT_TOL = 1e-3     # fp32 entropy (~log V = 10.8) from fp32 sums over
                    # D = 2048 products taken in another order
+# the int8 kernels are held bit for bit: the same formula, one IEEE
+# division and one rounding per element, and no sum whose order can differ
 LOGIT_TOL = 3e-2   # logits are bf16 matmul results: cuBLAS and the CPU
                    # round a few bf16 ulps (2^-7 at |logit| ~ 1) apart
 
@@ -129,6 +139,49 @@ def sdpa_gathered(F, torch):
     def call(q, k, v, mask):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     return prep, call
+
+
+def quant_bound(x):
+    t, d = x.shape
+    return bound(x.numel() * x.element_size() + t * d + 4 * t, 4 * t * d)
+
+
+def dequant_bound(q, out_dtype_bytes):
+    t, d = q.shape
+    return bound(t * d + 4 * t + t * d * out_dtype_bytes, t * d)
+
+
+def bits_equal(torch, a, b):
+    """Bitwise equality of two tensors of one dtype and shape."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    if a.dtype in view:
+        a, b = a.view(view[a.dtype]), b.view(view[b.dtype])
+    return bool(torch.equal(a, b))
+
+
+def check_quant_pair(torch, ops, ref, x, out_dtype, label):
+    """Both int8 kernels against their plain versions on ``x``; fails on
+    any bit that differs.  Returns the max abs difference (0.0)."""
+    q, s = ops.compress_rows(x)
+    qr, sr = ref.quantize_rows_ref(x)
+    y = ops.decompress_rows(q, s, dtype=out_dtype)
+    yr = ref.dequantize_rows_ref(qr, sr, out_dtype)
+    torch.cuda.synchronize()
+    ok = (bits_equal(torch, q, qr) and bits_equal(torch, s, sr)
+          and bits_equal(torch, y, yr))
+    err = max((q.int() - qr.int()).abs().max().item() if q.numel() else 0,
+              (s - sr).abs().max().item() if s.numel() else 0.0,
+              (y.float() - yr.float()).abs().max().item() if y.numel()
+              else 0.0)
+    print(f"  {label} {tuple(x.shape)} {x.dtype} -> {out_dtype}: "
+          f"{'bit-exact' if ok else 'MISMATCH'} (max abs diff {err:.3e})")
+    if not ok:
+        bad = (q != qr).nonzero()[:5].tolist()
+        fail(f"int8 kernels disagree with their plain versions on {label}: "
+             f"first differing q entries {bad}")
+    return float(err)
 
 
 def entropy_library(torch):
@@ -229,6 +282,55 @@ def main(argv=None):
     print(f"  {json.dumps(results['exit_head_entropy'])}")
     del x, w
 
+    # int8 handoff kernels: one full-width granite-3-2b slot leaf at 2048
+    # tokens (40 layers x 128 pages x 16 tokens x 8 kv heads rows of 64),
+    # one row per hidden state at [4096, 2048] fp32, a zero row, a ragged D
+    print("int8 handoff kernels against their plain versions "
+          "(tolerance: bit-exact)")
+    leaf = torch.randn(40 * 128 * 16 * 8, 64, generator=gen,
+                       device="cuda").bfloat16()
+    hid = torch.randn(4096, 2048, generator=gen, device="cuda") \
+        * torch.rand(4096, 1, generator=gen, device="cuda") * 8
+    zero = torch.zeros(3, 64, device="cuda").bfloat16()
+    zero[1] = torch.randn(64, generator=gen, device="cuda").bfloat16()
+    ragged = torch.randn(777, 100, generator=gen, device="cuda")
+    q_err = max(check_quant_pair(torch, ops, ref, leaf, torch.bfloat16,
+                                 "slot leaf"),
+                check_quant_pair(torch, ops, ref, hid, torch.float32,
+                                 "hidden rows"),
+                check_quant_pair(torch, ops, ref, zero, torch.bfloat16,
+                                 "zero rows"),
+                check_quant_pair(torch, ops, ref, ragged, torch.bfloat16,
+                                 "D = 100"))
+    qz, sz = ops.compress_rows(zero)
+    if not (bool((qz[0] == 0).all()) and bool((qz[2] == 0).all())
+            and sz[0].item() == sz[2].item() == torch.tensor(1e-8).item()):
+        fail("a zero row must quantize to q = 0 with scale exactly 1e-8")
+    q_leaf, s_leaf = ops.compress_rows(leaf)
+    bound_ms, by = quant_bound(leaf)
+    results["quantize_rows"] = {
+        "max_abs_err": q_err,
+        "ms": device_ms(torch, ops.compress_rows, [(leaf,)]),
+        "plain_ms": device_ms(torch, ref.quantize_rows_ref, [(leaf,)]),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": by}
+    print(f"  quantize_rows {json.dumps(results['quantize_rows'])}")
+
+    def dequant(q, s):
+        return ops.decompress_rows(q, s, dtype=torch.bfloat16)
+
+    def dequant_plain(q, s):
+        return ref.dequantize_rows_ref(q, s, torch.bfloat16)
+    bound_ms, by = dequant_bound(q_leaf, 2)
+    results["dequantize_rows"] = {
+        "max_abs_err": q_err,
+        "ms": device_ms(torch, dequant, [(q_leaf, s_leaf)]),
+        "plain_ms": device_ms(torch, dequant_plain, [(q_leaf, s_leaf)]),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": by}
+    print(f"  dequantize_rows {json.dumps(results['dequantize_rows'])}")
+    print("  library_ms: none (no single PyTorch call computes either "
+          "function)")
+    del leaf, hid, q_leaf, s_leaf
+
     # ---- phase 3: small-input reference, card vs CPU ------------------
     check_smoke_vs_cpu(torch)
 
@@ -271,8 +373,8 @@ def main(argv=None):
     ops.exit_head_entropy = orig["exit_head_entropy"]
     print(f"  launches during the main path: {launches} ({wall:.1f}s "
           f"including model init and warm-up)")
-    for kname, n in launches.items():
-        if n <= 0:
+    for kname in ("paged_gqa_attention", "exit_head_entropy"):
+        if launches[kname] <= 0:
             fail(f"kernel {kname} was not launched on the main path")
     outs = stats.pop("outputs")
     if len(outs) != 32 or any(len(o) != 32 for o in outs):
@@ -291,6 +393,7 @@ def main(argv=None):
     if stats["prefix_hit_tokens"] <= 0:
         fail("the shared prefix never hit the prefix cache")
 
+    main_launches = launches
     # each kernel again on inputs captured from the live run
     for kname, tol, plain in (
             ("paged_gqa_attention", PAGED_TOL, ref.paged_gqa_attention_ref),
@@ -308,18 +411,31 @@ def main(argv=None):
         results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"],
                                             err)
 
+    # ---- phase 5: the tiered path at full width ----------------------
+    tiered, tier_launches = run_tiered(torch, ops, ref, results)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
                                 "src/repro/kernels/paged_attention.py:82"),
         "exit_head_entropy": ("src/repro_torch/kernels/csrc/exit_head.cu",
                               "src/repro/kernels/exit_head.py:55"),
+        "quantize_rows": ("src/repro_torch/kernels/csrc/feature_compress.cu",
+                          "src/repro/kernels/feature_compress.py:34"),
+        "dequantize_rows": ("src/repro_torch/kernels/csrc/"
+                            "feature_compress.cu",
+                            "src/repro/kernels/feature_compress.py:60"),
     }
+    # launches: each kernel's count on the path that carries it (phase 4
+    # for attention and the exit probe, phase 5's int8 run for the handoff)
+    path_launches = dict(main_launches)
+    path_launches["quantize_rows"] = tier_launches["quantize_rows"]
+    path_launches["dequantize_rows"] = tier_launches["dequantize_rows"]
     kernels = []
     for kname, r in results.items():
         source, repl = replaces[kname]
         kernels.append({"name": kname, "route": "cuda", "source": source,
-                        "replaces": repl, "launches": launches[kname],
+                        "replaces": repl, "launches": path_launches[kname],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -329,12 +445,133 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card_line, "kernels": kernels,
-                       "serve": stats}, f, indent=1)
+                       "serve": stats, "tiered": tiered}, f, indent=1)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+TIER_TRACE = dict(rate=100.0, n_requests=8, base_slots=2, prompt_len=12,
+                  max_new=8, seed=0)
+
+
+def run_tiered(torch, ops, ref, results):
+    """Phase 5: granite-3-2b at full width behind the tiered cluster with
+    an edge outage, twice (see the module docstring).  Returns the two
+    runs' summaries and the launch counts of the int8 run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import Scenario
+    from repro_torch.launch.serve import poisson_trace, serve_tiered_poisson
+    from repro_torch.models import Model
+    from repro_torch.serving.cluster import ClusterConfig, TieredServingCluster
+    cfg = get_config("granite-3-2b")
+    model = Model(cfg, device="cuda")
+    params = model.init(0)
+    tr = TIER_TRACE
+    print(f"tiered path: granite-3-2b, 40 layers, random weights (seed 0), "
+          f"{tr['n_requests']} requests, prompts {tr['prompt_len'] // 4}-"
+          f"{tr['prompt_len']} tokens, max_new {tr['max_new']}, cloud pool "
+          f"{tr['base_slots']} slots; latencies below are modelled by the "
+          f"planners' tier profiles (virtual clocks), not measured")
+    summaries = {}
+
+    def summarize(label, st, wall, launches):
+        mig = st["migration"]
+        tok_s = st["tokens"] / wall
+        print(f"  {label}: routes {st['route_counts']} splits "
+              f"{st['splits']}, dead {st.get('dead_tiers')}, migration "
+              f"{json.dumps(mig)}")
+        print(f"    bytes moved {mig['bytes_moved']:.0f} of raw "
+              f"{mig['bytes_raw']:.0f}; measured wall {wall:.2f} s, "
+              f"{st['tokens']} tokens, {tok_s:.2f} tok/s (host clock); "
+              f"modelled virtual p50 {st['p50_latency_s'] * 1e3:.1f} ms, "
+              f"p95 {st['p95_latency_s'] * 1e3:.1f} ms; launches {launches}")
+        if st["completed"] != tr["n_requests"]:
+            fail(f"{label}: {st['completed']} of {tr['n_requests']} "
+                 f"requests completed")
+        if st.get("dead_tiers") != ["edge"]:
+            fail(f"{label}: dead tiers {st.get('dead_tiers')}, not ['edge']")
+        if mig["outage_migrations"] < 1:
+            fail(f"{label}: no slot migrated off the dead tier")
+        if any(len(o) != tr["max_new"] for o in st["outputs"]) or any(
+                not (0 <= t < cfg.vocab_size) for o in st["outputs"]
+                for t in o):
+            fail(f"{label}: a request's tokens are missing or out of range")
+        summaries[label] = {"wall_s": wall, "tokens": st["tokens"],
+                            "tok_s": tok_s, "route_counts":
+                            st["route_counts"], "migration": mig,
+                            "virtual_p50_s": st["p50_latency_s"],
+                            "virtual_p95_s": st["p95_latency_s"],
+                            "launches": launches}
+
+    # run 1: the normal entry point (contiguous arenas, handoff per link)
+    ops.reset_launches()
+    t0 = time.time()
+    st = serve_tiered_poisson("granite-3-2b", scenario="tier-outage",
+                              params=params, device="cuda", quiet=True,
+                              **tr)
+    torch.cuda.synchronize()
+    summarize("run 1 serve_tiered_poisson (contiguous, kv_handoff auto)",
+              st, time.time() - t0, dict(ops.LAUNCHES))
+
+    # run 2: paged arenas and a forced int8 handoff, on the same trace
+    rs = np.random.RandomState(tr["seed"])
+    arrivals, lengths = poisson_trace(rs, tr["rate"], tr["n_requests"],
+                                      tr["prompt_len"])
+    prompts = [rs.randint(0, cfg.vocab_size, int(n)) for n in lengths]
+    max_len = tr["prompt_len"] + tr["max_new"]
+    max_len += (-max_len) % 16
+    captured = {}
+    orig = {"compress_rows": ops.compress_rows,
+            "decompress_rows": ops.decompress_rows}
+
+    def capture(kname):
+        def wrapper(*a, **kw):
+            if kname not in captured and a[0].numel():
+                captured[kname] = (tuple(t.clone() for t in a), kw)
+            return orig[kname](*a, **kw)
+        return wrapper
+    ops.compress_rows = capture("compress_rows")
+    ops.decompress_rows = capture("decompress_rows")
+    cluster = TieredServingCluster(
+        model, params, Scenario.tier_outage("edge", at=0.03),
+        plan_cfg=cfg,
+        cfg=ClusterConfig(base_slots=tr["base_slots"], max_len=max_len,
+                          prefill_chunk=tr["prompt_len"], kv_handoff="int8",
+                          paged=True,
+                          page_size=16))
+    crs = [cluster.submit(p, max_new=tr["max_new"], arrival=float(a))
+           for p, a in zip(prompts, arrivals)]
+    ops.reset_launches()
+    t0 = time.time()
+    cluster.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    ops.compress_rows = orig["compress_rows"]
+    ops.decompress_rows = orig["decompress_rows"]
+    st = cluster.stats()
+    st["outputs"] = [list(cr.req.out_tokens) for cr in crs]
+    st["tokens"] = sum(len(o) for o in st["outputs"])
+    summarize("run 2 TieredServingCluster (paged, kv_handoff int8)", st,
+              wall, launches)
+    if st["migration"]["compressed"] < 1:
+        fail("run 2: no handoff went through the int8 kernels")
+    for kname, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {kname} was not launched on the tiered path")
+    if "compress_rows" not in captured:
+        fail("no live export was captured")
+    (x,), _ = captured["compress_rows"]
+    err = check_quant_pair(torch, ops, ref, x, x.dtype, "live export leaf")
+    for kname in ("quantize_rows", "dequantize_rows"):
+        results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"],
+                                            err)
+    del model, params, cluster
+    return summaries, launches
 
 
 def check_smoke_vs_cpu(torch):

@@ -24,11 +24,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {
     "paged_attention": CSRC / "paged_attention.cu",
     "exit_head": CSRC / "exit_head.cu",
+    "feature_compress": CSRC / "feature_compress.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points of each library: name -> (argtypes, restype)
 SIGNATURES = {
     "paged_attention": {
@@ -39,6 +41,10 @@ SIGNATURES = {
     "exit_head": {
         "repro_exit_head_block_v": ([], _I),
         "repro_exit_head_entropy": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    },
+    "feature_compress": {
+        "repro_quantize_rows": ([_P, _I, _P, _P, _L, _I, _P], _I),
+        "repro_dequantize_rows": ([_P, _P, _P, _I, _L, _I, _P], _I),
     },
 }
 

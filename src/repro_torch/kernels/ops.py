@@ -12,10 +12,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import exit_head as _exit
+from repro_torch.kernels import feature_compress as _fc
 from repro_torch.kernels import paged_attention as _pattn
 from repro_torch.kernels import ref
 
-LAUNCHES = {"paged_gqa_attention": 0, "exit_head_entropy": 0}
+LAUNCHES = {"paged_gqa_attention": 0, "exit_head_entropy": 0,
+            "quantize_rows": 0, "dequantize_rows": 0}
 
 
 def reset_launches() -> None:
@@ -90,3 +92,48 @@ def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):
     out = _pattn.attention_cuda(q, pool_k, pool_v, tbl, pos)
     LAUNCHES["paged_gqa_attention"] += 1
     return out
+
+
+def compress_rows(x):
+    """x [..., D] fp32/bf16 -> (q int8 [..., D], scale fp32 [..., 1]), per
+    row: scale = max(amax * fl(1/127), 1e-8), q = round_half_even(x /
+    scale) clipped to +-127.  Zero rows launch nothing."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, d)
+    if not _on_card(x2):
+        q, s = ref.quantize_rows_ref(x2)
+        return q.reshape(*lead, d), s.reshape(*lead, 1)
+    _require(x2.dtype in (torch.float32, torch.bfloat16),
+             f"compress_rows takes fp32 or bf16, got {x2.dtype}")
+    _require(d > 0, "compress_rows on rows of width 0")
+    _require(x.is_contiguous(), "compress_rows takes contiguous rows")
+    if x2.shape[0] == 0:
+        return (torch.empty((*lead, d), dtype=torch.int8, device=x.device),
+                torch.empty((*lead, 1), dtype=torch.float32, device=x.device))
+    q, s = _fc.quantize_cuda(x2)
+    LAUNCHES["quantize_rows"] += 1
+    return q.reshape(*lead, d), s.reshape(*lead, 1)
+
+
+def decompress_rows(q, scale, dtype=torch.bfloat16):
+    """(q int8 [..., D], scale fp32 [..., 1]) -> x [..., D] ``dtype``:
+    float(q) * scale rounded once to ``dtype``.  Zero rows launch nothing."""
+    lead, d = q.shape[:-1], q.shape[-1]
+    q2 = q.reshape(-1, d)
+    s2 = scale.reshape(-1, 1)
+    if not _on_card(q2, s2):
+        return ref.dequantize_rows_ref(q2, s2, dtype).reshape(*lead, d)
+    _require(q2.dtype == torch.int8 and s2.dtype == torch.float32,
+             f"decompress_rows takes int8 q and fp32 scales, got "
+             f"{q2.dtype} / {s2.dtype}")
+    _require(dtype in (torch.float32, torch.bfloat16),
+             f"decompress_rows writes fp32 or bf16, not {dtype}")
+    _require(tuple(scale.shape) == (*lead, 1) and d > 0,
+             f"decompress_rows q {tuple(q.shape)} scale {tuple(scale.shape)}")
+    _require(q.is_contiguous() and scale.is_contiguous(),
+             "decompress_rows takes contiguous q and scales")
+    if q2.shape[0] == 0:
+        return torch.empty((*lead, d), dtype=dtype, device=q.device)
+    out = _fc.dequantize_cuda(q2, s2, dtype)
+    LAUNCHES["dequantize_rows"] += 1
+    return out.reshape(*lead, d)

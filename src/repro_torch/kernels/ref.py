@@ -14,6 +14,9 @@ import math
 import torch
 
 NEG_INF = -1e30
+# 1/127 rounded once to fp32: the reference kernel's `amax / 127.0` runs as
+# a multiplication by this reciprocal under XLA (see feature_compress.cu)
+INV127 = float(torch.tensor(1.0) / torch.tensor(127.0))
 
 
 def exit_head_entropy_ref(x, w):
@@ -43,3 +46,19 @@ def paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bngst,btnh->bsngh", p, cv.float())
     return out.reshape(b, 1, nq, hd).to(q.dtype)
+
+
+def quantize_rows_ref(x):
+    """x [..., D] fp32/bf16 -> (q int8 [..., D], scale fp32 [..., 1]):
+    scale = max(amax * fl(1/127), 1e-8), q = clip(round_half_even(x /
+    scale), +-127).  ``torch.round`` rounds half to even, like jnp.round."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax * INV127, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def dequantize_rows_ref(q, scale, dtype=torch.bfloat16):
+    """(q int8 [..., D], scale fp32 [..., 1]) -> x [..., D] ``dtype``."""
+    return (q.float() * scale).to(dtype)

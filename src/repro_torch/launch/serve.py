@@ -1,14 +1,21 @@
-"""Open-loop Poisson serving through the port's continuous-batching
-scheduler (single pool).
+"""Open-loop Poisson serving through the port: one continuous-batching
+pool, or the tiered cloud/edge/device cluster.
 
     python -m repro_torch.launch.serve --arch granite-3-2b --paged \\
         --requests 32 --slots 16 --prompt-len 256 --max-new 32
+    python -m repro_torch.launch.serve --arch granite-3-2b-smoke \\
+        --device cpu --tiered --scenario tier-outage --requests 8 \\
+        --slots 2 --prompt-len 12 --max-new 8
 
 Requests arrive at Poisson times (seeded), prompts are uniform in
-``[prompt_len // 4, prompt_len]`` tokens, and ``prefix_share`` of them begin
-with one common ``prefix_len``-token prefix (so the paged arena's prefix
-cache can hit).  Reports p50/p95 request latency and sustained tok/s on the
-host clock, around work that ends with the per-step token readback.
+``[prompt_len // 4, prompt_len]`` tokens.  Single pool: ``prefix_share``
+of them begin with one common ``prefix_len``-token prefix (so the paged
+arena's prefix cache can hit); reports p50/p95 request latency and
+sustained tok/s on the host clock, around work that ends with the
+per-step token readback.  Tiered (``--tiered``): the admission router
+places each request on a tier pool; latencies are on the tiers' virtual
+clocks (modelled by the planners' tier profiles, not measured), and the
+wall time of the whole run is on the host clock.
 """
 from __future__ import annotations
 
@@ -18,9 +25,17 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.core import Scenario
 from repro_torch.models.model import Model
+from repro_torch.serving.cluster import ClusterConfig, TieredServingCluster
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
                                            SchedulerConfig)
+
+SCENARIOS = {"default": Scenario.default,
+             "degraded-wan": Scenario.degraded_wan,
+             "neurosurgeon-era": Scenario.neurosurgeon_era,
+             "high-rtt-access": Scenario.high_rtt_access,
+             "tier-outage": Scenario.tier_outage}
 
 
 def poisson_trace(rs: np.random.RandomState, rate: float, n_requests: int,
@@ -127,6 +142,88 @@ def serve_poisson(arch: str, *, rate: float = 4.0, n_requests: int = 32,
     return stats
 
 
+def _print_migration(stats):
+    """Migration and resilience lines of the tiered driver."""
+    mig = stats.get("migration", {})
+    if mig.get("split_handoffs") or mig.get("outage_migrations") \
+            or mig.get("requeued"):
+        print(f"  migration: splits={mig['split_handoffs']} "
+              f"outage={mig['outage_migrations']} "
+              f"requeued={mig['requeued']} "
+              f"moved={mig['bytes_moved'] / 1024:.0f}KiB "
+              f"(raw {mig['bytes_raw'] / 1024:.0f}KiB, "
+              f"{mig['compressed']} int8) "
+              f"modelled transfer={mig['transfer_s'] * 1e3:.1f}ms")
+    res = stats.get("resilience")
+    if res is not None:
+        print(f"  resilience: dead={stats.get('dead_tiers', [])} "
+              f"survive_prob={res['survive_prob']:.2f} "
+              f"acc_with_drain={res['expected_accuracy_with_skip']:.2f} "
+              f"vs_collapse={res['expected_accuracy_without_skip']:.2f} "
+              f"(gain {res['gain']:+.2f})")
+
+
+def serve_tiered_poisson(arch: str, *, rate: float = 4.0,
+                         n_requests: int = 32, base_slots: int = 8,
+                         prompt_len: int = 16, max_new: int = 32,
+                         threshold: float = 0.5, prefill_chunk: int = 16,
+                         scenario: str = "default", plan_arch: str = "",
+                         deadline: float = 0.0, seed: int = 0, params=None,
+                         device="cuda", quiet: bool = False):
+    """Poisson trace through the tiered cluster: the admission router sends
+    each arrival to a cloud/edge/device pool (or a prefill/decode split)
+    with the paradigm planners.  Arrivals and the reported latencies live
+    on the tiers' virtual clocks (modelled), token generation is real
+    execution on ``device``, and ``wall_s`` is the host-clock time of
+    ``run()``.  ``params`` default to ``Model(arch).init(seed)``; the plan
+    config defaults to ``arch`` without ``-smoke``.  Returns the cluster's
+    stats dict plus ``wall_s``, ``tokens`` and each request's outputs."""
+    cfg = get_config(arch)
+    model = Model(cfg, device=device)
+    if params is None:
+        params = model.init(seed)
+    plan_cfg = get_config(plan_arch) if plan_arch else \
+        get_config(arch[:-6] if arch.endswith("-smoke") else arch)
+    cluster = TieredServingCluster(
+        model, params, SCENARIOS[scenario](), plan_cfg=plan_cfg,
+        cfg=ClusterConfig(base_slots=base_slots,
+                          max_len=prompt_len + max_new,
+                          prefill_chunk=min(prefill_chunk,
+                                            max(1, prompt_len)),
+                          exit_threshold=threshold))
+    rs = np.random.RandomState(seed)
+    arrivals, lengths = poisson_trace(rs, rate, n_requests, prompt_len)
+    crs = [cluster.submit(rs.randint(0, cfg.vocab_size, int(n)),
+                          max_new=max_new, arrival=float(arr),
+                          deadline=deadline or None)
+           for arr, n in zip(arrivals, lengths)]
+    t0 = time.time()
+    cluster.run()
+    wall = time.time() - t0
+    stats = cluster.stats()
+    stats["wall_s"] = wall
+    stats["tokens"] = sum(len(cr.req.out_tokens) for cr in crs)
+    stats["outputs"] = [list(cr.req.out_tokens) for cr in crs]
+    if not quiet:
+        print(f"arch={cfg.name} tiered poisson scenario={scenario} "
+              f"rate={rate}/s requests={n_requests} (plan={plan_cfg.name}) "
+              f"device={model.device}")
+        print(f"  routed: {stats['route_counts']} splits={stats['splits']} "
+              f"deadline-hit={stats['deadline_hit_rate']:.2f}")
+        print(f"  modelled virtual p50={stats['p50_latency_s']*1e3:.0f}ms "
+              f"p95={stats['p95_latency_s']*1e3:.0f}ms; measured wall "
+              f"{wall:.2f}s, {stats['tokens'] / wall:.2f} tok/s")
+        for name, ts in stats["tiers"].items():
+            print(f"  {name:6s} slots={ts['n_slots']} "
+                  f"routed={ts['routed']:3d} util={ts['utilization']:.2f} "
+                  f"occupancy={ts['slot_occupancy']:.2f} "
+                  f"depth={ts['measured_depth']:.2f} "
+                  f"p95={ts['p95_latency_s']*1e3:.0f}ms"
+                  + (" DEAD" if ts.get("dead") else ""))
+        _print_migration(stats)
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="granite-3-2b-smoke")
@@ -143,7 +240,21 @@ def main(argv=None):
     ap.add_argument("--prefix-len", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tiered", action="store_true",
+                    help="route through the cloud/edge/device cluster "
+                         "(--slots is the cloud pool's size)")
+    ap.add_argument("--scenario", default="default", choices=sorted(SCENARIOS))
+    ap.add_argument("--plan-arch", default="")
+    ap.add_argument("--deadline", type=float, default=0.0)
     args = ap.parse_args(argv)
+    if args.tiered:
+        serve_tiered_poisson(
+            args.arch, rate=args.rate, n_requests=args.requests,
+            base_slots=args.slots, prompt_len=args.prompt_len,
+            max_new=args.max_new, threshold=args.threshold,
+            scenario=args.scenario, plan_arch=args.plan_arch,
+            deadline=args.deadline, seed=args.seed, device=args.device)
+        return
     serve_poisson(args.arch, rate=args.rate, n_requests=args.requests,
                   slots=args.slots, prompt_len=args.prompt_len,
                   max_new=args.max_new, threshold=args.threshold,

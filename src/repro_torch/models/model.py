@@ -126,22 +126,26 @@ class Model:
         return tree_map(lambda *xs: torch.stack(xs), *per)
 
     def init_decode_cache(self, batch_size: int, seq_len: int, *,
-                          long_mode: bool = False):
-        """Contiguous cache: per block, (k, v) [n_layers, B, S, Nkv, H]."""
+                          long_mode: bool = False, device=None):
+        """Contiguous cache: per block, (k, v) [n_layers, B, S, Nkv, H], on
+        the model's device unless ``device`` names another (the scheduler
+        probes slot-row shapes on ``"meta"``)."""
         clen = self.cache_len_for(seq_len, long_mode)
+        dev = self.device if device is None else device
         return {"blocks": [
             self._stack([B.init_layer_cache(self.cfg, kind, batch_size, clen,
-                                            self.device) for _ in range(n)])
+                                            dev) for _ in range(n)])
             for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]}
 
     def init_decode_cache_paged(self, batch_size: int, n_pages: int,
-                                page_size: int):
+                                page_size: int, *, device=None):
         """Paged cache: per block, (k, v) pools
         [n_layers, n_pages, P, Nkv, H]; slots address them through the
         scheduler's block table, not a batch axis."""
+        dev = self.device if device is None else device
         return {"blocks": [
             self._stack([B.init_layer_cache_paged(
-                self.cfg, kind, batch_size, n_pages, page_size, self.device)
+                self.cfg, kind, batch_size, n_pages, page_size, dev)
                 for _ in range(n)])
             for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]}
 

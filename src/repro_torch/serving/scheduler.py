@@ -20,14 +20,25 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
   the host stops dispatching segments once no active slot is alive.
   ``segmented=False`` runs the monolithic ``decode_step`` instead.
 * **Device exit counters**, flushed to the host every ``flush_every`` steps.
+* **Slot migration**: ``export_slot`` lifts one slot's serving state (cache
+  rows truncated to the written prefix, or the slot's pages in paged
+  arenas, plus position, pending token and request) out of the arena as a
+  ``SlotSnapshot``; ``import_slot`` restores it into any same-model arena,
+  even one with another slot count, and greedy decoding continues
+  mid-flight with no prefill replay.  ``compress=True`` ships every float
+  leaf as int8 rows with per-row fp32 scales through the
+  ``kernels.ops.compress_rows`` / ``decompress_rows`` kernels.  This is the
+  primitive behind the tiered cluster's prefill/decode splits and its
+  failover when a tier dies.
 
 Host/device traffic per decode step: one upload of (tokens, positions,
 active), one upload of the block table when it changed, one read per exit
 probe (the intended short-circuit), and one readback of the step's tokens.
+A migration moves each exported leaf to the host once and back once.
 
 Not ported yet (``SchedulerConfig`` rejects them): ``async_decode``,
-``temperature > 0``; speculative ``propose``/``verify`` and slot migration
-(``export_slot``/``import_slot``) have no counterpart here yet.
+``temperature > 0``; speculative ``propose``/``verify`` has no counterpart
+here yet.
 
 Typical use::
 
@@ -43,14 +54,15 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, FrozenSet, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.early_exit import exit_stats_dict, first_exit_index
+from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import PagedKV
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import resolve_device, tree_leaves, tree_map
 from repro_torch.serving.paged import (PageAllocator, RadixPrefixCache,
                                        chunk_digests)
 
@@ -101,6 +113,7 @@ class StepReport:
     """What one ``poll()`` did."""
     admitted: List[Request] = dataclasses.field(default_factory=list)
     prefill_chunks: int = 0
+    prefill_chunk_start: int = 0       # index of the first chunk advanced
     prefill_tokens: int = 0
     prefill_done: bool = False
     decode_stepped: bool = False
@@ -115,6 +128,45 @@ class StepReport:
     def worked(self) -> bool:
         return bool(self.admitted) or self.prefill_chunks > 0 \
             or self.decode_stepped
+
+
+@dataclasses.dataclass
+class SlotSnapshot:
+    """One slot's serving state, lifted out of an arena by ``export_slot``
+    and restorable into any same-model arena by ``import_slot`` (the two
+    arenas may have different slot counts: the payload is one slot's rows).
+
+    ``payload`` holds the slot's cache leaves as host tensors, each leaf's
+    time axis truncated to the written prefix (paged arenas: the page axis
+    cut to the shipped pages ``[page_skip, page_used)``): the bytes a
+    migration really ships.  With ``compressed`` the float leaves are int8
+    rows and ``scales[i]`` their per-row fp32 scales (None for a leaf
+    shipped raw).  ``payload_bytes`` is the size of exactly those tensors;
+    the tiered cluster charges link time from it.
+
+    Host-side request state rides along (position, pending token, decode
+    steps taken, the live ``Request``); exit counts stay with the arena
+    that served each token.  Greedy continuation after a raw import is
+    exact.  Paged snapshots carry the slot's prompt-page digest chain:
+    ``page_skip`` leading pages the destination already holds are borrowed
+    from its prefix cache on import instead of crossing the link.
+    """
+    req: Request
+    position: int
+    current_tok: int
+    steps_taken: int
+    compressed: bool
+    payload: List[Any]                # host tensors, time axes truncated
+    scales: List[Optional[Any]]       # per-leaf fp32 scales (compressed)
+    payload_bytes: int
+    paged: bool = False
+    page_skip: int = 0
+    page_used: int = 0
+    page_digests: List[Any] = dataclasses.field(default_factory=list)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
 
 
 @dataclasses.dataclass
@@ -210,6 +262,9 @@ class ContinuousBatchScheduler:
         if cfg.segmented:
             for name in self._stage_names():
                 self.stage_calls[name] = 0
+        self.n_exported = 0
+        self.n_imported = 0
+        self._row_struct_flat, self._row_axes_flat = self._detect_row_layout()
         self.cache = self._init_cache()
 
     def _init_cache(self):
@@ -418,6 +473,7 @@ class ContinuousBatchScheduler:
         p = self._pending
         chunk = self.cfg.prefill_chunk
         paged = self.page_alloc is not None
+        rep.prefill_chunk_start = p.next_chunk
         budget = max_chunks if max_chunks > 0 else p.n_chunks
         ci = p.next_chunk
         while ci < p.n_chunks and budget > 0:
@@ -591,6 +647,298 @@ class ContinuousBatchScheduler:
         self.slot_req[slot] = None
         self.active[slot] = False
         self._release_slot_pages(slot)
+
+    # ------------------------------------------------------------------
+    # slot migration: export/import of one slot's serving state
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _gather_slot(cache, slot: int):
+        """Slot ``slot``'s row of every cache leaf, as views: leaves are
+        stacked [n_layers, B, ...], so the batch axis is 1."""
+        return {"blocks": [tree_map(lambda a: a[:, slot], c)
+                           for c in cache["blocks"]]}
+
+    @staticmethod
+    def _scatter_slot(cache, rows, slot: int):
+        """Inverse of ``_gather_slot``, in place: each row, truncated on its
+        time axis, is written into slot ``slot`` zero-padded back to the
+        arena's shape (unwritten rows are zero in an unmigrated arena too,
+        and reads are masked by position)."""
+        def put(a, r):
+            dst = a[:, slot]
+            if tuple(r.shape) != tuple(dst.shape):
+                dst.zero_()
+                dst = dst[tuple(slice(0, n) for n in r.shape)]
+            dst.copy_(r)
+        for c, r in zip(cache["blocks"], rows["blocks"]):
+            tree_map(put, c, r)
+        return cache
+
+    @staticmethod
+    def _gather_slot_paged(cache, pages):
+        """Paged analogue of ``_gather_slot``: pool leaves [n_layers,
+        n_pages, P, ...] gather the physical ``pages`` (a device index
+        vector) into [n_layers, len(pages), P, ...] copies."""
+        return {"blocks": [tree_map(lambda a: a.index_select(1, pages), c)
+                           for c in cache["blocks"]]}
+
+    def _scatter_slot_paged(self, cache, rows, idxvec: np.ndarray):
+        """Inverse of ``_gather_slot_paged``, in place: payload page row j
+        lands on physical page ``idxvec[j]``.  Sentinel (``n_pages``)
+        entries, the borrowed prefix pages and the unshipped tail, are
+        dropped on the host before the copy, so no other page of the pool
+        is written (the reference drops them inside its scatter)."""
+        keep = idxvec[idxvec != self.page_alloc.n_pages]
+        if keep.size == 0:
+            return cache
+        idx = self._upload(keep.astype(np.int64))
+        for c, r in zip(cache["blocks"], rows["blocks"]):
+            tree_map(lambda a, rr: a.index_copy_(
+                1, idx, rr[:, :keep.size].to(a.dtype)), c, r)
+        return cache
+
+    def _detect_row_layout(self):
+        """Per-leaf layout of one exported slot row: its full shape and
+        dtype, and which axis is the time axis, found by diffing the row
+        shapes on the ``meta`` device at ``max_len`` vs ``max_len + 1``
+        (paged arenas: ``pages_per_slot`` vs one more gathered page, so the
+        varying axis is the page axis).  A leaf whose shape does not depend
+        on the context length gets -1 and always ships whole."""
+        b, meta = self.cfg.n_slots, "meta"
+        if self.page_alloc is not None:
+            def rows(n):
+                cache = self.model.init_decode_cache_paged(
+                    b, self.page_alloc.n_pages, self.cfg.page_size,
+                    device=meta)
+                return tree_leaves(self._gather_slot_paged(
+                    cache, torch.zeros(n, dtype=torch.long, device=meta)))
+            flat, flat2 = rows(self._pps), rows(self._pps + 1)
+        else:
+            def rows(n):
+                return tree_leaves(self._gather_slot(
+                    self.model.init_decode_cache(b, n, device=meta), 0))
+            flat, flat2 = rows(self.cfg.max_len), rows(self.cfg.max_len + 1)
+        axes = []
+        for a, c in zip(flat, flat2):
+            ax = next((i for i, (x, y) in enumerate(zip(a.shape, c.shape))
+                       if x != y), -1)
+            # the scales replace the last (feature) axis with 1, so a time
+            # axis there would make them unsliceable
+            if ax == a.ndim - 1:
+                raise ValueError("time axis must not be the row axis")
+            axes.append(ax)
+        return [(tuple(a.shape), a.dtype) for a in flat], axes
+
+    def prefix_keys(self) -> FrozenSet[bytes]:
+        """Digest keys of every prefix page the radix tree holds: a
+        migration source skips shipping the pages whose digests are here."""
+        if self.prefix_cache is None:
+            return frozenset()
+        return self.prefix_cache.keys()
+
+    def export_slot(self, slot: int, *, compress: bool = False,
+                    skip_keys: FrozenSet[bytes] = frozenset()
+                    ) -> SlotSnapshot:
+        """Snapshot one active slot out of the arena.
+
+        Each leaf's time axis is cut to the prefix the request has written
+        before it leaves the card, so ``payload_bytes`` measures the bytes
+        a migration really ships.  ``compress=True`` routes every float
+        leaf through the int8 row quantizer (``kops.compress_rows``; per-row
+        fp32 scales ride along).  The slot itself is left untouched: pair
+        with ``release_slot`` to evict, or discard the snapshot to abort.
+
+        Paged arenas ship pages: ``[skip, used)`` with ``used =
+        ceil(position / P)`` and ``skip`` the leading prompt pages whose
+        digests are in ``skip_keys`` (the destination's ``prefix_keys()``).
+        """
+        r = self.slot_req[slot]
+        if r is None or not self.active[slot]:
+            raise ValueError(f"export_slot: slot {slot} is not active")
+        position = int(self.positions[slot])
+        paged = self.page_alloc is not None
+        page_skip = page_used = 0
+        page_digests: List[bytes] = []
+        if paged:
+            page_used = -(-position // self.cfg.page_size)
+            page_digests = list(self._slot_digests[slot])
+            while (page_skip < min(page_used, len(page_digests))
+                   and page_digests[page_skip] in skip_keys):
+                page_skip += 1
+            pages = self._tbl[slot, page_skip:page_used].astype(np.int64)
+            rows = self._gather_slot_paged(self.cache, self._upload(pages))
+        else:
+            rows = self._gather_slot(self.cache, slot)
+        payload: List[Any] = []
+        scales: List[Optional[Any]] = []
+        nbytes = 0
+        for a, ax in zip(tree_leaves(rows), self._row_axes_flat):
+            if ax >= 0 and not paged:       # paged rows hold only the cut
+                a = a.narrow(ax, 0, min(position, a.shape[ax]))
+            s = None
+            if compress and a.is_floating_point():
+                a, s = kops.compress_rows(a.contiguous())
+            ah = a.cpu()                    # the migration's intended d2h
+            sh = None if s is None else s.cpu()
+            payload.append(ah)
+            scales.append(sh)
+            nbytes += _nbytes(ah) + (0 if sh is None else _nbytes(sh))
+        self.n_exported += 1
+        return SlotSnapshot(
+            req=r, position=position, current_tok=int(self.current_tok[slot]),
+            steps_taken=int(self.steps_taken[slot]), compressed=compress,
+            payload=payload, scales=scales, payload_bytes=int(nbytes),
+            paged=paged,
+            page_skip=page_skip, page_used=page_used,
+            page_digests=page_digests)
+
+    def slot_payload_bytes(self, slot: int) -> int:
+        """Size of the raw payload ``export_slot(slot)`` would ship, from
+        the row layout and the slot's position alone (no device work): what
+        a driver feeds ``compression_decision`` before exporting.  Equals
+        the exported snapshot's ``payload_bytes`` (no pages skipped)."""
+        position = int(self.positions[slot])
+        if self.page_alloc is not None:
+            cut = -(-position // self.cfg.page_size)
+        else:
+            cut = position
+        total = 0
+        for (shape, dtype), ax in zip(self._row_struct_flat,
+                                      self._row_axes_flat):
+            shape = list(shape)
+            if ax >= 0:
+                shape[ax] = min(cut, shape[ax])
+            total += int(np.prod(shape)) * dtype.itemsize
+        return total
+
+    def import_slot(self, snap: SlotSnapshot) -> int:
+        """Restore an exported snapshot into a free slot of this arena and
+        resume decoding mid-flight (no prefill replay).  Compressed leaves
+        are dequantized on the card (``kops.decompress_rows``) into the
+        arena leaf's dtype.  Returns the slot used.
+
+        Paged imports rebuild the slot's block table first: pages the
+        snapshot skipped are borrowed from this arena's prefix tree, the
+        rest are freshly allocated, and the shipped pages are copied into
+        the fresh ones."""
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("import_slot: no free slot in this arena")
+        r = snap.req
+        if r.done or snap.steps_taken >= r.max_new:
+            raise ValueError("import_slot: request already finished")
+        paged = self.page_alloc is not None
+        if snap.paged != paged:
+            raise ValueError("import_slot: snapshot/arena paging modes differ")
+        slot = free[0]
+        idxvec = None
+        if paged:
+            P, pps = self.cfg.page_size, self._pps
+            n_pages = self.page_alloc.n_pages
+            total = -(-(int(r.tokens.size) + r.max_new) // P)
+            nskip, used = snap.page_skip, snap.page_used
+            shared: List[int] = []
+            if nskip:
+                if self.prefix_cache is None:
+                    raise ValueError("import_slot: skipped pages but no "
+                                     "prefix cache here")
+                shared = self.prefix_cache.match(snap.page_digests[:nskip],
+                                                 r.tokens)
+                if len(shared) != nskip:
+                    for pg in shared:
+                        self.page_alloc.release(pg)
+                    raise RuntimeError("import_slot: prefix pages evicted "
+                                       "mid-migration")
+            if self.prefix_cache is not None:
+                self.prefix_cache.evict_until(total - nskip)
+            try:
+                fresh = self.page_alloc.alloc(total - nskip)
+            except MemoryError:
+                for pg in shared:
+                    self.page_alloc.release(pg)
+                raise
+            row = np.full(pps, n_pages, np.int32)
+            row[:nskip] = shared
+            row[nskip:total] = fresh
+            # payload page j lands on physical page row[nskip + j]; entries
+            # past the shipped range stay sentinel and are dropped
+            idxvec = np.full(pps, n_pages, np.int32)
+            idxvec[:used - nskip] = row[nskip:used]
+            self._tbl[slot] = row
+            self._tbl_dirty = True
+            self._slot_digests[slot] = list(snap.page_digests)
+        leaves = []
+        for ah, sh, (_, dtype) in zip(snap.payload, snap.scales,
+                                      self._row_struct_flat):
+            a = ah.to(self.device)          # the migration's intended h2d
+            if sh is not None:
+                a = kops.decompress_rows(a, sh.to(self.device), dtype=dtype)
+            leaves.append(a)
+        it = iter(leaves)
+        rows = {"blocks": [tree_map(lambda _: next(it), c)
+                           for c in self.cache["blocks"]]}
+        if paged:
+            self._scatter_slot_paged(self.cache, rows, idxvec)
+            if self.prefix_cache is not None and snap.page_digests:
+                # publish the imported prompt pages for later admissions
+                n_full = len(snap.page_digests)
+                self.prefix_cache.insert(
+                    snap.page_digests, r.tokens,
+                    [int(self._tbl[slot, i]) for i in range(n_full)])
+        else:
+            self._scatter_slot(self.cache, rows, slot)
+        r.slot = slot
+        self.slot_req[slot] = r
+        self.positions[slot] = snap.position
+        self.current_tok[slot] = snap.current_tok
+        self.steps_taken[slot] = snap.steps_taken
+        self.active[slot] = True
+        self.n_imported += 1
+        return slot
+
+    def free_slots(self) -> List[int]:
+        """Slots with no request bound (staged admissions count as bound)."""
+        return [i for i in range(self.cfg.n_slots)
+                if self.slot_req[i] is None]
+
+    def active_requests(self) -> List[tuple]:
+        """``[(slot, request)]`` for every in-flight decode slot."""
+        return [(i, r) for i, r in enumerate(self.slot_req)
+                if r is not None and self.active[i]]
+
+    def release_slot(self, slot: int) -> Request:
+        """Evict a slot without completing its request (the migration
+        path: the request continues elsewhere from its snapshot).  The
+        cache rows are left stale; an admission or ``import_slot``
+        overwrites them before the slot is read again."""
+        r = self.slot_req[slot]
+        if r is None:
+            raise ValueError(f"release_slot: slot {slot} is empty")
+        self.slot_req[slot] = None
+        self.active[slot] = False
+        self._release_slot_pages(slot)
+        r.slot = -1
+        return r
+
+    def drain_queue(self) -> List[Request]:
+        """Pop every not-yet-admitted request (tier drain on an outage)."""
+        out = list(self.queue)
+        self.queue.clear()
+        return out
+
+    def cancel_pending(self) -> List[Request]:
+        """Abandon an in-flight chunked admission and return its requests
+        (their prefill restarts wherever they are resubmitted)."""
+        if self._pending is None:
+            return []
+        reqs = list(self._pending.reqs)
+        for slot in self._pending.slots:
+            self.slot_req[slot] = None
+            self._release_slot_pages(slot)
+        for r in reqs:
+            r.slot = -1
+        self._pending = None
+        return reqs
 
     # ------------------------------------------------------------------
     # exit statistics

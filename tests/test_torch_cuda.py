@@ -9,7 +9,8 @@ there is one is decided when a test runs, never at import.
 Tolerances: the paged attention output is bf16 and both versions
 accumulate in fp32 and round once (one bf16 ulp at |out| < 4 is 2^-6);
 the entropy is fp32 summed in another order (1e-4 at small D, 1e-3 at
-D = 2048).
+D = 2048).  The int8 kernels are held bit for bit: one IEEE division and
+one rounding per element, and a max that no order changes.
 """
 import math
 
@@ -87,3 +88,60 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.zeros(2, 8, device=cuda)
     with pytest.raises(ValueError):
         ops.exit_head_entropy(x, torch.zeros(8, 5, device=cuda))
+
+
+def _bits(t):
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return t.view(view[t.dtype]) if t.dtype in view else t
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (40 * 4 * 16 * 8, 64, torch.bfloat16),     # a paged granite slot leaf
+    (4096, 2048, torch.float32), (777, 100, torch.bfloat16),
+    (3, 31, torch.float32), (1, 64, torch.bfloat16)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_kernels_match_plain_bitwise(cuda, rows, d, dtype, out_dtype):
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=g, device=cuda)
+         * torch.rand(rows, 1, generator=g, device=cuda) * 10).to(dtype)
+    x[0] = 0                                   # scale exactly 1e-8, q 0
+    n0 = (ops.LAUNCHES["quantize_rows"], ops.LAUNCHES["dequantize_rows"])
+    q, s = ops.compress_rows(x)
+    y = ops.decompress_rows(q, s, dtype=out_dtype)
+    qr, sr = ref.quantize_rows_ref(x)
+    yr = ref.dequantize_rows_ref(qr, sr, out_dtype)
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES["quantize_rows"],
+            ops.LAUNCHES["dequantize_rows"]) == (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(q, qr)
+    assert torch.equal(_bits(s), _bits(sr))
+    assert torch.equal(_bits(y), _bits(yr))
+    assert s[0].item() == torch.tensor(1e-8).item() and not q[0].any()
+
+
+def test_int8_kernels_take_leading_axes(cuda):
+    """A stacked cache leaf [layers, pages, P, Nkv, H] quantizes per row
+    of H, as its [-1, H] reshape does."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(3, 2, 16, 8, 64, generator=g, device=cuda).bfloat16()
+    q, s = ops.compress_rows(x)
+    assert q.shape == x.shape and s.shape == (3, 2, 16, 8, 1)
+    q2, s2 = ops.compress_rows(x.reshape(-1, 64))
+    assert torch.equal(q.reshape(-1, 64), q2)
+    assert torch.equal(s.reshape(-1, 1), s2)
+
+
+def test_int8_wrappers_raise_instead_of_falling_back(cuda):
+    with pytest.raises(ValueError):
+        ops.compress_rows(torch.zeros(4, 8, dtype=torch.float16,
+                                      device=cuda))
+    with pytest.raises(ValueError):
+        ops.compress_rows(torch.zeros(8, 4, device=cuda).t())
+    q = torch.zeros(4, 8, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        ops.decompress_rows(q, torch.ones(4, 1, device=cuda).double())
+    with pytest.raises(ValueError):
+        ops.decompress_rows(q, torch.ones(3, 1, device=cuda))
+    with pytest.raises(ValueError):
+        ops.decompress_rows(q, torch.ones(4, 1, device=cuda),
+                            dtype=torch.float16)

@@ -14,6 +14,12 @@ import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
+want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
+        "repro_torch.core.partition", "repro_torch.core.hierarchy",
+        "repro_torch.core.offload", "repro_torch.core.resilience",
+        "repro_torch.serving.cluster", "repro_torch.serving.router",
+        "repro_torch.kernels.feature_compress"}}
+assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
 sys.path.insert(0, {repo!r})
@@ -31,7 +37,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15      # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 34      # every submodule walked
 
 
 def test_entry_points_default_to_cuda():
@@ -39,7 +45,7 @@ def test_entry_points_default_to_cuda():
     instead of falling back to the CPU."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve_poisson
+    from repro_torch.launch.serve import serve_poisson, serve_tiered_poisson
     from repro_torch.models import Model
     from repro_torch.serving import ContinuousBatchScheduler
     if torch.cuda.is_available():
@@ -52,6 +58,8 @@ def test_entry_points_default_to_cuda():
         ContinuousBatchScheduler(cpu_model, cpu_model.init(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_poisson("granite-3-2b-smoke", n_requests=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_tiered_poisson("granite-3-2b-smoke", n_requests=1)
 
 
 def test_no_import_line_names_jax_or_reference():
