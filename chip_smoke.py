@@ -6,11 +6,12 @@
 Phases, each fatal on failure:
   1. card and build: print the card's name and power limit, build every
      CUDA kernel of the port with nvcc from the sources in this checkout;
-  2. each kernel against its plain PyTorch version at the main path's
+  2. each kernel against its plain PyTorch version at the main paths'
      shapes, with its time, its plain version's time, one library call's
      time and its bound (CUDA events);
-  3. a small-input reference: granite-3-2b-smoke decode on the card
-     (kernels) against the same weights on the CPU (plain versions);
+  3. small-input references: granite-3-2b-smoke and deepseek-v3-671b-smoke
+     paged decode on the card (kernels) against the same weights on the
+     CPU (plain versions);
   4. the main path at full width: granite-3-2b (40 layers, random seeded
      weights) serving a Poisson trace through ``serve_poisson`` with the
      paged KV arena and depth-segmented decode; both kernels' launch counts
@@ -23,12 +24,20 @@ Phases, each fatal on failure:
      forced int8 handoff; every request must complete, in-flight slots must
      migrate, and all four kernels must launch during the second run; the
      int8 kernels are held against their plain versions again on a leaf
-     captured from a live export.
+     captured from a live export;
+  6. the deepseek-v3 path at full width, cut to 4 layers (3 dense, 1 MoE
+     with 256 experts): ``serve_poisson`` with the paged arena, the prefix
+     cache and segmented decode; the paged-MLA and exit-head kernels must
+     launch and are held again on live inputs, one live MoE input's
+     capacity drops are recounted on the host, and ``profile_decode``
+     splits a decode step into host and device time.
 Prints the per-kernel JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside this file.
 """
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -51,6 +60,13 @@ ENT_TOL = 1e-3     # fp32 entropy (~log V = 10.8) from fp32 sums over
 # division and one rounding per element, and no sum whose order can differ
 LOGIT_TOL = 3e-2   # logits are bf16 matmul results: cuBLAS and the CPU
                    # round a few bf16 ulps (2^-7 at |logit| ~ 1) apart
+MLA_TOL = 1e-3     # fp32 latent context from the same bf16 inputs: only
+                   # the order of fp32 sums over R + Hr = 576 products and
+                   # the softmax terms differs; outputs are convex
+                   # combinations of latents |c| < 5
+ROUTE_TIE = 1e-2   # router probabilities closer than this are a tie: the
+                   # card's and the CPU's bf16 hidden states differ by an
+                   # ulp, which may flip such a top-k choice
 
 
 def fail(msg):
@@ -138,6 +154,63 @@ def sdpa_gathered(F, torch):
 
     def call(q, k, v, mask):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return prep, call
+
+
+def mla_inputs(torch, gen, b, n, r, hr, page, pps, max_pos, sets):
+    """Paged-MLA inputs like ``paged_inputs``: ragged positions, shuffled
+    tables with sentinel tails, ``sets`` independent pool copies."""
+    dev = "cuda"
+    pos = torch.randint(0, max_pos, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    n_pages = b * pps
+    perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+    tbl = perm.reshape(b, pps).clone()
+    cols = torch.arange(pps, device=dev)[None, :]
+    tbl = torch.where(cols < (pos.long() // page + 1)[:, None], tbl,
+                      torch.full_like(tbl, n_pages))
+    out = []
+    for _ in range(sets):
+        ql = torch.randn(b, 1, n, r, generator=gen, device=dev).bfloat16()
+        qr = torch.randn(b, 1, n, hr, generator=gen, device=dev).bfloat16()
+        pc = torch.randn(n_pages, page, r, generator=gen,
+                         device=dev).bfloat16()
+        pk = torch.randn(n_pages, page, hr, generator=gen,
+                         device=dev).bfloat16()
+        out.append((ql, qr, pc, pk, tbl, pos))
+    return out
+
+
+def mla_bound(args):
+    ql, qr, pc, _, _, pos = args
+    b, _, n, r = ql.shape
+    hr = qr.shape[3]
+    page = pc.shape[1]
+    pages = int((pos.long() // page + 1).sum())
+    tokens = int((pos.long() + 1).sum())
+    nbytes = ((ql.numel() + qr.numel()) * 2 + pages * page * (r + hr) * 2
+              + b * n * r * 4 + pages * 4 + pos.numel() * 4)
+    return bound(nbytes, 2 * n * (r + hr + r) * tokens)
+
+
+def sdpa_mla_gathered(F, torch):
+    """The library yardstick for paged MLA: one
+    scaled_dot_product_attention call on the gathered latent view, the N
+    heads as N queries of one head (MLA is multi-query in latent space):
+    q [B, 1, N, R+Hr], k [B, 1, S, R+Hr], v = c_kv [B, 1, S, R].  The
+    gather and the concatenation are done beforehand and not timed."""
+    def prep(ql, qr, pc, pk, tbl, pos, scale):
+        from repro_torch.models.attention import paged_view
+        ckv = paged_view(pc, tbl)
+        k = torch.cat([ckv, paged_view(pk, tbl)], dim=-1)[:, None]
+        q = torch.cat([ql, qr], dim=-1)
+        mask = (torch.arange(k.shape[2], device=q.device)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        return (q, k, ckv[:, None], mask, scale)
+
+    def call(q, k, v, mask, scale):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=scale)
     return prep, call
 
 
@@ -259,6 +332,38 @@ def main(argv=None):
           f"{json.dumps(results['paged_gqa_attention'])}")
     del sets, lib_args
 
+    # paged MLA: deepseek-v3 at full width, 16 slots, 128 heads, R 512,
+    # Hr 64, pages of 16, positions up to 2047
+    scale = 1.0 / math.sqrt(128 + 64)
+    sets = mla_inputs(torch, gen, 16, 128, 512, 64, 16, 128, 2048, 4)
+    a = sets[0]
+    got = ops.paged_mla_attention(*a, scale=scale)
+    want = ref.paged_mla_attention_ref(*a, scale=scale)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"paged_mla_attention: max_abs_err {err:.3e} (tol {MLA_TOL})")
+    if not math.isfinite(err) or err > MLA_TOL:
+        fail(f"paged_mla_attention disagrees with its plain version: {err}")
+    prep, sdpa = sdpa_mla_gathered(F, torch)
+    lib_args = [prep(*st, scale) for st in sets]
+    lib_err = (sdpa(*lib_args[0]).float() - want).abs().max().item()
+    bound_ms, by = mla_bound(a)
+
+    def mla(*t):
+        return ops.paged_mla_attention(*t, scale=scale)
+
+    def mla_plain(*t):
+        return ref.paged_mla_attention_ref(*t, scale=scale)
+    results["paged_mla_attention"] = {
+        "max_abs_err": err,
+        "ms": device_ms(torch, mla, sets),
+        "plain_ms": device_ms(torch, mla_plain, sets),
+        "library_ms": device_ms(torch, sdpa, lib_args),
+        "bound_ms": bound_ms, "bound_by": by}
+    print(f"  sdpa yardstick agrees to {lib_err:.3e}; "
+          f"{json.dumps(results['paged_mla_attention'])}")
+    del sets, lib_args
+
     # exit head: T = 16 slots, D = 2048, V = 49155
     x = torch.randn(16, 2048, generator=gen, device="cuda").bfloat16()
     w = (torch.randn(2048, 49155, generator=gen, device="cuda")
@@ -280,6 +385,28 @@ def main(argv=None):
         "library_ms": device_ms(torch, lib, [(x, w)]),
         "bound_ms": bound_ms, "bound_by": by}
     print(f"  {json.dumps(results['exit_head_entropy'])}")
+    del x, w
+    # ... and at deepseek-v3's widths: D = 7168, V = 129280 (W 1.85 GB)
+    x = torch.randn(16, 7168, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(7168, 129280, generator=gen, device="cuda")
+         / math.sqrt(7168)).bfloat16()
+    got = ops.exit_head_entropy(x, w)
+    want = ref.exit_head_entropy_ref(x, w)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"exit_head_entropy at D 7168, V 129280: max_abs_err {err:.3e} "
+          f"(tol {ENT_TOL})")
+    if not math.isfinite(err) or err > ENT_TOL:
+        fail(f"exit_head_entropy disagrees with its plain version at "
+             f"deepseek-v3 widths: {err}")
+    bound_ms, by = exit_bound(x, w)
+    exit_ds = {"max_abs_err": err,
+               "ms": device_ms(torch, ops.exit_head_entropy, [(x, w)]),
+               "plain_ms": device_ms(torch, ref.exit_head_entropy_ref,
+                                     [(x, w)], iters=5),
+               "library_ms": device_ms(torch, lib, [(x, w)], iters=5),
+               "bound_ms": bound_ms, "bound_by": by}
+    print(f"  {json.dumps(exit_ds)}")
     del x, w
 
     # int8 handoff kernels: one full-width granite-3-2b slot leaf at 2048
@@ -331,8 +458,9 @@ def main(argv=None):
           "function)")
     del leaf, hid, q_leaf, s_leaf
 
-    # ---- phase 3: small-input reference, card vs CPU ------------------
-    check_smoke_vs_cpu(torch)
+    # ---- phase 3: small-input references, card vs CPU -----------------
+    check_smoke_vs_cpu(torch, "granite-3-2b-smoke")
+    check_smoke_vs_cpu(torch, "deepseek-v3-671b-smoke")
 
     # ---- phase 4: the main path at full width -------------------------
     captured = {}
@@ -414,10 +542,18 @@ def main(argv=None):
     # ---- phase 5: the tiered path at full width ----------------------
     tiered, tier_launches = run_tiered(torch, ops, ref, results)
 
+    # ---- phase 6: deepseek-v3 at full width, 4 layers ---------------
+    del captured, a
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds, ds_launches = run_deepseek(torch, ops, ref, results, exit_ds)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
                                 "src/repro/kernels/paged_attention.py:82"),
+        "paged_mla_attention": ("src/repro_torch/kernels/csrc/paged_mla.cu",
+                                "src/repro/kernels/paged_attention.py:162"),
         "exit_head_entropy": ("src/repro_torch/kernels/csrc/exit_head.cu",
                               "src/repro/kernels/exit_head.py:55"),
         "quantize_rows": ("src/repro_torch/kernels/csrc/feature_compress.cu",
@@ -427,10 +563,15 @@ def main(argv=None):
                             "src/repro/kernels/feature_compress.py:60"),
     }
     # launches: each kernel's count on the path that carries it (phase 4
-    # for attention and the exit probe, phase 5's int8 run for the handoff)
+    # for GQA attention and the exit probe, phase 5's int8 run for the
+    # handoff, phase 6 for paged MLA); the exit head's deepseek-v3 numbers
+    # (phase 2 at its widths, phase 6's launches) ride along under
+    # "deepseek"
     path_launches = dict(main_launches)
     path_launches["quantize_rows"] = tier_launches["quantize_rows"]
     path_launches["dequantize_rows"] = tier_launches["dequantize_rows"]
+    path_launches["paged_mla_attention"] = ds_launches["paged_mla_attention"]
+    exit_ds["launches"] = ds_launches["exit_head_entropy"]
     kernels = []
     for kname, r in results.items():
         source, repl = replaces[kname]
@@ -440,12 +581,15 @@ def main(argv=None):
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        if kname == "exit_head_entropy":
+            kernels[-1]["deepseek"] = exit_ds
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card_line, "kernels": kernels,
-                       "serve": stats, "tiered": tiered}, f, indent=1)
+                       "serve": stats, "tiered": tiered, "deepseek": ds},
+                      f, indent=1)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -560,8 +704,9 @@ def run_tiered(torch, ops, ref, results):
               wall, launches)
     if st["migration"]["compressed"] < 1:
         fail("run 2: no handoff went through the int8 kernels")
-    for kname, n in launches.items():
-        if n <= 0:
+    for kname in ("paged_gqa_attention", "exit_head_entropy",
+                  "quantize_rows", "dequantize_rows"):
+        if launches[kname] <= 0:
             fail(f"kernel {kname} was not launched on the tiered path")
     if "compress_rows" not in captured:
         fail("no live export was captured")
@@ -574,14 +719,29 @@ def run_tiered(torch, ops, ref, results):
     return summaries, launches
 
 
-def check_smoke_vs_cpu(torch):
-    """granite-3-2b-smoke paged decode: the card (kernels, cuBLAS) against
-    the CPU (plain versions) on the same weights and inputs."""
+def record_routes(ffn, log):
+    """Wrap the MoE router so every call appends (device type, idx, probs)
+    to ``log``; returns the original for restoring."""
+    orig = ffn._route
+
+    def route(x2d, w, k):
+        out = orig(x2d, w, k)
+        log.append((x2d.device.type, out[1].cpu(), out[2].cpu()))
+        return out
+    ffn._route = route
+    return orig
+
+
+def check_smoke_vs_cpu(torch, arch):
+    """A smoke-width paged decode: the card (kernels, cuBLAS) against the
+    CPU (plain versions) on the same weights and inputs.  A row whose MoE
+    routing differs between the two is left out of the logits check, and
+    must be a router tie (probabilities within ROUTE_TIE)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import Model
+    from repro_torch.models import Model, ffn
     from repro_torch.models.attention import PagedKV
     from repro_torch.models.common import tree_map
-    cfg = get_config("granite-3-2b-smoke")
+    cfg = get_config(arch)
     cpu = Model(cfg, device="cpu")
     gpu = Model(cfg, device="cuda")
     p_cpu = cpu.init(0)
@@ -594,24 +754,213 @@ def check_smoke_vs_cpu(torch):
     c_gpu = gpu.init_decode_cache_paged(b, n_pages, page)
     pos = torch.tensor([0, 5, 17, 40], dtype=torch.int32)
     worst = worst_ent = 0.0
+    log = []
+    orig = record_routes(ffn, log)
+    flips = compared = 0
     for _ in range(8):
         toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=g)
         mask = torch.ones(b, dtype=torch.bool)
+        del log[:]
         lc, _, _ = cpu.decode_step(p_cpu, c_cpu, toks, pos,
                                    paged=PagedKV(tbl, mask))
         lg, _, _ = gpu.decode_step(p_gpu, c_gpu, toks.cuda(), pos.cuda(),
                                    paged=PagedKV(tbl.cuda(), mask.cuda()))
-        worst = max(worst, (lg.cpu() - lc).abs().max().item())
+        keep = torch.ones(b, dtype=torch.bool)
+        host = [r for r in log if r[0] == "cpu"]
+        card = [r for r in log if r[0] == "cuda"]
+        for (_, hi, hp), (_, ci, _) in zip(host, card):
+            for row in (hi != ci).any(1).nonzero()[:, 0].tolist():
+                gap = (hp[row][hi[row].long()]
+                       - hp[row][ci[row].long()]).abs().max().item()
+                if gap >= ROUTE_TIE:
+                    fail(f"{arch}: the card routes row {row} to "
+                         f"{ci[row].tolist()}, the CPU to {hi[row].tolist()}"
+                         f" (probability gap {gap:.3e}, not a tie)")
+                keep[row] = False
+                flips += 1
+        compared += int(keep.sum())
+        worst = max(worst, (lg.cpu() - lc)[keep].abs().max().item())
         x = cpu.embed_decode_tokens(p_cpu, toks)
         ec = cpu.exit_probe_entropy(p_cpu, 0, x)
         eg = gpu.exit_probe_entropy(p_gpu, 0, x.cuda())
         worst_ent = max(worst_ent, (eg.cpu() - ec).abs().max().item())
         pos = pos + 1
-    print(f"smoke reference (card vs CPU, 8 paged decode steps): logits "
-          f"max_abs_err {worst:.3e} (tol {LOGIT_TOL}), probe entropy "
-          f"{worst_ent:.3e} (tol {ENT_TOL})")
-    if worst > LOGIT_TOL or worst_ent > ENT_TOL:
-        fail("the card disagrees with the CPU on granite-3-2b-smoke")
+    ffn._route = orig
+    print(f"smoke reference {arch} (card vs CPU, 8 paged decode steps): "
+          f"logits max_abs_err {worst:.3e} over {compared} rows (tol "
+          f"{LOGIT_TOL}; {flips} rows left out at router ties), probe "
+          f"entropy {worst_ent:.3e} (tol {ENT_TOL})")
+    if worst > LOGIT_TOL or worst_ent > ENT_TOL or compared < 24:
+        fail(f"the card disagrees with the CPU on {arch}")
+
+
+def deepseek_cut(get_config):
+    """deepseek-v3 at its published widths (arXiv:2412.19437), cut in depth
+    to 4 layers: 3 dense (first_dense_layers as published) and 1 MoE with
+    256 experts; one exit head after layer 3; no MTP (it feeds only
+    ``Model.forward``, never decode)."""
+    cfg = get_config("deepseek-v3-671b")
+    return dataclasses.replace(
+        cfg, name="deepseek-v3-671b-4l", num_layers=4, mtp_depth=0,
+        exits=dataclasses.replace(cfg.exits, exit_layers=(3,),
+                                  entropy_threshold=0.5))
+
+
+# the live call of each kernel (and of the MoE layer) that phase 6 captures
+CAP_EVERY = (301, 17, 97)
+DS_TRACE = dict(rate=8.0, n_requests=24, slots=16, prompt_len=128,
+                max_new=16, threshold=0.5, paged=True, page_size=16,
+                segmented=True, prefix_share=0.25, prefix_len=64, seed=0)
+
+
+def run_deepseek(torch, ops, ref, results, exit_ds):
+    """Phase 6 (see the module docstring).  Returns a summary and the
+    launch counts of the serving run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_decode import profile_decode
+    from repro_torch.launch.serve import serve_poisson
+    from repro_torch.models import Model, ffn
+    from repro_torch.models.common import tree_leaves
+    cfg = deepseek_cut(get_config)
+    m = cfg.moe
+    tr = DS_TRACE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = Model(cfg, device="cuda")
+    params = model.init(tr["seed"])
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"deepseek-v3 path: {cfg.name}, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, R {cfg.kv_lora_rank}, Hr "
+          f"{cfg.qk_rope_head_dim}, {cfg.num_layers} layers (3 dense, 1 MoE:"
+          f" {m.num_experts} experts top-{m.top_k} + {m.num_shared_experts} "
+          f"shared, capacity factor {m.capacity_factor}), vocab "
+          f"{cfg.vocab_size}, exit after layer 3; random weights (seed 0)")
+    print(f"  init {init_s:.1f}s: params {pbytes / 1e9:.2f} GB, peak device "
+          f"memory after init {peak / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+
+    captured = {}
+    orig = {"paged_mla_attention": ops.paged_mla_attention,
+            "exit_head_entropy": ops.exit_head_entropy,
+            "moe_ffn": ffn.moe_ffn}
+    calls = {k: 0 for k in orig}
+
+    def capturing(kname, every, mod):
+        def wrapper(*a, **kw):
+            calls[kname] += 1
+            if calls[kname] % every == 0:
+                # small inputs change in place later: copy them; the
+                # weights (exit head W, router) do not
+                captured[kname] = (tuple(
+                    t.clone() if isinstance(t, torch.Tensor)
+                    and t.numel() * t.element_size() < 2 ** 26 else t
+                    for t in a), kw)
+            return orig[kname](*a, **kw)
+        setattr(mod, kname, wrapper)
+    capturing("paged_mla_attention", CAP_EVERY[0], ops)
+    capturing("exit_head_entropy", CAP_EVERY[1], ops)
+    capturing("moe_ffn", CAP_EVERY[2], ffn)
+    ops.reset_launches()
+    t0 = time.time()
+    stats = serve_poisson(cfg, params=params, device="cuda", quiet=True,
+                          n_requests=tr["n_requests"], rate=tr["rate"],
+                          slots=tr["slots"], prompt_len=tr["prompt_len"],
+                          max_new=tr["max_new"], threshold=tr["threshold"],
+                          paged=tr["paged"], page_size=tr["page_size"],
+                          segmented=tr["segmented"],
+                          prefix_share=tr["prefix_share"],
+                          prefix_len=tr["prefix_len"], seed=tr["seed"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    wall = time.time() - t0
+    ops.paged_mla_attention = orig["paged_mla_attention"]
+    ops.exit_head_entropy = orig["exit_head_entropy"]
+    ffn.moe_ffn = orig["moe_ffn"]
+    outs = stats.pop("outputs")
+    print(f"  served {tr['n_requests']} requests at {tr['rate']} req/s, "
+          f"prompts {tr['prompt_len'] // 4}-{tr['prompt_len']} tokens "
+          f"({tr['prefix_share']:.2f} sharing a {tr['prefix_len']}-token "
+          f"prefix), {tr['max_new']} new tokens, {tr['slots']} slots, paged "
+          f"+ segmented: {wall:.1f}s including warm-up")
+    print(f"  tokens {stats['tokens']}, sustained "
+          f"{stats['sustained_tok_s']:.2f} tok/s, p50 "
+          f"{stats['p50_latency_s'] * 1e3:.0f} ms, p95 "
+          f"{stats['p95_latency_s'] * 1e3:.0f} ms, makespan "
+          f"{stats['makespan_s']:.2f} s, prefix_hit_tokens "
+          f"{stats['prefix_hit_tokens']}, chunks skipped "
+          f"{stats['prefill_chunks_skipped']}; launches {launches}")
+    print(f"  exit stats {stats['exit_stats']}; stage calls "
+          f"{stats['stage_calls']}")
+    if len(outs) != tr["n_requests"] or any(len(o) != tr["max_new"]
+                                             for o in outs):
+        fail("deepseek-v3: not every request produced max_new tokens")
+    if any(not (0 <= t < cfg.vocab_size) for o in outs for t in o):
+        fail("deepseek-v3: token out of vocabulary range")
+    if stats["prefix_hit_tokens"] <= 0:
+        fail("deepseek-v3: the shared prefix never hit the prefix cache")
+    for kname in ("paged_mla_attention", "exit_head_entropy"):
+        if launches[kname] <= 0:
+            fail(f"kernel {kname} was not launched on the deepseek-v3 path")
+
+    # both kernels again on inputs captured from the live run
+    for kname, tol, plain, res in (
+            ("paged_mla_attention", MLA_TOL, ref.paged_mla_attention_ref,
+             results["paged_mla_attention"]),
+            ("exit_head_entropy", ENT_TOL, ref.exit_head_entropy_ref,
+             exit_ds)):
+        if kname not in captured:
+            fail(f"no live call of {kname} was captured")
+        a, kw = captured[kname]
+        got = orig[kname](*a, **kw).float()
+        want = plain(*a, **kw).float()
+        err = (got - want).abs().max().item()
+        shapes = [tuple(t.shape) for t in a]
+        print(f"  live {kname} {shapes}: max_abs_err {err:.3e} (tol {tol})")
+        if not torch.isfinite(got).all() or err > tol:
+            fail(f"{kname} disagrees with its plain version on live "
+                 f"deepseek-v3 inputs")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+
+    # one live MoE input's routing, recomputed on the host
+    if "moe_ffn" not in captured:
+        fail("no live MoE call was captured")
+    (lp_moe, h, _), _ = captured["moe_ffn"]
+    x2d = h.reshape(-1, h.shape[-1])
+    t_tok = x2d.shape[0]
+    cap = ffn._capacity(t_tok, m.num_experts, m.top_k, m.capacity_factor)
+    _, idx_host, _ = ffn._route(x2d.cpu(), lp_moe["router"].cpu(), m.top_k)
+    _, kept = ffn._slots(idx_host, 0, m.num_experts, cap)
+    _, idx_card, _ = ffn._route(x2d, lp_moe["router"], m.top_k)
+    same = bool(torch.equal(idx_card.cpu(), idx_host))
+    dropped = int((~kept).sum())
+    print(f"  live MoE input [{t_tok}, {x2d.shape[1]}]: capacity {cap} rows "
+          f"per expert; the host's routing drops {dropped} of "
+          f"{t_tok * m.top_k} assignments; the card routes "
+          f"{'identically' if same else 'differently'}")
+    del captured, lp_moe, h, x2d
+
+    # one decode step's host/device split, on the same weights
+    prof = profile_decode(cfg, slots=tr["slots"], prompt_len=128, steps=4,
+                          seed=tr["seed"], params=params)
+    print(f"  profile_decode (16 slots, 128-token prompts, 4 steps): host "
+          f"wall {prof['wall_ms_per_step']:.2f} ms/step, device "
+          f"{prof['device_ms_per_step']:.2f} ms/step, busy "
+          f"{prof['device_busy_share'] * 100:.1f} %, "
+          f"{prof['cuda_kernels_per_step']:.0f} CUDA kernels/step; top "
+          f"{[(k['name'][:40], round(k['ms_per_step'], 3)) for k in prof['top_kernels'][:5]]}")
+    summary = {"config": cfg.name, "init_s": init_s, "param_bytes": pbytes,
+               "peak_bytes_after_init": peak, "serve": stats,
+               "wall_s": wall, "launches": launches,
+               "moe_live": {"tokens": t_tok, "capacity": cap,
+                            "dropped": dropped,
+                            "assignments": t_tok * m.top_k,
+                            "card_routes_same": same},
+               "profile_decode": prof}
+    del model, params
+    return summary, launches
 
 
 if __name__ == "__main__":

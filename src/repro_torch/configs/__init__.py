@@ -6,9 +6,10 @@ Only the architectures whose model family the port runs are registered;
 from __future__ import annotations
 
 from repro_torch.configs.base import ExitConfig, ModelConfig
+from repro_torch.configs.deepseek_v3_671b import CONFIG as _dsv3
 from repro_torch.configs.granite_3_2b import CONFIG as _granite
 
-ARCHS = {c.name: c for c in (_granite,)}
+ARCHS = {c.name: c for c in (_granite, _dsv3)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -17,4 +18,11 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ExitConfig", "ModelConfig", "get_config"]
+def resolve_config(arch) -> ModelConfig:
+    """A ``ModelConfig`` as it is, or the registered config of an arch
+    name (entry points take either)."""
+    return arch if isinstance(arch, ModelConfig) else get_config(arch)
+
+
+__all__ = ["ARCHS", "ExitConfig", "ModelConfig", "get_config",
+           "resolve_config"]

@@ -23,6 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {
     "paged_attention": CSRC / "paged_attention.cu",
+    "paged_mla": CSRC / "paged_mla.cu",
     "exit_head": CSRC / "exit_head.cu",
     "feature_compress": CSRC / "feature_compress.cu",
 }
@@ -37,6 +38,13 @@ SIGNATURES = {
         "repro_paged_gqa_supported": ([_I, _I, _I], _I),
         "repro_paged_gqa_attention": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    "paged_mla": {
+        "repro_paged_mla_supported": ([_I, _I, _I, _I], _I),
+        "repro_paged_mla_split_pages": ([], _I),
+        "repro_paged_mla_attention": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _F, _P], _I),
     },
     "exit_head": {
         "repro_exit_head_block_v": ([], _I),

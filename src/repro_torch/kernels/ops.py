@@ -14,10 +14,12 @@ import torch
 from repro_torch.kernels import exit_head as _exit
 from repro_torch.kernels import feature_compress as _fc
 from repro_torch.kernels import paged_attention as _pattn
+from repro_torch.kernels import paged_mla as _pmla
 from repro_torch.kernels import ref
 
-LAUNCHES = {"paged_gqa_attention": 0, "exit_head_entropy": 0,
-            "quantize_rows": 0, "dequantize_rows": 0}
+LAUNCHES = {"paged_gqa_attention": 0, "paged_mla_attention": 0,
+            "exit_head_entropy": 0, "quantize_rows": 0,
+            "dequantize_rows": 0}
 
 
 def reset_launches() -> None:
@@ -91,6 +93,52 @@ def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):
              f"head_dim={hd}, group={nq // nkv}")
     out = _pattn.attention_cuda(q, pool_k, pool_v, tbl, pos)
     LAUNCHES["paged_gqa_attention"] += 1
+    return out
+
+
+def paged_mla_attention(q_lat, q_rope, pool_ckv, pool_krope, tbl, pos, *,
+                        scale: float):
+    """Paged MLA decode attention with matrix absorption: q_lat
+    [B, 1, N, R] (W_kb already absorbed), q_rope [B, 1, N, Hr], pools
+    [n_pages, P, R] / [n_pages, P, Hr], tbl [B, pps] int32 (sentinel
+    entries allowed: clipped, and always masked by ``pos``), pos [B] int32
+    -> latent context [B, 1, N, R] fp32 (the caller applies W_vb)."""
+    args = (q_lat, q_rope, pool_ckv, pool_krope, tbl, pos)
+    if not _on_card(*args):
+        return ref.paged_mla_attention_ref(*args, scale=scale)
+    _require(q_lat.ndim == 4 and q_lat.shape[1] == 1,
+             f"paged_mla_attention decodes one token, q_lat "
+             f"{tuple(q_lat.shape)}")
+    b, _, n, r = q_lat.shape
+    _require(q_rope.ndim == 4 and q_rope.shape[:3] == q_lat.shape[:3],
+             f"paged_mla_attention q_rope {tuple(q_rope.shape)} for q_lat "
+             f"{tuple(q_lat.shape)}")
+    hr = q_rope.shape[3]
+    _require(pool_ckv.ndim == 3 and pool_krope.ndim == 3
+             and pool_ckv.shape[:2] == pool_krope.shape[:2]
+             and pool_ckv.shape[2] == r and pool_krope.shape[2] == hr,
+             f"paged_mla_attention pools {tuple(pool_ckv.shape)} / "
+             f"{tuple(pool_krope.shape)} for q_lat {tuple(q_lat.shape)}, "
+             f"q_rope {tuple(q_rope.shape)}")
+    _require(all(t.dtype == torch.bfloat16 for t in args[:4]),
+             "paged_mla_attention takes bf16 queries and pools")
+    _require(tbl.dtype == torch.int32 and pos.dtype == torch.int32,
+             "paged_mla_attention takes int32 tbl and pos")
+    _require(tbl.ndim == 2 and tbl.shape[0] == b and pos.shape == (b,)
+             and b > 0,
+             f"paged_mla_attention tbl {tuple(tbl.shape)} pos "
+             f"{tuple(pos.shape)} for batch {b}")
+    _require(all(t.is_contiguous() for t in args),
+             "paged_mla_attention takes contiguous tensors")
+    _require(all(t.data_ptr() % 16 == 0 for t in args[:4]),
+             "paged_mla_attention queries and pools must be 16-byte "
+             "aligned")
+    page = pool_ckv.shape[1]
+    _require(_pmla.supported(n, r, hr, page),
+             f"paged_mla_attention has no instance for heads={n}, "
+             f"rank={r}, rope_dim={hr}, page={page}")
+    out = _pmla.attention_cuda(*args, scale)
+    LAUNCHES["paged_mla_attention"] += 1
     return out
 
 

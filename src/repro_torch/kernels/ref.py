@@ -48,6 +48,28 @@ def paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos):
     return out.reshape(b, 1, nq, hd).to(q.dtype)
 
 
+def paged_mla_attention_ref(q_lat, q_rope, pool_ckv, pool_krope, tbl, pos,
+                            *, scale):
+    """Gather-view version of the paged MLA decode kernel: q_lat
+    [B, 1, N, R] (W_kb absorbed), q_rope [B, 1, N, Hr], pools
+    [n_pages, P, R] / [n_pages, P, Hr], tbl [B, pps] (sentinel entries
+    clipped and always masked by ``pos``), pos [B] -> latent context
+    [B, 1, N, R] fp32."""
+    b, _, n, r = q_lat.shape
+    n_pages, page = pool_ckv.shape[0], pool_ckv.shape[1]
+    smax = tbl.shape[1] * page
+    tblc = tbl.long().clamp(0, n_pages - 1)
+    ckv = pool_ckv[tblc].reshape(b, smax, r).float()
+    krope = pool_krope[tblc].reshape(b, smax, -1).float()
+    s = torch.einsum("bsnr,btr->bnst", q_lat.float(), ckv)
+    s = s + torch.einsum("bsnh,bth->bnst", q_rope.float(), krope)
+    valid = (torch.arange(smax, device=q_lat.device)[None, :]
+             <= pos.long()[:, None])
+    s = (s * scale).masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bnst,btr->bsnr", p, ckv)
+
+
 def quantize_rows_ref(x):
     """x [..., D] fp32/bf16 -> (q int8 [..., D], scale fp32 [..., 1]):
     scale = max(amax * fl(1/127), 1e-8), q = clip(round_half_even(x /

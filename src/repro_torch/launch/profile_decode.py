@@ -8,7 +8,9 @@ profiles ``--steps`` decode polls with ``torch.profiler`` (CPU and CUDA
 activity).  Reports the host wall time per step, the device kernel time per
 step (sum over CUDA kernels), the device busy share (kernel time / wall
 time), CUDA kernel launches per step, and the kernels that take the most
-device time.  Weights are random (seeded); the card is required.
+device time.  Weights are random (seeded) unless the caller passes
+``params``; ``arch`` is an arch name or a ``ModelConfig``; the card is
+required.
 """
 from __future__ import annotations
 
@@ -19,16 +21,18 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import resolve_config
 from repro_torch.models.model import Model
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
                                            SchedulerConfig)
 
 
-def profile_decode(arch: str = "granite-3-2b", slots: int = 16,
-                   prompt_len: int = 128, steps: int = 8, seed: int = 0):
-    model = Model(get_config(arch), device="cuda")
-    params = model.init(seed)
+def profile_decode(arch="granite-3-2b", slots: int = 16,
+                   prompt_len: int = 128, steps: int = 8, seed: int = 0,
+                   params=None):
+    model = Model(resolve_config(arch), device="cuda")
+    if params is None:
+        params = model.init(seed)
     warm = 2
     max_new = warm + steps + 2
     max_len = prompt_len + max_new
@@ -61,7 +65,7 @@ def profile_decode(arch: str = "granite-3-2b", slots: int = 16,
     launches = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     return {
-        "arch": arch, "slots": slots, "prompt_len": prompt_len,
+        "arch": model.cfg.name, "slots": slots, "prompt_len": prompt_len,
         "steps": steps,
         "prefill_s_per_token_step": prefill_s / prompt_len,
         "wall_ms_per_step": wall_s / steps * 1e3,

@@ -24,7 +24,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, resolve_config
 from repro_torch.core import Scenario
 from repro_torch.models.model import Model
 from repro_torch.serving.cluster import ClusterConfig, TieredServingCluster
@@ -65,7 +65,7 @@ def _drive_open_loop(sched, reqs, arrivals):
     return t0, time.time() - t0
 
 
-def serve_poisson(arch: str, *, rate: float = 4.0, n_requests: int = 32,
+def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
                   slots: int = 8, prompt_len: int = 16, max_new: int = 32,
                   threshold: float = 0.5, prefill_chunk: int = 16,
                   paged: bool = False, page_size: int = 16,
@@ -74,8 +74,9 @@ def serve_poisson(arch: str, *, rate: float = 4.0, n_requests: int = 32,
                   device="cuda", quiet: bool = False):
     """Serve a seeded Poisson trace; returns a stats dict (latency
     percentiles, sustained tok/s, exit statistics, prefix-cache hits).
-    ``params`` default to ``Model(arch).init(seed)`` on ``device``."""
-    cfg = get_config(arch)
+    ``arch`` is an arch name or a ``ModelConfig``.  ``params`` default to
+    ``Model(arch).init(seed)`` on ``device``."""
+    cfg = resolve_config(arch)
     model = Model(cfg, device=device)
     if params is None:
         params = model.init(seed)
@@ -163,7 +164,7 @@ def _print_migration(stats):
               f"(gain {res['gain']:+.2f})")
 
 
-def serve_tiered_poisson(arch: str, *, rate: float = 4.0,
+def serve_tiered_poisson(arch, *, rate: float = 4.0,
                          n_requests: int = 32, base_slots: int = 8,
                          prompt_len: int = 16, max_new: int = 32,
                          threshold: float = 0.5, prefill_chunk: int = 16,
@@ -175,15 +176,21 @@ def serve_tiered_poisson(arch: str, *, rate: float = 4.0,
     with the paradigm planners.  Arrivals and the reported latencies live
     on the tiers' virtual clocks (modelled), token generation is real
     execution on ``device``, and ``wall_s`` is the host-clock time of
-    ``run()``.  ``params`` default to ``Model(arch).init(seed)``; the plan
-    config defaults to ``arch`` without ``-smoke``.  Returns the cluster's
-    stats dict plus ``wall_s``, ``tokens`` and each request's outputs."""
-    cfg = get_config(arch)
+    ``run()``.  ``arch`` is an arch name or a ``ModelConfig``.  ``params``
+    default to ``Model(arch).init(seed)``; the plan config defaults to
+    ``arch`` without ``-smoke`` (a ``ModelConfig`` plans itself).  Returns
+    the cluster's stats dict plus ``wall_s``, ``tokens`` and each
+    request's outputs."""
+    cfg = resolve_config(arch)
     model = Model(cfg, device=device)
     if params is None:
         params = model.init(seed)
-    plan_cfg = get_config(plan_arch) if plan_arch else \
-        get_config(arch[:-6] if arch.endswith("-smoke") else arch)
+    if plan_arch:
+        plan_cfg = get_config(plan_arch)
+    elif isinstance(arch, str) and arch.endswith("-smoke"):
+        plan_cfg = get_config(arch[:-len("-smoke")])
+    else:
+        plan_cfg = cfg
     cluster = TieredServingCluster(
         model, params, SCENARIOS[scenario](), plan_cfg=plan_cfg,
         cfg=ClusterConfig(base_slots=base_slots,

@@ -1,7 +1,10 @@
-"""GQA decode attention: contiguous per-slot caches and the paged KV arena.
+"""Decode attention: GQA and MLA (DeepSeek-V3), over contiguous per-slot
+caches and the paged KV arena.
 
 Conventions as in the reference: x [B, S, D]; q/k/v [B, S, N, H];
 contiguous caches [B, S_max, Nkv, H]; paged pools [n_pages, P, Nkv, H].
+MLA latent caches: c_kv [B, S_max, R], k_rope [B, S_max, Hr]; paged
+latent pools [n_pages, P, R] / [n_pages, P, Hr].
 
 Caches are updated IN PLACE (the reference donates them to XLA and gets
 new arrays back); every decode function still returns the caches it was
@@ -14,21 +17,41 @@ import math
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import scaled_init
-from repro_torch.models.rope import apply_positional
+from repro_torch.models.common import init_norm, rmsnorm, scaled_init
+from repro_torch.models.rope import apply_positional, apply_rope
 
 NEG_INF = -1e30
 
 
-def init_gqa(gen, cfg, device="cpu"):
+def init_gqa(cfg):
     d, nq, nkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim)
     return {
-        "wq": scaled_init(gen, (d, nq, hd), d, device=device),
-        "wk": scaled_init(gen, (d, nkv, hd), d, device=device),
-        "wv": scaled_init(gen, (d, nkv, hd), d, device=device),
-        "wo": scaled_init(gen, (nq, hd, d), nq * hd, device=device),
+        "wq": scaled_init((d, nq, hd), d),
+        "wk": scaled_init((d, nkv, hd), d),
+        "wv": scaled_init((d, nkv, hd), d),
+        "wo": scaled_init((nq, hd, d), nq * hd),
     }
+
+
+def init_mla(cfg):
+    d, nq = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rph, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": scaled_init((d, qr), d),
+        "q_norm": init_norm("rmsnorm", qr),
+        "wq_b": scaled_init((qr, nq, nope + rph), qr),
+        "wkv_a": scaled_init((d, kvr + rph), d),
+        "kv_norm": init_norm("rmsnorm", kvr),
+        "wk_b": scaled_init((kvr, nq, nope), kvr),
+        "wv_b": scaled_init((kvr, nq, vh), kvr),
+        "wo": scaled_init((nq, vh, d), nq * vh),
+    }
+
+
+def init_attention(cfg):
+    return init_mla(cfg) if cfg.attention == "mla" else init_gqa(cfg)
 
 
 def _proj(x, w):
@@ -60,12 +83,18 @@ def _decode_positions(position, batch: int, device):
     return pos.reshape(-1).expand(batch).contiguous()
 
 
+def _rows(mask, val):
+    """A [B] row mask shaped to broadcast over ``val`` [B, ...] of any
+    trailing rank (GQA rows [B, Nkv, H], MLA latent rows [B, R])."""
+    return mask.reshape(-1, *([1] * (val.ndim - 1)))
+
+
 def _masked_row_write(cache, bidx, slot, val, write_mask):
     """cache[b, slot[b]] = val[b] for rows with write_mask (all if None);
     each row writes only its own cache row, so rows never collide."""
     val = val.to(cache.dtype)
     if write_mask is not None:
-        val = torch.where(write_mask[:, None, None], val, cache[bidx, slot])
+        val = torch.where(_rows(write_mask, val), val, cache[bidx, slot])
     cache[bidx, slot] = val
 
 
@@ -160,7 +189,7 @@ def paged_write(pool, paged: PagedKV, pos_b, val):
     first = torch.argmax(keep.to(torch.int32)).reshape(1)   # [1]: no sync
     any_keep = keep.any()
     idx = torch.where(keep, idx, torch.where(any_keep, idx[first], idx))
-    val = torch.where(keep[:, None, None], val,
+    val = torch.where(_rows(keep, val), val,
                       torch.where(any_keep, val[first], flat[idx]))
     flat.index_copy_(0, idx, val)
     return pool
@@ -178,3 +207,97 @@ def gqa_decode_paged(cfg, params, x, pool_k, pool_v, position,
     paged_write(pool_v, paged, pos_b, v[:, 0])
     out = kops.paged_gqa_attention(q, pool_k, pool_v, paged.tbl, pos_b)
     return _out_proj(out, params["wo"]), (pool_k, pool_v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): latent-compressed attention with matrix absorption
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(cfg, params, x, positions):
+    """x [B, S, D], positions [B, S] -> q_nope [B,S,N,nope], q_rope
+    [B,S,N,Hr] (rotated), c_kv [B,S,R] (normed), k_rope [B,S,Hr]."""
+    nope, kvr = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    cq = torch.matmul(x, params["wq_a"].to(x.dtype))
+    cq = rmsnorm(cq, params["q_norm"]["scale"])
+    q = _proj(cq, params["wq_b"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = torch.matmul(x, params["wkv_a"].to(x.dtype))
+    c_kv = rmsnorm(ckv[..., :kvr], params["kv_norm"]["scale"])
+    k_rope = apply_rope(ckv[..., None, kvr:], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _absorb_k(q_nope, wk_b):
+    """q_lat = einsum("bsnh,rnh->bsnr"): W_kb folded into the query, in
+    the query's dtype, so scores read the latent cache directly."""
+    return torch.einsum("bsnh,rnh->bsnr", q_nope, wk_b.to(q_nope.dtype))
+
+
+def _latent_out(ctx_lat, wv_b, dtype):
+    """einsum("bsnr,rnv->bsnv") of the latent context, cast to ``dtype``
+    first as the reference does."""
+    return torch.einsum("bsnr,rnv->bsnv", ctx_lat.to(dtype), wv_b.to(dtype))
+
+
+def mla_scores_ctx(cfg, params, q_nope, q_rope, c_kv, k_rope, mask):
+    """Absorbed-matrix attention: scores and context from the latent
+    cache.  mask [B|1, Sq, Skv] bool.  Returns [B, Sq, N, V]."""
+    q_lat = _absorb_k(q_nope, params["wk_b"])
+    scores = torch.einsum("bsnr,btr->bnst", q_lat.float(), c_kv.float())
+    scores = scores + torch.einsum("bsnh,bth->bnst", q_rope.float(),
+                                   k_rope.float())
+    m = mask if mask.ndim == 3 else mask[None]
+    scores = (scores * _mla_scale(cfg)).masked_fill(~m[:, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bnst,btr->bsnr", probs, c_kv.float())
+    return _latent_out(ctx_lat, params["wv_b"], q_nope.dtype)
+
+
+def mla_decode(cfg, params, x, cache_ckv, cache_krope, position, *,
+               window: int = 0, write_mask=None):
+    """One-token MLA decode against the latent cache [B, Smax, R] /
+    [B, Smax, Hr] (written in place; a ring buffer if ``window``)."""
+    b = x.shape[0]
+    smax = cache_ckv.shape[1]
+    pos_b = _decode_positions(position, b, x.device).long()
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, params, x, pos_b[:, None])
+    slot = (pos_b % smax) if window else torch.clamp(pos_b, max=smax - 1)
+    bidx = torch.arange(b, device=x.device)
+    _masked_row_write(cache_ckv, bidx, slot, c_kv[:, 0], write_mask)
+    _masked_row_write(cache_krope, bidx, slot, k_rope[:, 0], write_mask)
+    idx = torch.arange(smax, device=x.device)
+    if window:
+        age = (slot[:, None] - idx[None, :]) % smax
+        valid = age < torch.clamp(pos_b + 1, max=smax)[:, None]
+    else:
+        valid = idx[None, :] <= pos_b[:, None]             # [B, Smax]
+    out = mla_scores_ctx(cfg, params, q_nope, q_rope, cache_ckv, cache_krope,
+                         valid[:, None, :])
+    return _out_proj(out, params["wo"]), (cache_ckv, cache_krope)
+
+
+def mla_decode_paged(cfg, params, x, pool_ckv, pool_krope, position,
+                     paged: PagedKV):
+    """One-token MLA decode against paged latent pools [n_pages, P, R] /
+    [n_pages, P, Hr] (written in place).  W_kb is absorbed into the query
+    outside the kernel, so ``kernels.ops.paged_mla_attention`` scores
+    latent-rank queries only and returns the fp32 latent context; W_vb and
+    W_o apply after it."""
+    b = x.shape[0]
+    pos_b = _decode_positions(position, b, x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, params, x,
+                                            pos_b.long()[:, None])
+    paged_write(pool_ckv, paged, pos_b, c_kv[:, 0])
+    paged_write(pool_krope, paged, pos_b, k_rope[:, 0])
+    q_lat = _absorb_k(q_nope, params["wk_b"]).contiguous()
+    ctx_lat = kops.paged_mla_attention(q_lat, q_rope.contiguous(), pool_ckv,
+                                       pool_krope, paged.tbl, pos_b,
+                                       scale=_mla_scale(cfg))
+    out = _latent_out(ctx_lat, params["wv_b"], q_nope.dtype)
+    return _out_proj(out, params["wo"]), (pool_ckv, pool_krope)

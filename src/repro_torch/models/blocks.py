@@ -7,8 +7,9 @@ Every architecture compiles to a PLAN, an ordered list of steps
     ("exit", exit_idx, layer)          — early-exit head / partition boundary
 
 exactly as in the reference.  Stacked blocks keep their leading layer axis
-([n_units, ...]); decode walks it in a Python loop.  Only the ``dense``
-kind is ported so far.
+([n_units, ...]); decode walks it in a Python loop.  The ``dense`` and
+``moe`` kinds are ported, with GQA or MLA attention; ``pair`` (llama4's
+grouped dense/MoE unit) and the state kinds are not yet.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import (apply_norm, init_norm, scaled_init,
-                                       tree_leaves, tree_map)
+from repro_torch.models.common import (apply_norm, init_norm, materialize,
+                                       scaled_init, tree_leaves, tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -90,38 +91,52 @@ def build_plan(cfg) -> List[Tuple]:
 # Init
 # ---------------------------------------------------------------------------
 
+PORTED_KINDS = frozenset({"dense", "moe"})
+
+
 def _require_ported(kind: str):
-    if kind != "dense":
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"repro_torch: layer kind {kind!r} is not ported yet")
 
 
-def _init_dense_layer(gen, cfg, device):
+def _init_dense_layer(cfg):
     return {
-        "ln1": init_norm(cfg.norm, cfg.d_model, device),
-        "attn": attn.init_gqa(gen, cfg, device),
-        "ln2": init_norm(cfg.norm, cfg.d_model, device),
-        "ffn": ffn_mod.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.act, device),
+        "ln1": init_norm(cfg.norm, cfg.d_model),
+        "attn": attn.init_attention(cfg),
+        "ln2": init_norm(cfg.norm, cfg.d_model),
+        "ffn": ffn_mod.init_ffn(cfg.d_model, cfg.d_ff, cfg.act),
     }
 
 
+def _init_moe_layer(cfg):
+    return {
+        "ln1": init_norm(cfg.norm, cfg.d_model),
+        "attn": attn.init_attention(cfg),
+        "ln2": init_norm(cfg.norm, cfg.d_model),
+        "moe": ffn_mod.init_moe(cfg),
+    }
+
+
+_INIT = {"dense": _init_dense_layer, "moe": _init_moe_layer}
+
+
 def init_scan_block(gen, cfg, kind: str, n_units: int, device="cpu"):
-    """Stacked params [n_units, ...] for a block of one kind."""
+    """Stacked params [n_units, ...] for a block of one kind, made in
+    place leaf by leaf (``common.materialize``)."""
     _require_ported(kind)
-    layers = [_init_dense_layer(gen, cfg, device) for _ in range(n_units)]
-    return tree_map(lambda *xs: torch.stack(xs), *layers)
+    return materialize(gen, _INIT[kind](cfg), device, n_units)
 
 
-def init_exit_head(gen, cfg, device="cpu"):
+def init_exit_head(cfg):
+    """Leaf specs of one exit head (``Model.init`` makes them)."""
     hid = cfg.exits.head_hidden
-    p = {"norm": init_norm(cfg.norm, cfg.d_model, device)}
+    p = {"norm": init_norm(cfg.norm, cfg.d_model)}
     if hid:
-        p["w_h"] = scaled_init(gen, (cfg.d_model, hid), cfg.d_model,
-                               device=device)
-        p["w"] = scaled_init(gen, (hid, cfg.vocab_size), hid, device=device)
+        p["w_h"] = scaled_init((cfg.d_model, hid), cfg.d_model)
+        p["w"] = scaled_init((hid, cfg.vocab_size), hid)
     else:
-        p["w"] = scaled_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model,
-                             device=device)
+        p["w"] = scaled_init((cfg.d_model, cfg.vocab_size), cfg.d_model)
     return p
 
 
@@ -148,46 +163,68 @@ def exit_head_logits(cfg, p, x):
 PAGED_KINDS = frozenset({"dense", "moe", "pair", "enc"})
 
 
+def _attn_cache_shapes(cfg, lead):
+    """Shapes of one layer's attention cache leaves, behind the leading
+    axes ``lead``: (k, v) [.., Nkv, H] for GQA, (c_kv, k_rope) [.., R] /
+    [.., Hr] for MLA."""
+    if cfg.attention == "mla":
+        return ((*lead, cfg.kv_lora_rank), (*lead, cfg.qk_rope_head_dim))
+    kv = (*lead, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (kv, kv)
+
+
 def init_layer_cache(cfg, kind: str, batch: int, cache_len: int,
                      device="cpu"):
-    """Contiguous decode cache for ONE layer: (k, v) [B, S, Nkv, H] bf16."""
+    """Contiguous decode cache for ONE layer, bf16: (k, v)
+    [B, S, Nkv, H], or MLA's (c_kv, k_rope) [B, S, R] / [B, S, Hr]."""
     _require_ported(kind)
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return (torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            torch.zeros(shape, dtype=torch.bfloat16, device=device))
+    return tuple(torch.zeros(sh, dtype=torch.bfloat16, device=device)
+                 for sh in _attn_cache_shapes(cfg, (batch, cache_len)))
 
 
 def init_layer_cache_paged(cfg, kind: str, batch: int, n_pages: int,
                            page_size: int, device="cpu"):
-    """Paged decode cache for ONE layer: global (k, v) pools
-    [n_pages, P, Nkv, H] bf16, indexed through the slot block table."""
+    """Paged decode cache for ONE layer: global bf16 pools [n_pages, P,
+    ...] of the same leaves, indexed through the slot block table."""
     _require_ported(kind)
-    shape = (n_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return (torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            torch.zeros(shape, dtype=torch.bfloat16, device=device))
+    return tuple(torch.zeros(sh, dtype=torch.bfloat16, device=device)
+                 for sh in _attn_cache_shapes(cfg, (n_pages, page_size)))
 
 
 # ---------------------------------------------------------------------------
 # Decode (single token, cache-carrying)
 # ---------------------------------------------------------------------------
 
+def _attn_decode_dispatch(cfg, lp_attn, h, cache, position, window,
+                          paged=None, write_mask=None):
+    if paged is not None:
+        if cfg.attention == "mla":
+            return attn.mla_decode_paged(cfg, lp_attn, h, cache[0], cache[1],
+                                         position, paged)
+        return attn.gqa_decode_paged(cfg, lp_attn, h, cache[0], cache[1],
+                                     position, paged)
+    decode = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
+    return decode(cfg, lp_attn, h, cache[0], cache[1], position,
+                  window=window, write_mask=write_mask)
+
+
 def decode_layer(cfg, kind: str, lp, x, cache, position, window,
                  paged=None, write_mask=None):
     """One-token decode through one layer; the layer's cache is updated in
-    place.  Returns (x, cache).  ``paged`` (an ``attn.PagedKV``) selects the
-    paged pools; ``write_mask`` gates contiguous-row writes."""
+    place.  Returns (x, cache, aux): ``aux`` is the MoE load-balance loss
+    (0 for dense layers), which decode callers drop.  ``paged`` (an
+    ``attn.PagedKV``) selects the paged pools; ``write_mask`` gates
+    contiguous-row writes."""
     _require_ported(kind)
     h = apply_norm(cfg.norm, x, lp["ln1"])
-    if paged is not None:
-        y, new = attn.gqa_decode_paged(cfg, lp["attn"], h, cache[0], cache[1],
-                                       position, paged)
-    else:
-        y, new = attn.gqa_decode(cfg, lp["attn"], h, cache[0], cache[1],
-                                 position, window=window,
-                                 write_mask=write_mask)
+    y, new = _attn_decode_dispatch(cfg, lp["attn"], h, cache, position,
+                                   window, paged, write_mask)
     x = x + y
     h = apply_norm(cfg.norm, x, lp["ln2"])
-    return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), new
+    if kind == "moe":
+        y, aux = ffn_mod.moe_ffn(lp["moe"], h, cfg)
+        return x + y, new, aux
+    return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), new, 0.0
 
 
 def decode_scan_block(cfg, kind: str, bparams, x, caches, position, window,
@@ -199,6 +236,6 @@ def decode_scan_block(cfg, kind: str, bparams, x, caches, position, window,
     for i in range(n):
         lp = tree_map(lambda a: a[i], bparams)
         cc = tree_map(lambda a: a[i], caches)
-        x, _ = decode_layer(cfg, kind, lp, x, cc, position, window, paged,
-                            write_mask)
+        x, _, _ = decode_layer(cfg, kind, lp, x, cc, position, window, paged,
+                               write_mask)
     return x, caches

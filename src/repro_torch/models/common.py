@@ -1,7 +1,9 @@
 """Shared building blocks: device check, norms, activations, init, embed."""
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,17 +45,55 @@ def tree_leaves(tree):
 # ---------------------------------------------------------------------------
 # Initializers (std and dtype rules of the reference; the random stream is
 # torch's, so a test hands both packages the same weights via the bridge)
+#
+# The init functions of the model modules return trees of ``Leaf`` specs;
+# ``materialize`` makes them.  Each parameter is allocated once, in its
+# final dtype and, for a block, already stacked [n_units, ...]; random
+# leaves are drawn in fp32 slices of at most ``DRAW_CHUNK`` elements and
+# written into it.  So no fp32 copy of a weight and no stack copy of a
+# block ever exists: a full-width deepseek-v3 MoE layer (22.5 GB of bf16
+# experts) would not fit on one 80 GB card beside those.
 # ---------------------------------------------------------------------------
 
-def normal_init(gen, shape, std: float = 0.02, dtype=torch.float32,
-                device="cpu"):
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+DRAW_CHUNK = 1 << 24               # elements drawn at once (64 MB of fp32)
 
 
-def scaled_init(gen, shape, fan_in: int, dtype=torch.float32, device="cpu"):
-    return normal_init(gen, shape, std=1.0 / math.sqrt(max(1, fan_in)),
-                       dtype=dtype, device=device)
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """A parameter to be made: its per-layer shape, and either a normal
+    draw with standard deviation ``std`` or the constant ``fill``."""
+    shape: Tuple[int, ...]
+    std: float = 0.0
+    fill: float = 0.0
+
+
+def normal_init(shape, std: float = 0.02) -> Leaf:
+    return Leaf(tuple(shape), std=std)
+
+
+def scaled_init(shape, fan_in: int) -> Leaf:
+    return Leaf(tuple(shape), std=1.0 / math.sqrt(max(1, fan_in)))
+
+
+def materialize(gen, tree, device, n_units: Optional[int] = None):
+    """Make every ``Leaf`` of ``tree`` on ``device``, stacked
+    [n_units, ...] when ``n_units`` is given.  dtype follows the
+    reference's cast, applied after stacking: bf16 where the made tensor
+    has rank >= 2 (stacked norm scales included), fp32 otherwise."""
+    def make(leaf: Leaf):
+        shape = leaf.shape if n_units is None else (n_units, *leaf.shape)
+        dtype = torch.bfloat16 if len(shape) >= 2 else torch.float32
+        out = torch.empty(shape, dtype=dtype, device=device)
+        if not leaf.std:
+            return out.fill_(leaf.fill)
+        flat = out.view(-1)
+        for a in range(0, flat.numel(), DRAW_CHUNK):
+            b = min(a + DRAW_CHUNK, flat.numel())
+            draw = torch.randn(b - a, generator=gen, dtype=torch.float32,
+                               device=device)
+            flat[a:b].copy_(draw.mul_(leaf.std))
+        return out
+    return tree_map(make, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -82,11 +122,10 @@ def apply_norm(kind: str, x, p):
     return layernorm(x, p["scale"], p["bias"])
 
 
-def init_norm(kind: str, d: int, device="cpu"):
+def init_norm(kind: str, d: int):
     if kind == "rmsnorm":
-        return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
-    return {"scale": torch.ones(d, dtype=torch.float32, device=device),
-            "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+        return {"scale": Leaf((d,), fill=1.0)}
+    return {"scale": Leaf((d,), fill=1.0), "bias": Leaf((d,), fill=0.0)}
 
 
 def _gelu_tanh(x):

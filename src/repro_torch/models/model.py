@@ -1,4 +1,5 @@
-"""The Model: plan-driven decoder with early exits (dense family).
+"""The Model: plan-driven decoder with early exits (dense and MoE families,
+GQA or MLA attention).
 
 Public surface, as in the reference:
 
@@ -34,9 +35,9 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import blocks as B
-from repro_torch.models.common import (apply_norm, embed, init_norm,
-                                       normal_init, resolve_device, tree_map,
-                                       unembed)
+from repro_torch.models.common import (Leaf, apply_norm, embed, init_norm,
+                                       materialize, normal_init,
+                                       resolve_device, tree_map, unembed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,36 +77,44 @@ class Model:
     # ------------------------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random params from a seeded ``torch.Generator`` on the model's
-        device, with the reference's distributions: embed N(0, 0.02),
-        matmul weights N(0, 1/fan_in), bf16 for rank >= 2, fp32 norms."""
+        device, with the reference's tree and distributions: embed
+        N(0, 0.02), matmul weights N(0, 1/fan_in), bf16 for rank >= 2
+        after stacking, fp32 otherwise.  Every tensor is made in place in
+        its final dtype (``common.materialize``)."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params: Dict[str, Any] = {
-            "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model),
-                                 std=0.02, dtype=torch.bfloat16, device=dev),
-            "final_norm": init_norm(cfg.norm, cfg.d_model, dev),
-        }
-        if not cfg.tie_embeddings:
-            params["lm_head"] = normal_init(
-                gen, (cfg.vocab_size, cfg.d_model), std=0.02,
-                dtype=torch.bfloat16, device=dev)
-        if cfg.shared_attn_period or cfg.family == "encdec" or cfg.mtp_depth:
+        if cfg.shared_attn_period or cfg.family == "encdec":
             raise NotImplementedError(
                 f"repro_torch: {cfg.name} needs blocks not ported yet")
+        top = {"embed": normal_init((cfg.vocab_size, cfg.d_model), 0.02),
+               "final_norm": init_norm(cfg.norm, cfg.d_model)}
+        if not cfg.tie_embeddings:
+            top["lm_head"] = normal_init((cfg.vocab_size, cfg.d_model), 0.02)
+        params: Dict[str, Any] = materialize(gen, top, dev)
         params["blocks"] = [
-            self._cast(B.init_scan_block(gen, cfg, kind, n, dev))
+            B.init_scan_block(gen, cfg, kind, n, dev)
             for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]
         if self.n_exits:
             params["exit_heads"] = [
-                self._cast(B.init_exit_head(gen, cfg, dev))
+                materialize(gen, B.init_exit_head(cfg), dev)
                 for _ in range(self.n_exits)]
+        if cfg.mtp_depth:
+            params["mtp"] = self._init_mtp(gen)
         return params
 
-    @staticmethod
-    def _cast(tree):
-        """Matmul weights -> bf16; norms stay fp32 (rank <= 1)."""
-        return tree_map(
-            lambda a: a.to(torch.bfloat16) if a.ndim >= 2 else a, tree)
+    def _init_mtp(self, gen):
+        """DeepSeek-V3's multi-token-prediction head, as the reference
+        builds it (params only: it feeds ``Model.forward``, never
+        decode, and ``forward`` is not ported yet)."""
+        cfg, dev = self.cfg, self.device
+        kind = "moe" if cfg.family == "moe" and cfg.moe.num_experts \
+            else "dense"
+        mtp = materialize(gen, {
+            "combine": normal_init((2 * cfg.d_model, cfg.d_model), 0.02),
+            "norm": init_norm(cfg.norm, cfg.d_model),
+            "kind_is_moe": Leaf((), fill=float(kind == "moe"))}, dev)
+        mtp["layer"] = B.init_scan_block(gen, cfg, kind, 1, dev)
+        return mtp
 
     # ------------------------------------------------------------------
     # Decode caches

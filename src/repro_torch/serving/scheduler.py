@@ -550,7 +550,12 @@ class ContinuousBatchScheduler:
         probing = thr > 0.0            # normalized entropy >= 0: no exits
         for seg in self._segments:
             if self.page_alloc is not None:
-                wm = alive & active_d  # stale slots own no pages
+                # writes gate on alive & active (stale slots own no pages),
+                # but the hidden passthrough keeps the plain alive mask:
+                # every row's compute must match the reference's, because
+                # MoE expert capacity couples batch rows (a changed garbage
+                # row could evict a live row's token from an expert queue)
+                wm = alive & active_d
                 x, self.cache = model.decode_segment(
                     self.params, self.cache, x, seg, positions, wm,
                     paged=PagedKV(self._tbl_dev(), wm), passthrough=alive)

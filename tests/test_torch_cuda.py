@@ -8,8 +8,11 @@ there is one is decided when a test runs, never at import.
 
 Tolerances: the paged attention output is bf16 and both versions
 accumulate in fp32 and round once (one bf16 ulp at |out| < 4 is 2^-6);
-the entropy is fp32 summed in another order (1e-4 at small D, 1e-3 at
-D = 2048).  The int8 kernels are held bit for bit: one IEEE division and
+the paged MLA output is fp32 from the same bf16 inputs, and differs only
+by the order of fp32 sums of R + Hr <= 576 products and of the softmax
+terms (1e-3, against outputs that are convex combinations of latents
+|c| < 5); the entropy is fp32 summed in another order (1e-4 at small D,
+1e-3 at D >= 2048).  The int8 kernels are held bit for bit: one IEEE division and
 one rounding per element, and a max that no order changes.
 """
 import math
@@ -60,8 +63,65 @@ def test_paged_gqa_kernel_matches_plain(cuda, group, hd):
     assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
 
 
+def _paged_mla(dev, b, n, r, hr, page=16, pps=8, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = b * pps + 3
+    pos = torch.randint(0, pps * page, (b,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[0] = 0                                 # a one-token sequence
+    perm = torch.randperm(n_pages, generator=g, device=dev).to(torch.int32)
+    tbl = perm[:b * pps].reshape(b, pps).clone()
+    cols = torch.arange(pps, device=dev)[None, :]
+    tbl = torch.where(cols < (pos.long() // page + 1)[:, None], tbl,
+                      torch.full_like(tbl, n_pages))
+    ql = torch.randn(b, 1, n, r, generator=g, device=dev).bfloat16()
+    qr = torch.randn(b, 1, n, hr, generator=g, device=dev).bfloat16()
+    pc = torch.randn(n_pages, page, r, generator=g, device=dev).bfloat16()
+    pk = torch.randn(n_pages, page, hr, generator=g, device=dev).bfloat16()
+    return ql, qr, pc, pk, tbl, pos
+
+
+@pytest.mark.parametrize("b,n,r,hr,pps", [
+    (5, 4, 32, 16, 8), (5, 4, 32, 16, 40), (16, 128, 512, 64, 9),
+    (16, 128, 512, 64, 128)])
+def test_paged_mla_kernel_matches_plain(cuda, b, n, r, hr, pps):
+    """deepseek-v3 smoke and full widths, with one split of pages (tables
+    of up to 16 pages: the serving path's 9) and with several merged by
+    the combine pass (40 pages; 128 at 16 slots and positions up to 2047,
+    the chip smoke's phase 2)."""
+    args = _paged_mla(cuda, b, n, r, hr, pps=pps, seed=n + r)
+    scale = 1.0 / math.sqrt(3 * hr)            # 1 / sqrt(nope + rope)
+    n0 = ops.LAUNCHES["paged_mla_attention"]
+    got = ops.paged_mla_attention(*args, scale=scale)
+    want = ref.paged_mla_attention_ref(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_mla_attention"] == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (b, 1, n, r)
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+def test_paged_mla_wrapper_raises_instead_of_falling_back(cuda):
+    ql, qr, pc, pk, tbl, pos = _paged_mla(cuda, 2, 4, 32, 16)
+    with pytest.raises(ValueError):             # CPU / CUDA mix
+        ops.paged_mla_attention(ql, qr, pc.cpu(), pk, tbl, pos, scale=0.1)
+    with pytest.raises(ValueError):             # fp32 queries
+        ops.paged_mla_attention(ql.float(), qr, pc, pk, tbl, pos, scale=0.1)
+    with pytest.raises(ValueError):             # int64 table
+        ops.paged_mla_attention(ql, qr, pc, pk, tbl.long(), pos, scale=0.1)
+    with pytest.raises(ValueError):             # no instance for 8 heads
+        ops.paged_mla_attention(ql.repeat(1, 1, 2, 1), qr.repeat(1, 1, 2, 1),
+                                pc, pk, tbl, pos, scale=0.1)
+    with pytest.raises(ValueError):             # no instance for page 8
+        ops.paged_mla_attention(ql, qr, pc[:, :8].contiguous(),
+                                pk[:, :8].contiguous(), tbl, pos, scale=0.1)
+    with pytest.raises(ValueError):             # a non-contiguous query
+        ops.paged_mla_attention(torch.cat([ql, ql], -1)[..., :32], qr, pc,
+                                pk, tbl, pos, scale=0.1)
+
+
 @pytest.mark.parametrize("t,d,v", [(16, 2048, 49155), (37, 96, 1000),
-                                   (1, 300, 513), (16, 256, 1024)])
+                                   (1, 300, 513), (16, 256, 1024),
+                                   (16, 7168, 129280)])
 def test_exit_head_kernel_matches_plain(cuda, t, d, v):
     g = torch.Generator(device=cuda).manual_seed(t + d + v)
     x = torch.randn(t, d, generator=g, device=cuda).bfloat16()
@@ -72,7 +132,7 @@ def test_exit_head_kernel_matches_plain(cuda, t, d, v):
     want = ref.exit_head_entropy_ref(x, w)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["exit_head_entropy"] == n0 + 1
-    tol = 1e-3 if d >= 2048 else 1e-4
+    tol = 1e-3 if d >= 2048 else 1e-4       # deepseek-v3's exit head last
     assert (got - want).abs().max().item() <= tol
 
 
