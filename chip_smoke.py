@@ -29,8 +29,18 @@ Phases, each fatal on failure:
      with 256 experts): ``serve_poisson`` with the paged arena, the prefix
      cache and segmented decode; the paged-MLA and exit-head kernels must
      launch and are held again on live inputs, one live MoE input's
-     capacity drops are recounted on the host, and ``profile_decode``
-     splits a decode step into host and device time.
+     capacity drops are recounted on the host, ``profile_decode``
+     splits a decode step into host and device time, and one
+     ``Model.forward`` over 2 x 256 tokens runs MLA and the MoE forward;
+  7. the full-sequence forward at full width: granite-3-2b (40 layers)
+     through ``Model.forward`` on 8 x 2048 tokens (one flash-attention
+     launch per layer), ``resilient_forward`` with every block alive (equal
+     to the forward) and with block 0 dead, and the forward's greedy tokens
+     against the decode replay of ``Model.prefill`` on 2 x 128 tokens,
+     measured on an fp32 forward; the plain-attention forward must pass
+     that check and a planted fault (P in fp8 before P V) must fail it.
+Phase 2 also holds the flash-attention kernel against its plain version,
+and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Prints the per-kernel JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside this file.
@@ -67,6 +77,33 @@ MLA_TOL = 1e-3     # fp32 latent context from the same bf16 inputs: only
 ROUTE_TIE = 1e-2   # router probabilities closer than this are a tie: the
                    # card's and the CPU's bf16 hidden states differ by an
                    # ulp, which may flip such a top-k choice
+FLASH_TOL = 1e-2   # of max(1, |plain|): bf16 output, both accumulate in
+                   # fp32 and round once, so they may sit one bf16 ulp apart
+                   # (2^-6 > 1e-2 where |out| >= 2: rows that see few keys);
+                   # the kernel also rounds P to bf16 for P V
+EXIT_TOL = 2 * LOGIT_TOL   # smoke exit logits: the exit head's W is drawn
+                   # at 1/sqrt(D), 3x the embedding's 0.02 at D 256, so its
+                   # logits and their ulps are ~3x larger, but it reads the
+                   # hidden state after one layer, not all of them (as
+                   # tests/test_torch_forward.py holds them)
+AUX_TOL = 1e-2     # MoE aux loss (~1): fp32 means of router probabilities
+                   # taken from bf16 hidden states an ulp apart
+RESILIENT_TOL = 1e-3   # all blocks alive: a * y + (1 - a) * x is y exactly
+LOGIT_TIE = 1e-2   # top-2 logits closer than this are an argmax tie
+REPLAY_TIE = 5e-2  # ... in phase 7's forward-vs-replay check, which
+                   # measures the gap between the two paths' choices on an
+                   # fp32 forward: at 40 bf16 layers every sound path
+                   # (kernel forward, plain-attention forward, decode
+                   # replay) sits up to ~0.09 from the fp32 logits (std
+                   # 0.9), and the plain-attention forward and the replay
+                   # flip argmax at fp32 gaps up to ~0.04.  The check cannot
+                   # see a flip where the fp32 top-2 gap is under this (it
+                   # prints that share), so REPLAY_ACC is added
+REPLAY_ACC = 1.25  # a forward's mean deviation from the fp32 forward may
+                   # exceed the decode replay's by at most this factor: the
+                   # sound forwards read about 1.0, the planted control
+                   # (P rounded to fp8 before P V) about 2.6 (PERF.md keeps
+                   # each run's readings); the control must fail the check
 
 
 def fail(msg):
@@ -264,6 +301,48 @@ def entropy_library(torch):
     return call
 
 
+def flash_bound(make_mask, q, k, causal, window):
+    """Bytes: q, k, v read once, o written once; operations: 4 H per
+    unmasked (query, key) pair (two products), per sequence and head."""
+    b, sq, nq, h = q.shape
+    pairs = int(make_mask(sq, k.shape[1], causal=causal,
+                          window=window).sum())
+    return bound((2 * q.numel() + 2 * k.numel()) * 2, 4 * h * pairs * b * nq)
+
+
+def flash_inputs(torch, gen, b, s, nq, nkv, h, sets=1):
+    return [tuple(torch.randn(b, s, n, h, generator=gen, device="cuda")
+                  .bfloat16() for n in (nq, nkv, nkv)) for _ in range(sets)]
+
+
+def check_flash(torch, ops, ref, args, causal, window, label):
+    """The kernel against its plain version; returns the max abs error."""
+    got = ops.flash_attention(*args, causal=causal, window=window)
+    want = ref.flash_attention_ref(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    scaled = (diff / want.float().abs().clamp(min=1)).max().item()
+    print(f"flash_attention {label} q {tuple(args[0].shape)} k "
+          f"{tuple(args[1].shape)} causal {causal} window {window}: "
+          f"max_abs_err {err:.3e}, of max(1, |plain|) {scaled:.3e} (tol "
+          f"{FLASH_TOL})")
+    if not torch.isfinite(got.float()).all() or not scaled <= FLASH_TOL:
+        fail(f"flash_attention disagrees with its plain version ({label})")
+    return err
+
+
+def sdpa_flash(F):
+    """The library yardstick for flash attention: one causal
+    scaled_dot_product_attention call on the BHSD views of the same
+    tensors, GQA left to the library."""
+    def call(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+    return call
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="chip smoke of the port")
     ap.add_argument("--json", default="",
@@ -280,6 +359,7 @@ def main(argv=None):
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch.serve import serve_poisson
+    from repro_torch.models.attention import make_mask
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -458,9 +538,43 @@ def main(argv=None):
           "function)")
     del leaf, hid, q_leaf, s_leaf
 
+    # flash attention: phase 7's shape (granite-3-2b's 32/8 heads of 64,
+    # 8 x 2048 tokens, causal), a ragged sliding-window case and a
+    # non-causal G 1 case at head dim 128
+    sets = flash_inputs(torch, gen, 8, 2048, 32, 8, 64, sets=2)
+    f_err = check_flash(torch, ops, ref, sets[0], True, 0, "main path")
+    f_err = max(f_err, check_flash(
+        torch, ops, ref, flash_inputs(torch, gen, 2, 1000, 32, 8, 64)[0],
+        True, 256, "ragged, window"))
+    f_err = max(f_err, check_flash(
+        torch, ops, ref, flash_inputs(torch, gen, 2, 512, 16, 16, 128)[0],
+        False, 0, "non-causal, G 1, H 128"))
+    lib = sdpa_flash(F)
+    lib_err = (lib(*sets[0]).float() - ref.flash_attention_ref(
+        *sets[0]).float()).abs().max().item()
+    bound_ms, by = flash_bound(make_mask, sets[0][0], sets[0][1], True, 0)
+
+    def flash(q, k, v):
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def flash_plain(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=True)
+    results["flash_attention"] = {
+        "max_abs_err": f_err,
+        "ms": device_ms(torch, flash, sets),
+        "plain_ms": device_ms(torch, flash_plain, sets, iters=4),
+        "library_ms": device_ms(torch, lib, sets),
+        "bound_ms": bound_ms, "bound_by": by}
+    print(f"  sdpa yardstick agrees to {lib_err:.3e}; "
+          f"{json.dumps(results['flash_attention'])}")
+    del sets
+
     # ---- phase 3: small-input references, card vs CPU -----------------
     check_smoke_vs_cpu(torch, "granite-3-2b-smoke")
     check_smoke_vs_cpu(torch, "deepseek-v3-671b-smoke")
+    check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=False)
+    check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=True)
+    check_forward_vs_cpu(torch, "deepseek-v3-671b-smoke", long_mode=False)
 
     # ---- phase 4: the main path at full width -------------------------
     captured = {}
@@ -548,6 +662,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     ds, ds_launches = run_deepseek(torch, ops, ref, results, exit_ds)
 
+    # ---- phase 7: the full-sequence forward at full width ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd, fwd_launches = run_forward(torch, ops)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -561,16 +680,21 @@ def main(argv=None):
         "dequantize_rows": ("src/repro_torch/kernels/csrc/"
                             "feature_compress.cu",
                             "src/repro/kernels/feature_compress.py:60"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/"
+                            "flash_attention.cu",
+                            "src/repro/kernels/attention.py:71"),
     }
     # launches: each kernel's count on the path that carries it (phase 4
     # for GQA attention and the exit probe, phase 5's int8 run for the
-    # handoff, phase 6 for paged MLA); the exit head's deepseek-v3 numbers
+    # handoff, phase 6 for paged MLA, phase 7's timed forward for flash
+    # attention); the exit head's deepseek-v3 numbers
     # (phase 2 at its widths, phase 6's launches) ride along under
     # "deepseek"
     path_launches = dict(main_launches)
     path_launches["quantize_rows"] = tier_launches["quantize_rows"]
     path_launches["dequantize_rows"] = tier_launches["dequantize_rows"]
     path_launches["paged_mla_attention"] = ds_launches["paged_mla_attention"]
+    path_launches["flash_attention"] = fwd_launches["flash_attention"]
     exit_ds["launches"] = ds_launches["exit_head_entropy"]
     kernels = []
     for kname, r in results.items():
@@ -588,7 +712,8 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card_line, "kernels": kernels,
-                       "serve": stats, "tiered": tiered, "deepseek": ds},
+                       "serve": stats, "tiered": tiered, "deepseek": ds,
+                       "forward": fwd},
                       f, indent=1)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
@@ -794,6 +919,88 @@ def check_smoke_vs_cpu(torch, arch):
         fail(f"the card disagrees with the CPU on {arch}")
 
 
+def check_forward_vs_cpu(torch, arch, long_mode):
+    """The smoke-width ``Model.forward`` on 2 x 128 tokens: the card (flash
+    kernel, cuBLAS) against the CPU (plain versions) on the same weights.
+    Logits and MTP logits within LOGIT_TOL, exit logits within EXIT_TOL
+    (all rows: the exit head sits before the MoE layer), the MoE aux loss within
+    AUX_TOL.  Every router call is recorded; a token row whose routing
+    differs must be a router tie, and it is left out with every row whose
+    kept assignments moved because of it (capacity order); the MTP block
+    attends over the sequence, so it also leaves out the later positions
+    of that sequence."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, ffn
+    from repro_torch.models.common import tree_map
+    cfg = get_config(arch)
+    cpu = Model(cfg, device="cpu")
+    gpu = Model(cfg, device="cuda")
+    p_cpu = cpu.init(0)
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    b, s = 2, 128
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(2))
+    log = []
+    orig = record_routes(ffn, log)
+    want = cpu.forward(p_cpu, {"tokens": toks}, long_mode=long_mode)
+    got = gpu.forward(p_gpu, {"tokens": toks.cuda()}, long_mode=long_mode)
+    torch.cuda.synchronize()
+    ffn._route = orig
+    keep = torch.ones(b * s, dtype=torch.bool)
+    keep_mtp = torch.ones(b * s, dtype=torch.bool)
+    host = [r for r in log if r[0] == "cpu"]
+    card = [r for r in log if r[0] == "cuda"]
+    flips = 0
+    aux_want = 0.0
+    for call, ((_, hi, hp), (_, ci, _)) in enumerate(zip(host, card)):
+        rows = (hi != ci).any(1).nonzero()[:, 0].tolist()
+        for row in rows:
+            gap = (hp[row][hi[row].long()]
+                   - hp[row][ci[row].long()]).abs().max().item()
+            if gap >= ROUTE_TIE:
+                fail(f"{arch}: the card routes row {row} to "
+                     f"{ci[row].tolist()}, the CPU to {hi[row].tolist()} "
+                     f"(probability gap {gap:.3e}, not a tie)")
+        m = cfg.moe
+        cap = ffn._capacity(hi.shape[0], m.num_experts, m.top_k,
+                            m.capacity_factor)
+        kept = [ffn._slots(i, 0, m.num_experts, cap)[1] for i in (hi, ci)]
+        rows += (kept[0] != kept[1]).any(1).nonzero()[:, 0].tolist()
+        flips += len(set(rows))
+        if call == 0:                 # the model's MoE layer: its aux
+            aux_want = ffn._aux_loss(hp, ci, m.num_experts).item()
+            for row in rows:
+                keep[row] = False
+                keep_mtp[row:row - row % s + s] = False
+        else:                         # the MTP block's MoE layer
+            keep_mtp[rows] = False
+    err = (got.logits.cpu() - want.logits).reshape(b * s, -1)[keep]
+    err = err.abs().max().item()
+    exit_err = max([(g.cpu() - w).abs().max().item()
+                    for g, w in zip(got.exit_logits, want.exit_logits)],
+                   default=0.0)
+    line = (f"smoke forward {arch}{' long_mode' if long_mode else ''} "
+            f"(card vs CPU, {b} x {s} tokens): logits max_abs_err "
+            f"{err:.3e} over {int(keep.sum())} rows (tol {LOGIT_TOL}; "
+            f"{flips} rows left out at router ties), exit logits "
+            f"{exit_err:.3e} (tol {EXIT_TOL})")
+    ok = err <= LOGIT_TOL and exit_err <= EXIT_TOL \
+        and int(keep.sum()) >= b * s // 2
+    if cfg.mtp_depth:
+        mtp_err = (got.mtp_logits.cpu() - want.mtp_logits).reshape(
+            b * s, -1)[keep_mtp].abs().max().item()
+        aux_err = abs(got.aux_loss.item() - aux_want)
+        line += (f", mtp logits {mtp_err:.3e} over {int(keep_mtp.sum())} "
+                 f"rows, aux {got.aux_loss.item():.5f} vs "
+                 f"{want.aux_loss.item():.5f} (under the card's routing "
+                 f"{aux_want:.5f}; tol {AUX_TOL})")
+        ok = ok and mtp_err <= LOGIT_TOL and aux_err <= AUX_TOL \
+            and int(keep_mtp.sum()) >= s // 2
+    print(line)
+    if not ok or not torch.isfinite(got.logits).all():
+        fail(f"the card's forward disagrees with the CPU's on {arch}")
+
+
 def deepseek_cut(get_config):
     """deepseek-v3 at its published widths (arXiv:2412.19437), cut in depth
     to 4 layers: 3 dense (first_dense_layers as published) and 1 MoE with
@@ -951,6 +1158,27 @@ def run_deepseek(torch, ops, ref, results, exit_ds):
           f"{prof['device_busy_share'] * 100:.1f} %, "
           f"{prof['cuda_kernels_per_step']:.0f} CUDA kernels/step; top "
           f"{[(k['name'][:40], round(k['ms_per_step'], 3)) for k in prof['top_kernels'][:5]]}")
+    # the full-sequence forward on the same weights: MLA and the MoE
+    # forward (capacity drops at 512 tokens) at 128 heads
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(tr["seed"]))
+    model.forward(params, {"tokens": toks})           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = model.forward(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    fwd_s = time.time() - t0
+    finite = bool(torch.isfinite(out.logits).all()) and all(
+        bool(torch.isfinite(e).all()) for e in out.exit_logits)
+    print(f"  Model.forward 2 x 256 tokens: {fwd_s * 1e3:.1f} ms (host "
+          f"clock, ends in a synchronize), aux loss "
+          f"{out.aux_loss.item():.5f}, logits {tuple(out.logits.shape)} "
+          f"finite: {finite}")
+    if not finite or not math.isfinite(out.aux_loss.item()):
+        fail("deepseek-v3: the forward's logits or aux loss are not finite")
+    fwd = {"tokens": 512, "ms": fwd_s * 1e3, "aux_loss": out.aux_loss.item()}
+    del out
     summary = {"config": cfg.name, "init_s": init_s, "param_bytes": pbytes,
                "peak_bytes_after_init": peak, "serve": stats,
                "wall_s": wall, "launches": launches,
@@ -958,7 +1186,219 @@ def run_deepseek(torch, ops, ref, results, exit_ds):
                             "dropped": dropped,
                             "assignments": t_tok * m.top_k,
                             "card_routes_same": same},
-               "profile_decode": prof}
+               "profile_decode": prof, "forward": fwd}
+    del model, params
+    return summary, launches
+
+
+FWD_BATCH = (8, 2048)      # phase 7's forward
+REPLAY_BATCH = (2, 128)    # each of the two token sets of its consistency
+                           # check against the decode replay
+
+
+def run_forward(torch, ops):
+    """Phase 7 (see the module docstring).  Returns a summary and the
+    launch counts of the timed forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.resilience import n_scan_blocks, resilient_forward
+    from repro_torch.models import Model
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import make_mask
+    from repro_torch.models.common import tree_leaves, tree_map
+    cfg = get_config("granite-3-2b")
+
+    def plain_flash(q, k, v, *, causal=True, window=0):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    model = Model(cfg, device="cuda")
+    params = model.init(0)
+    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    b, s = FWD_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    batch = {"tokens": toks}
+    print(f"forward path: granite-3-2b, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, random weights "
+          f"(seed 0, {pbytes / 1e9:.2f} GB); Model.forward on {b} x {s} "
+          f"tokens")
+    model.forward(params, batch)                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    ops.reset_launches()
+    t0 = time.time()
+    e0.record()
+    out = model.forward(params, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    host_s = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    dev_ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated()
+    full = out.logits
+    finite = bool(torch.isfinite(full).all()) and all(
+        bool(torch.isfinite(e).all()) for e in out.exit_logits)
+    print(f"  host {host_s * 1e3:.1f} ms (ends in a synchronize), device "
+          f"{dev_ms:.1f} ms (CUDA events around the forward), "
+          f"{b * s / host_s:.0f} tokens/s; peak device memory "
+          f"{peak / 1e9:.2f} GB; logits {tuple(full.shape)} and "
+          f"{len(out.exit_logits)} exit logits finite: {finite}; launches "
+          f"{launches}")
+    if not finite:
+        fail("the full-width forward's logits are not finite")
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"flash_attention launched {launches['flash_attention']} "
+             f"times in one forward, not once per layer "
+             f"({cfg.num_layers})")
+    del out
+
+    # one more forward under torch.profiler: device busy share and the
+    # kernels that take the most device time
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        prof_s = time.time() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern_ms = sum(e.self_device_time_total for e in events) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in events
+                   if "flash_fwd_kernel" in e.key) / 1e3
+    top = [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
+            "calls": e.count}
+           for e in sorted(events, key=lambda e: -e.self_device_time_total)
+           [:8]]
+    print(f"  torch.profiler forward: wall {prof_s * 1e3:.1f} ms, device "
+          f"kernels {kern_ms:.1f} ms (busy {kern_ms / (prof_s * 1e3) * 100:.1f}"
+          f" %), {sum(e.count for e in events)} CUDA kernels, flash "
+          f"attention {flash_ms:.2f} ms; top {[(t['name'][:40], round(t['ms'], 2), t['calls']) for t in top]}")
+    profile = {"wall_ms": prof_s * 1e3, "kernel_ms": kern_ms,
+               "flash_ms": flash_ms,
+               "kernels": sum(e.count for e in events), "top": top}
+
+    # resilient_forward: all alive equals the forward; block 0 dead
+    n = n_scan_blocks(model)
+    logits, exits = resilient_forward(model, params, batch,
+                                      torch.ones(n, device="cuda"))
+    del exits
+    alive_err = (logits - full).abs().max().item()
+    del logits
+    dead = torch.ones(n, device="cuda")
+    dead[0] = 0.0
+    logits, exits = resilient_forward(model, params, batch, dead)
+    del exits
+    dead_finite = bool(torch.isfinite(logits).all())
+    dead_diff = (logits - full).abs().max().item()
+    del logits, full
+    print(f"  resilient_forward over {n} blocks: all alive max_abs_err "
+          f"{alive_err:.3e} against Model.forward (tol {RESILIENT_TOL}); "
+          f"block 0 dead: finite {dead_finite}, max diff {dead_diff:.3f}")
+    if alive_err > RESILIENT_TOL:
+        fail("resilient_forward with every block alive is not the forward")
+    if not dead_finite or dead_diff <= 1e-4:
+        fail("resilient_forward with block 0 dead is not a finite bypass")
+
+    # the forward's greedy tokens against the decode replay (prefill), an
+    # independent path, on two sets of 2 x 128 of the tokens; an fp32
+    # forward (weights upcast, plain attention) measures how far each path
+    # sits from exact arithmetic.  The plain-attention forward must pass
+    # the check as well, and a planted fault (P rounded to fp8 before P V)
+    # must fail it
+    def fp8_p_flash(q, k, v, *, causal=True, window=0):
+        bq, sq, nq, hd = q.shape
+        nkv = k.shape[2]
+        mask = make_mask(sq, sq, causal=causal, window=window,
+                         device=q.device)
+        sc = torch.einsum("bsngh,btnh->bngst",
+                          q.reshape(bq, sq, nkv, nq // nkv, hd).float(),
+                          k.float()) / math.sqrt(hd)
+        p = torch.softmax(sc.masked_fill(~mask, ref.NEG_INF), dim=-1)
+        out = torch.einsum("bngst,btnh->bsngh",
+                           p.to(torch.float8_e4m3fn).float(), v.float())
+        return out.reshape(bq, sq, nq, hd).to(q.dtype)
+
+    def against_replay(small):
+        fwd = model.forward(params, small).logits
+        t0 = time.time()
+        replay, _ = model.prefill(params, small)
+        torch.cuda.synchronize()
+        replay_s = time.time() - t0
+        kernel = ops.flash_attention
+        ops.flash_attention = plain_flash
+        plain = model.forward(params, small).logits
+        exact = model.forward(tree_map(lambda t: t.float(), params),
+                              small).logits
+        ops.flash_attention = fp8_p_flash
+        control = model.forward(params, small).logits
+        ops.flash_attention = kernel
+        a_r = replay.argmax(-1)
+        rep_dev = (replay - exact).abs()
+        top2 = exact.topk(2, dim=-1).values
+        top2 = top2[..., 0] - top2[..., 1]
+        out = {"replay_s": replay_s,
+               "max_diff": (fwd - replay).abs().max().item(),
+               "top2_gap_median": top2.median().item(),
+               "share_under_logit_tie": (top2 < LOGIT_TIE).float().mean()
+               .item(),
+               "share_under_replay_tie": (top2 < REPLAY_TIE).float().mean()
+               .item(),
+               "replay_max_dev": rep_dev.max().item(),
+               "replay_mean_dev": rep_dev.mean().item()}
+        print(f"  forward vs decode replay ({tuple(small['tokens'].shape)} "
+              f"tokens, replay {replay_s:.1f} s): logits max abs diff "
+              f"{out['max_diff']:.3e}; fp32 top-2 gap median "
+              f"{out['top2_gap_median']:.4f}, under {LOGIT_TIE} at "
+              f"{out['share_under_logit_tie'] * 100:.1f} % of positions, "
+              f"under {REPLAY_TIE} at "
+              f"{out['share_under_replay_tie'] * 100:.1f} % (where the "
+              f"argmax check cannot see a flip); decode replay vs the fp32 "
+              f"forward: max {out['replay_max_dev']:.4f}, mean "
+              f"{out['replay_mean_dev']:.5f}")
+        for n, x in (("forward", fwd), ("plain-attention forward", plain),
+                     ("control", control)):
+            a = x.argmax(-1)
+            gap = (exact.gather(-1, a[..., None])
+                   - exact.gather(-1, a_r[..., None])).abs()[..., 0]
+            dev = (x - exact).abs()
+            c = {"flips": int((a != a_r).sum()),
+                 "hard": int((gap >= REPLAY_TIE).sum()),
+                 "flip_gaps": sorted(round(g, 4)
+                                     for g in gap[a != a_r].tolist()),
+                 "max_dev": dev.max().item(), "mean_dev": dev.mean().item(),
+                 "ratio": dev.mean().item() / out["replay_mean_dev"]}
+            c["passes"] = c["hard"] == 0 and c["ratio"] <= REPLAY_ACC
+            out[n] = c
+            print(f"    {n}{' (P in fp8 before P V)' * (n == 'control')}: "
+                  f"argmax differs from the replay's at {c['flips']} "
+                  f"positions, at fp32 gaps {c['flip_gaps']}: {c['hard']} "
+                  f"at >= {REPLAY_TIE} (tol 0); vs the fp32 forward max "
+                  f"{c['max_dev']:.4f}, mean {c['mean_dev']:.5f}, "
+                  f"{c['ratio']:.3f}x the replay's (tol {REPLAY_ACC}); "
+                  f"passes {c['passes']}")
+        return out
+
+    rb, rs = REPLAY_BATCH
+    checks = [against_replay({"tokens": toks[i:i + rb, :rs]})
+              for i in (0, rb)]
+    for c in checks:
+        if not math.isfinite(c["max_diff"]) or not c["forward"]["passes"]:
+            fail("the forward disagrees with the decode replay beyond bf16 "
+                 "noise")
+        if not c["plain-attention forward"]["passes"]:
+            fail("the plain-attention forward fails the replay check: the "
+                 "check is tighter than bf16 noise")
+        if c["control"]["passes"]:
+            fail("the replay check passes a planted attention fault")
+    summary = {"config": cfg.name, "batch": [b, s], "param_bytes": pbytes,
+               "host_ms": host_s * 1e3, "device_ms": dev_ms,
+               "tokens_per_s": b * s / host_s, "peak_bytes": peak,
+               "launches": launches, "resilient_alive_err": alive_err,
+               "resilient_dead_diff": dead_diff, "against_replay": checks,
+               "profile": profile}
     del model, params
     return summary, launches
 

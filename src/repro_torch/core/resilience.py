@@ -1,15 +1,52 @@
 """Failure-resilient distributed inference — deepFogGuard [68] / ResiliNet
-[69], planner side: ``resilience_report`` gives the expected accuracy
-under node-failure probabilities with and without skip hyperconnections
-(the tiered cluster reports it after a tier outage).
+[69].
 
-A copy of the planner part of the reference package's
-``core/resilience.py``; the skip-forward over dead blocks is not ported
-yet.
+Skip hyperconnections: in a physically partitioned DNN, each stage's input
+can bypass a failed stage and arrive from the nearest alive predecessor.
+The segments are residual stacks, so the hyperconnection is an identity
+bypass: a failed block contributes nothing and its input flows through.
+
+- ``resilient_forward``: the full-sequence forward with a per-block
+  ``alive`` mask; failed blocks (and the exit heads attached to them) are
+  bypassed.
+- ``resilience_report``: the expected accuracy under node-failure
+  probabilities with and without skip hyperconnections (the tiered
+  cluster reports it after a tier outage).
+
+The reference's ``failout`` (training-time stage dropout) waits for the
+training slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
+
+from repro_torch.models.common import apply_norm, unembed
+
+
+def n_scan_blocks(model) -> int:
+    return sum(1 for s in model.plan if s[0] == "scan")
+
+
+def resilient_forward(model, params, batch, alive, *,
+                      long_mode: bool = False):
+    """Forward with a per-block alive mask (bool or float [n_blocks]).
+
+    A failed block is an identity bypass (skip hyperconnection): x takes
+    ``a * y + (1 - a) * x`` as in the reference, so an alive block's output
+    passes unchanged.  An exit head after a failed block reads the bypassed
+    hidden state.  Returns (logits, exit_logits) like ``Model.forward``
+    (without aux)."""
+    cfg = model.cfg
+    x = model.embed_inputs(params, batch)
+    bsz, seq = batch["tokens"].shape
+    alive = torch.as_tensor(alive, device=x.device)
+    x, _, exit_logits = model.run_plan(params, x,
+                                       model.positions_for(bsz, seq),
+                                       model._window(long_mode), alive)
+    h = apply_norm(cfg.norm, x, params["final_norm"])
+    return unembed(h, params.get("lm_head", params["embed"])), exit_logits
 
 
 @dataclass(frozen=True)

@@ -26,6 +26,7 @@ SOURCES = {
     "paged_mla": CSRC / "paged_mla.cu",
     "exit_head": CSRC / "exit_head.cu",
     "feature_compress": CSRC / "feature_compress.cu",
+    "flash_attention": CSRC / "flash_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -53,6 +54,10 @@ SIGNATURES = {
     "feature_compress": {
         "repro_quantize_rows": ([_P, _I, _P, _P, _L, _I, _P], _I),
         "repro_dequantize_rows": ([_P, _P, _P, _I, _L, _I, _P], _I),
+    },
+    "flash_attention": {
+        "repro_flash_attention": (
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     },
 }
 

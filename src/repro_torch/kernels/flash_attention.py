@@ -1,0 +1,33 @@
+"""Flash attention kernel: launch of ``csrc/flash_attention.cu``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/attention.py``
+(``_flash_kernel``).  The design notes (one block per (64-row query tile,
+query head, sequence), K/V tiles staged in shared memory, both products on
+the tensor cores with ``mma.sync``, GQA by index, no padding) are in the
+CUDA source.  The plain version is ``kernels.ref.flash_attention_ref``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (64, 128)          # the template instances of the kernel
+
+
+def attention_cuda(q, k, v, causal: bool, window: int):
+    """q [B, Sq, Nq, H], k/v [B, Skv, Nkv, H] bf16 on the card ->
+    [B, Sq, Nq, H] bf16.  Launches on the current stream; raises if the
+    launch is refused."""
+    lib = build.library("flash_attention")
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    err = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
+        nq, nkv, hd, int(causal), int(window), 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention launch")
+    return out

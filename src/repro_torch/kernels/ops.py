@@ -13,13 +13,14 @@ import torch
 
 from repro_torch.kernels import exit_head as _exit
 from repro_torch.kernels import feature_compress as _fc
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _pattn
 from repro_torch.kernels import paged_mla as _pmla
 from repro_torch.kernels import ref
 
 LAUNCHES = {"paged_gqa_attention": 0, "paged_mla_attention": 0,
             "exit_head_entropy": 0, "quantize_rows": 0,
-            "dequantize_rows": 0}
+            "dequantize_rows": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -61,6 +62,37 @@ def exit_head_entropy(x, w):
     out = _exit.entropy_cuda(x2, w)
     LAUNCHES["exit_head_entropy"] += 1
     return out.reshape(lead)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Full-sequence GQA attention in the BSHD layout: q [B, Sq, Nq, H],
+    k/v [B, Skv, Nkv, H] (query head n*G + g reads kv head n), causal
+    and/or sliding-window masked -> [B, Sq, Nq, H] in q's dtype.  No head
+    repeat and no transpose copy: the kernel reads the layout as it is."""
+    if not _on_card(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _require(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
+             f"flash_attention q {tuple(q.shape)} k {tuple(k.shape)} "
+             f"v {tuple(v.shape)}")
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    _require(k.shape[0] == b and k.shape[3] == hd and nq % nkv == 0,
+             f"flash_attention k/v {tuple(k.shape)} for q {tuple(q.shape)}")
+    _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
+             f"flash_attention takes bf16, got {q.dtype} / {k.dtype} / "
+             f"{v.dtype}")
+    _require(hd in _flash.HEAD_DIMS,
+             f"flash_attention has no instance for head_dim={hd}")
+    _require(sq > 0 and skv > 0 and 0 < b < 65536 and nq < 65536,
+             f"flash_attention shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    _require(window >= 0, f"flash_attention window {window}")
+    _require(all(t.is_contiguous() for t in (q, k, v)),
+             "flash_attention takes contiguous q, k and v")
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+             "flash_attention q, k and v must be 16-byte aligned")
+    out = _flash.attention_cuda(q, k, v, causal, window)
+    LAUNCHES["flash_attention"] += 1
+    return out
 
 
 def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):

@@ -26,6 +26,31 @@ def exit_head_entropy_ref(x, w):
     return -torch.sum(torch.exp(logp) * logp, dim=-1)
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """Full-sequence attention, what the reference's ``_sdpa`` computes
+    under ``make_mask``: q [B, Sq, Nq, H], k/v [B, Skv, Nkv, H], query
+    head n*G + g reads kv head n; key j is masked for query i where j > i
+    (causal) or j <= i - window (window > 0); fp32 scores scaled by
+    1/sqrt(H), NEG_INF where a key is masked -> [B, Sq, Nq, H] in q's
+    dtype."""
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    qi = torch.arange(sq, device=q.device)[:, None]
+    kj = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    qg = q.reshape(b, sq, nkv, nq // nkv, hd)
+    s = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float()) \
+        * (1.0 / math.sqrt(hd))
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bngst,btnh->bsngh", p, v.float())
+    return out.reshape(b, sq, nq, hd).to(q.dtype)
+
+
 def paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos):
     """Gather-view version of the paged GQA decode kernel: q [B, 1, Nq, H],
     pools [n_pages, P, Nkv, H], tbl [B, pps] (sentinel entries clipped and

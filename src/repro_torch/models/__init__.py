@@ -1,4 +1,4 @@
-"""Model zoo of the port (dense GQA decoder so far)."""
-from repro_torch.models.model import DepthSegment, Model
+"""Model zoo of the port (dense GQA and MLA + MoE decoders so far)."""
+from repro_torch.models.model import DepthSegment, Model, ModelOutputs
 
-__all__ = ["DepthSegment", "Model"]
+__all__ = ["DepthSegment", "Model", "ModelOutputs"]

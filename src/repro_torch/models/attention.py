@@ -1,5 +1,6 @@
-"""Decode attention: GQA and MLA (DeepSeek-V3), over contiguous per-slot
-caches and the paged KV arena.
+"""Attention: GQA and MLA (DeepSeek-V3), full-sequence (``gqa_forward``,
+``mla_forward``) and one-token decode over contiguous per-slot caches and
+the paged KV arena.
 
 Conventions as in the reference: x [B, S, D]; q/k/v [B, S, N, H];
 contiguous caches [B, S_max, Nkv, H]; paged pools [n_pages, P, Nkv, H].
@@ -75,6 +76,40 @@ def _qkv(cfg, params, x, pos_b):
     q = apply_positional(q, pos_b[:, None], cfg.rope, cfg.rope_theta)
     k = apply_positional(k, pos_b[:, None], cfg.rope, cfg.rope_theta)
     return q, k, v
+
+
+def make_mask(q_len: int, kv_len: int, *, causal: bool, window: int = 0,
+              device="cpu"):
+    """Boolean [q_len, kv_len] attention mask (the reference's
+    ``make_mask``): key j is visible to query i unless j > i (causal) or
+    j <= i - window (window > 0)."""
+    qi = torch.arange(q_len, device=device)[:, None]
+    kj = torch.arange(kv_len, device=device)[None, :]
+    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    return mask
+
+
+def gqa_forward(cfg, params, x, positions, *, window: int = 0, kv_x=None):
+    """Full-sequence causal self-attention.  x [B, S, D], positions [B, S] ->
+    (y [B, S, D], (k, v)).  The attention itself is
+    ``kernels.ops.flash_attention``: the hand-written kernel on the card,
+    the reference's ``_sdpa`` + ``make_mask`` (its plain version) on the
+    CPU.  Cross-attention (``kv_x``, the encoder-decoder family) is not
+    ported yet."""
+    if kv_x is not None:
+        raise NotImplementedError(
+            "repro_torch: cross-attention is not ported yet")
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    q = apply_positional(q, positions, cfg.rope, cfg.rope_theta)
+    k = apply_positional(k, positions, cfg.rope, cfg.rope_theta)
+    out = kops.flash_attention(q, k, v, causal=True, window=window)
+    return _out_proj(out, params["wo"]), (k, v)
 
 
 def _decode_positions(position, batch: int, device):
@@ -257,6 +292,17 @@ def mla_scores_ctx(cfg, params, q_nope, q_rope, c_kv, k_rope, mask):
     probs = torch.softmax(scores, dim=-1)
     ctx_lat = torch.einsum("bnst,btr->bsnr", probs, c_kv.float())
     return _latent_out(ctx_lat, params["wv_b"], q_nope.dtype)
+
+
+def mla_forward(cfg, params, x, positions, *, window: int = 0):
+    """Full-sequence causal MLA attention over the latent projections: x
+    [B, S, D], positions [B, S] -> (y [B, S, D], (c_kv, k_rope)).  As in
+    the reference it reaches no kernel."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, params, x, positions)
+    mask = make_mask(x.shape[1], x.shape[1], causal=True, window=window,
+                     device=x.device)
+    out = mla_scores_ctx(cfg, params, q_nope, q_rope, c_kv, k_rope, mask)
+    return _out_proj(out, params["wo"]), (c_kv, k_rope)
 
 
 def mla_decode(cfg, params, x, cache_ckv, cache_krope, position, *,

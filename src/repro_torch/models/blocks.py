@@ -7,9 +7,10 @@ Every architecture compiles to a PLAN, an ordered list of steps
     ("exit", exit_idx, layer)          — early-exit head / partition boundary
 
 exactly as in the reference.  Stacked blocks keep their leading layer axis
-([n_units, ...]); decode walks it in a Python loop.  The ``dense`` and
-``moe`` kinds are ported, with GQA or MLA attention; ``pair`` (llama4's
-grouped dense/MoE unit) and the state kinds are not yet.
+([n_units, ...]); the full-sequence forward (``run_scan_block``) and
+decode (``decode_scan_block``) walk it in a Python loop.  The ``dense``
+and ``moe`` kinds are ported, with GQA or MLA attention; ``pair``
+(llama4's grouped dense/MoE unit) and the state kinds are not yet.
 """
 from __future__ import annotations
 
@@ -156,6 +157,43 @@ def exit_head_logits(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
+# Forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _ffn_residual(cfg, kind: str, lp, x):
+    """The second half of a ``dense`` or ``moe`` layer: x + FFN(norm(x)).
+    Returns (x, aux): the MoE load-balance loss, 0.0 for a dense layer."""
+    h = apply_norm(cfg.norm, x, lp["ln2"])
+    if kind == "moe":
+        y, aux = ffn_mod.moe_ffn(lp["moe"], h, cfg)
+        return x + y, aux
+    return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), 0.0
+
+
+def forward_layer(cfg, kind: str, lp, x, positions, window):
+    """One ``dense`` or ``moe`` layer over the full sequence (the
+    reference's ``_dense_fwd`` / ``_moe_fwd``).  Returns (x, aux)."""
+    h = apply_norm(cfg.norm, x, lp["ln1"])
+    fwd = attn.mla_forward if cfg.attention == "mla" else attn.gqa_forward
+    y, _ = fwd(cfg, lp["attn"], h, positions, window=window)
+    return _ffn_residual(cfg, kind, lp, x + y)
+
+
+def run_scan_block(cfg, kind: str, bparams, x, positions, window):
+    """A stacked block over the full sequence: a loop over its layer axis.
+    Returns (x, aux): one layer's aux as it is, the sum over layers
+    otherwise (the reference's rule)."""
+    _require_ported(kind)
+    n = tree_leaves(bparams)[0].shape[0]
+    auxs = []
+    for i in range(n):
+        lp = tree_map(lambda a: a[i], bparams)
+        x, aux = forward_layer(cfg, kind, lp, x, positions, window)
+        auxs.append(aux)
+    return x, auxs[0] if n == 1 else sum(auxs[1:], auxs[0])
+
+
+# ---------------------------------------------------------------------------
 # Decode caches
 # ---------------------------------------------------------------------------
 
@@ -219,12 +257,8 @@ def decode_layer(cfg, kind: str, lp, x, cache, position, window,
     h = apply_norm(cfg.norm, x, lp["ln1"])
     y, new = _attn_decode_dispatch(cfg, lp["attn"], h, cache, position,
                                    window, paged, write_mask)
-    x = x + y
-    h = apply_norm(cfg.norm, x, lp["ln2"])
-    if kind == "moe":
-        y, aux = ffn_mod.moe_ffn(lp["moe"], h, cfg)
-        return x + y, new, aux
-    return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), new, 0.0
+    x, aux = _ffn_residual(cfg, kind, lp, x + y)
+    return x, new, aux
 
 
 def decode_scan_block(cfg, kind: str, bparams, x, caches, position, window,

@@ -148,3 +148,15 @@ def embed(tokens, table):
 def unembed(x, table):
     """x [..., D] @ table.T [D, V] -> logits fp32."""
     return torch.matmul(x, table.to(x.dtype).t()).float()
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean CE over valid positions.  logits fp32 [..., V], labels int
+    [...], mask [...] (any dtype; 1 = counted) or None."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = logz - gold
+    if mask is not None:
+        mask = mask.to(loss.dtype)
+        return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(loss)

@@ -5,8 +5,12 @@ Public surface, as in the reference:
 
     m = Model(config, device="cuda")
     params  = m.init(seed)
+    out     = m.forward(params, {"tokens": tokens})     # ModelOutputs
     cache   = m.init_decode_cache(batch, cache_len)
     logits, ee, cache = m.decode_step(params, cache, tokens, position)
+
+``forward`` runs the full sequence at once; its GQA self-attention goes
+through the flash-attention kernel on the card.
 
 Depth-segmented decode: the plan compiles into ``decode_segments`` — runs of
 plan steps bounded by exit heads.  The serving scheduler runs only the
@@ -38,6 +42,15 @@ from repro_torch.models import blocks as B
 from repro_torch.models.common import (Leaf, apply_norm, embed, init_norm,
                                        materialize, normal_init,
                                        resolve_device, tree_map, unembed)
+
+
+@dataclasses.dataclass
+class ModelOutputs:
+    logits: torch.Tensor                  # [B,S,V] fp32
+    exit_logits: List[torch.Tensor]       # per exit head, [B,S,V] fp32
+    aux_loss: torch.Tensor                # MoE load-balance scalar
+    hidden: torch.Tensor                  # final (normed) hidden [B,S,D]
+    mtp_logits: Optional[torch.Tensor] = None  # [B,S,V] (predicts t+2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,8 +117,7 @@ class Model:
 
     def _init_mtp(self, gen):
         """DeepSeek-V3's multi-token-prediction head, as the reference
-        builds it (params only: it feeds ``Model.forward``, never
-        decode, and ``forward`` is not ported yet)."""
+        builds it.  It feeds ``forward`` (``mtp_logits``), never decode."""
         cfg, dev = self.cfg, self.device
         kind = "moe" if cfg.family == "moe" and cfg.moe.num_experts \
             else "dense"
@@ -115,6 +127,91 @@ class Model:
             "kind_is_moe": Leaf((), fill=float(kind == "moe"))}, dev)
         mtp["layer"] = B.init_scan_block(gen, cfg, kind, 1, dev)
         return mtp
+
+    # ------------------------------------------------------------------
+    # Forward (full sequence)
+    # ------------------------------------------------------------------
+    def positions_for(self, batch_size: int, seq_len: int):
+        """[B, S] int32 positions (plain RoPE; M-RoPE is not ported yet)."""
+        if self.cfg.rope == "mrope":
+            raise NotImplementedError(
+                "repro_torch: M-RoPE positions are not ported yet")
+        base = torch.arange(seq_len, dtype=torch.int32, device=self.device)
+        return base[None].expand(batch_size, seq_len)
+
+    def embed_inputs(self, params, batch):
+        if self.cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+            raise NotImplementedError(
+                "repro_torch: vision patch inputs are not ported yet")
+        return embed(batch["tokens"], params["embed"])
+
+    def forward(self, params, batch, *,
+                long_mode: bool = False) -> ModelOutputs:
+        """Full-sequence forward of ``batch["tokens"]`` [B, S] (and
+        ``batch["positions"]`` [B, S] if given): final logits, every exit
+        head's logits, the MoE aux loss, the final hidden state and, with
+        an MTP head, the MTP logits."""
+        cfg = self.cfg
+        x = self.embed_inputs(params, batch)
+        bsz, seq = batch["tokens"].shape
+        window = self._window(long_mode)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = self.positions_for(bsz, seq)
+        x, aux, exit_logits = self.run_plan(params, x, positions, window)
+        h = apply_norm(cfg.norm, x, params["final_norm"])
+        logits = unembed(h, params.get("lm_head", params["embed"]))
+        mtp_logits = None
+        if cfg.mtp_depth and "mtp" in params:
+            mtp_logits = self._mtp_forward(params, h, batch, positions,
+                                           window)
+        return ModelOutputs(logits, exit_logits, aux, h, mtp_logits)
+
+    def run_plan(self, params, x, positions, window, alive=None):
+        """The plan's blocks and exit heads over the full sequence x
+        [B, S, D].  ``alive`` [n_blocks] (bool or float; None = all
+        alive) makes a failed block an identity bypass, x = a * y +
+        (1 - a) * x, as ``core.resilience.resilient_forward`` asks.
+        Returns (x, aux loss, exit logits)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        exit_logits: List[torch.Tensor] = []
+        bi = 0
+        for step in self.plan:
+            if step[0] == "scan":
+                y, a = B.run_scan_block(cfg, step[1], params["blocks"][bi],
+                                        x, positions, window)
+                if alive is None:
+                    x = y
+                else:
+                    keep = alive[bi].to(y.dtype)
+                    x = keep * y + (1.0 - keep) * x
+                aux = aux + a
+                bi += 1
+            elif step[0] == "exit":
+                exit_logits.append(B.exit_head_logits(
+                    cfg, params["exit_heads"][step[1]], x))
+            else:
+                raise NotImplementedError(
+                    f"repro_torch: plan step {step[0]!r} is not ported yet")
+        return x, aux, exit_logits
+
+    def _mtp_forward(self, params, h, batch, positions, window):
+        """DeepSeek-V3 MTP: combine the final hidden state with the next
+        token's embedding and run one extra block to predict token t+2.
+        The last position wraps around to the first token's embedding, as
+        the reference's ``roll`` does."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        emb_next = torch.roll(embed(batch["tokens"], params["embed"]), -1,
+                              dims=1)
+        x = torch.matmul(torch.cat([h, emb_next], dim=-1),
+                         mp["combine"].to(h.dtype))
+        kind = "moe" if cfg.family == "moe" and cfg.moe.num_experts \
+            else "dense"
+        x, _ = B.run_scan_block(cfg, kind, mp["layer"], x, positions, window)
+        x = apply_norm(cfg.norm, x, mp["norm"])
+        return unembed(x, params.get("lm_head", params["embed"]))
 
     # ------------------------------------------------------------------
     # Decode caches

@@ -205,3 +205,78 @@ def test_int8_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         ops.decompress_rows(q, torch.ones(4, 1, device=cuda),
                             dtype=torch.float16)
+
+
+def _qkv(dev, b, sq, skv, nq, nkv, hd, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, sq, nq, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(b, skv, nkv, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(b, skv, nkv, hd, generator=g, device=dev).bfloat16()
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,s,nq,nkv,hd,causal,window", [
+    (2, 512, 32, 8, 64, True, 0),       # granite-3-2b's heads
+    (2, 1000, 32, 8, 64, True, 256),    # ragged S, sliding window
+    (2, 512, 16, 16, 128, False, 0),    # G 1, head dim 128, non-causal
+    (1, 77, 4, 4, 64, True, 0),         # shorter than one query tile
+    (1, 300, 8, 2, 128, True, 64)])
+def test_flash_kernel_matches_plain(cuda, b, s, nq, nkv, hd, causal, window):
+    """bf16 output of unit-normal inputs, held to 1e-2 of max(1, |plain|):
+    both accumulate in fp32 and round once, so they may sit one bf16 ulp
+    apart, and that ulp is 2^-6 > 1e-2 where |out| >= 2 (rows that attend
+    to a few keys); the kernel also rounds P to bf16 before P V (2^-9
+    relative on probabilities that sum to 1)."""
+    q, k, v = _qkv(cuda, b, s, s, nq, nkv, hd, seed=s + hd)
+    n0 = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs() / want.float().abs().clamp(min=1)
+    assert err.max().item() <= 1e-2
+
+
+def test_flash_wrapper_raises_instead_of_falling_back(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, 64)
+    with pytest.raises(ValueError):             # fp32 inputs
+        ops.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):             # no instance for head dim 32
+        ops.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                            v[..., :32].contiguous())
+    with pytest.raises(ValueError):             # a transposed (BHSD) view
+        ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2))
+    with pytest.raises(ValueError):             # CPU / CUDA mix
+        ops.flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.parametrize("long_mode", [False, True])
+def test_smoke_forward_card_matches_cpu(cuda, long_mode):
+    """granite-3-2b-smoke ``Model.forward`` on the card (flash kernel,
+    cuBLAS) against the CPU (plain versions) on the same weights, 2 x 128
+    tokens (long mode: the 64-token window): logits within 3e-2 (cuBLAS
+    and the CPU round bf16 matmul results a few ulps apart), exit logits
+    within 6e-2 (the exit head's W is ~3x the embedding's scale, but it
+    reads the hidden state after one layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_map
+    cfg = get_config("granite-3-2b-smoke")
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(0)
+    card = Model(cfg, device="cuda")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=g)
+    want = cpu.forward(params, {"tokens": toks}, long_mode=long_mode)
+    n0 = ops.LAUNCHES["flash_attention"]
+    got = card.forward(tree_map(lambda t: t.cuda(), params),
+                       {"tokens": toks.cuda()}, long_mode=long_mode)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0 + cfg.num_layers
+    assert (got.logits.cpu() - want.logits).abs().max().item() <= 3e-2
+    assert len(got.exit_logits) == len(want.exit_logits) == 1
+    for e_got, e_want in zip(got.exit_logits, want.exit_logits):
+        assert (e_got.cpu() - e_want).abs().max().item() <= 6e-2

@@ -18,7 +18,8 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.core.partition", "repro_torch.core.hierarchy",
         "repro_torch.core.offload", "repro_torch.core.resilience",
         "repro_torch.serving.cluster", "repro_torch.serving.router",
-        "repro_torch.kernels.feature_compress"}}
+        "repro_torch.kernels.feature_compress",
+        "repro_torch.kernels.flash_attention"}}
 assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
