@@ -41,6 +41,9 @@ Phases, each fatal on failure:
      that check and a planted fault (P in fp8 before P V) must fail it.
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
+Phase 2 times the exit head (at both widths, naming the instance each
+takes) and flash attention three times each, interleaved with their
+library calls, and prints each one's median and spread.
 Prints the per-kernel JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside this file.
@@ -126,6 +129,29 @@ def device_ms(torch, fn, args_list, iters=20):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def interleaved_ms(torch, kernel, library, args_list, rounds=3, iters=20):
+    """A redesigned kernel and its library call, each timed ``rounds``
+    times in turns (library, kernel, kernel, library, ...): the median and
+    the spread (max - min) of each, and every reading."""
+    times = {"kernel": [], "library": []}
+    fns = {"kernel": kernel, "library": library}
+    for r in range(rounds):
+        for name in (("library", "kernel") if r % 2 == 0
+                     else ("kernel", "library")):
+            times[name].append(device_ms(torch, fns[name], args_list,
+                                         iters))
+    return {name: {"median": sorted(t)[len(t) // 2],
+                   "spread": max(t) - min(t), "ms": t}
+            for name, t in times.items()}
+
+
+def print_spread(label, spread):
+    for name, r in spread.items():
+        print(f"  {label} {name}: median {r['median']:.4f} ms, spread "
+              f"{r['spread']:.4f} ms over {len(r['ms'])} interleaved runs "
+              f"{[round(t, 4) for t in r['ms']]}")
 
 
 def paged_inputs(torch, gen, b, nq, nkv, hd, page, pps, max_pos, sets):
@@ -357,7 +383,7 @@ def main(argv=None):
                                        "csrc", "paged_attention.cu")):
         fail(f"the port's sources are not under {SRC}")
     sys.path.insert(0, SRC)
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, exit_head, ops, ref
     from repro_torch.launch.serve import serve_poisson
     from repro_torch.models.attention import make_mask
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -444,7 +470,7 @@ def main(argv=None):
           f"{json.dumps(results['paged_mla_attention'])}")
     del sets, lib_args
 
-    # exit head: T = 16 slots, D = 2048, V = 49155
+    # exit head: T = 16 slots, D = 2048, V = 49155 (odd pitch)
     x = torch.randn(16, 2048, generator=gen, device="cuda").bfloat16()
     w = (torch.randn(2048, 49155, generator=gen, device="cuda")
          / math.sqrt(2048)).bfloat16()
@@ -452,18 +478,26 @@ def main(argv=None):
     want = ref.exit_head_entropy_ref(x, w)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
+    lib_exit = build.library("exit_head")
     print(f"exit_head_entropy: max_abs_err {err:.3e} (tol {ENT_TOL}), "
-          f"entropy ~{want.mean().item():.3f}")
+          f"entropy ~{want.mean().item():.3f}, instance "
+          f"{exit_head.plan(16, 2048, 49155, w.data_ptr())['instance']}; "
+          f"pass-1 blocks per SM: aligned "
+          f"{lib_exit.repro_exit_head_blocks_per_sm(1)}, odd pitch "
+          f"{lib_exit.repro_exit_head_blocks_per_sm(0)}")
     if not math.isfinite(err) or err > ENT_TOL:
         fail(f"exit_head_entropy disagrees with its plain version: {err}")
     lib = entropy_library(torch)
     bound_ms, by = exit_bound(x, w)
+    spread = interleaved_ms(torch, ops.exit_head_entropy, lib, [(x, w)])
+    print_spread("exit_head_entropy granite", spread)
     results["exit_head_entropy"] = {
-        "max_abs_err": err,
-        "ms": device_ms(torch, ops.exit_head_entropy, [(x, w)]),
+        "max_abs_err": err, "ms": spread["kernel"]["median"],
         "plain_ms": device_ms(torch, ref.exit_head_entropy_ref, [(x, w)]),
-        "library_ms": device_ms(torch, lib, [(x, w)]),
-        "bound_ms": bound_ms, "bound_by": by}
+        "library_ms": spread["library"]["median"],
+        "bound_ms": bound_ms, "bound_by": by, "spread": spread,
+        "instance": exit_head.plan(16, 2048, 49155,
+                                   w.data_ptr())["instance"]}
     print(f"  {json.dumps(results['exit_head_entropy'])}")
     del x, w
     # ... and at deepseek-v3's widths: D = 7168, V = 129280 (W 1.85 GB)
@@ -475,17 +509,22 @@ def main(argv=None):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     print(f"exit_head_entropy at D 7168, V 129280: max_abs_err {err:.3e} "
-          f"(tol {ENT_TOL})")
+          f"(tol {ENT_TOL}), instance "
+          f"{exit_head.plan(16, 7168, 129280, w.data_ptr())['instance']}")
     if not math.isfinite(err) or err > ENT_TOL:
         fail(f"exit_head_entropy disagrees with its plain version at "
              f"deepseek-v3 widths: {err}")
     bound_ms, by = exit_bound(x, w)
-    exit_ds = {"max_abs_err": err,
-               "ms": device_ms(torch, ops.exit_head_entropy, [(x, w)]),
+    spread = interleaved_ms(torch, ops.exit_head_entropy, lib, [(x, w)],
+                            iters=10)
+    print_spread("exit_head_entropy deepseek-v3", spread)
+    exit_ds = {"max_abs_err": err, "ms": spread["kernel"]["median"],
                "plain_ms": device_ms(torch, ref.exit_head_entropy_ref,
                                      [(x, w)], iters=5),
-               "library_ms": device_ms(torch, lib, [(x, w)], iters=5),
-               "bound_ms": bound_ms, "bound_by": by}
+               "library_ms": spread["library"]["median"],
+               "bound_ms": bound_ms, "bound_by": by, "spread": spread,
+               "instance": exit_head.plan(16, 7168, 129280,
+                                          w.data_ptr())["instance"]}
     print(f"  {json.dumps(exit_ds)}")
     del x, w
 
@@ -559,12 +598,13 @@ def main(argv=None):
 
     def flash_plain(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=True)
+    spread = interleaved_ms(torch, flash, lib, sets)
+    print_spread("flash_attention", spread)
     results["flash_attention"] = {
-        "max_abs_err": f_err,
-        "ms": device_ms(torch, flash, sets),
+        "max_abs_err": f_err, "ms": spread["kernel"]["median"],
         "plain_ms": device_ms(torch, flash_plain, sets, iters=4),
-        "library_ms": device_ms(torch, lib, sets),
-        "bound_ms": bound_ms, "bound_by": by}
+        "library_ms": spread["library"]["median"],
+        "bound_ms": bound_ms, "bound_by": by, "spread": spread}
     print(f"  sdpa yardstick agrees to {lib_err:.3e}; "
           f"{json.dumps(results['flash_attention'])}")
     del sets
@@ -706,6 +746,7 @@ def main(argv=None):
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
         if kname == "exit_head_entropy":
+            kernels[-1]["instance"] = r["instance"]
             kernels[-1]["deepseek"] = exit_ds
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -49,7 +49,9 @@ SIGNATURES = {
     },
     "exit_head": {
         "repro_exit_head_block_v": ([], _I),
-        "repro_exit_head_entropy": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "repro_exit_head_blocks_per_sm": ([_I], _I),
+        "repro_exit_head_entropy": ([_P, _P, _P, _P, _I, _I, _I, _I, _P],
+                                    _I),
     },
     "feature_compress": {
         "repro_quantize_rows": ([_P, _I, _P, _P, _L, _I, _P], _I),

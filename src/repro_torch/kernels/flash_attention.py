@@ -1,10 +1,15 @@
 """Flash attention kernel: launch of ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/attention.py``
-(``_flash_kernel``).  The design notes (one block per (64-row query tile,
-query head, sequence), K/V tiles staged in shared memory, both products on
-the tensor cores with ``mma.sync``, GQA by index, no padding) are in the
-CUDA source.  The plain version is ``kernels.ref.flash_attention_ref``.
+(``_flash_kernel``).  One block per (128-row query tile, query head,
+sequence): a producer warp feeds q and a ring of 128-key k/v tiles through
+TMA and mbarriers, two consumer warpgroups of 64 rows each run both
+products on ``wgmma`` and take turns (ping-pong) so one's products overlap
+the other's softmax; GQA by index, no padding.  The tensor maps are made
+in the C entry point (``cuTensorMapEncodeTiled`` through the runtime's
+entry-point query, so no link against libcuda).  The design notes are
+in the CUDA source; the plain version is
+``kernels.ref.flash_attention_ref``.
 """
 from __future__ import annotations
 

@@ -119,14 +119,21 @@ def test_paged_mla_wrapper_raises_instead_of_falling_back(cuda):
                                 pk, tbl, pos, scale=0.1)
 
 
-@pytest.mark.parametrize("t,d,v", [(16, 2048, 49155), (37, 96, 1000),
-                                   (1, 300, 513), (16, 256, 1024),
-                                   (16, 7168, 129280)])
-def test_exit_head_kernel_matches_plain(cuda, t, d, v):
-    g = torch.Generator(device=cuda).manual_seed(t + d + v)
-    x = torch.randn(t, d, generator=g, device=cuda).bfloat16()
-    w = (torch.randn(d, v, generator=g, device=cuda)
-         / math.sqrt(d)).bfloat16()
+def _exit_inputs(dev, t, d, v, offset=0):
+    """x [t, d] and W [d, v] placed ``offset`` elements into its
+    allocation (so with offset 1 its rows miss 16-byte alignment)."""
+    g = torch.Generator(device=dev).manual_seed(t + d + v)
+    x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+    w = (torch.randn(d * v + offset, generator=g, device=dev)
+         / math.sqrt(d)).bfloat16()[offset:].view(d, v)
+    return x, w
+
+
+def _check_exit(x, w, instance):
+    from repro_torch.kernels import exit_head
+    t, d = x.shape
+    assert exit_head.plan(t, d, w.shape[1], w.data_ptr())["instance"] == \
+        instance
     n0 = ops.LAUNCHES["exit_head_entropy"]
     got = ops.exit_head_entropy(x, w)
     want = ref.exit_head_entropy_ref(x, w)
@@ -134,6 +141,24 @@ def test_exit_head_kernel_matches_plain(cuda, t, d, v):
     assert ops.LAUNCHES["exit_head_entropy"] == n0 + 1
     tol = 1e-3 if d >= 2048 else 1e-4       # deepseek-v3's exit head last
     assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("t,d,v", [
+    (16, 2048, 49155), (37, 96, 1000), (1, 300, 513), (16, 256, 1024),
+    (16, 7168, 129280),
+    (40, 2048, 49155),        # odd pitch, three 16-row groups
+    (17, 512, 8192),          # aligned, one row past a 16-row group
+    (16, 1000, 4099)])        # D no multiple of the 64-row stage
+def test_exit_head_kernel_matches_plain(cuda, t, d, v):
+    x, w = _exit_inputs(cuda, t, d, v)
+    _check_exit(x, w, "aligned" if v % 8 == 0 else "odd_pitch")
+
+
+def test_exit_head_misaligned_w_takes_odd_pitch(cuda):
+    """V % 8 == 0 but W starts 2 bytes past 16: the odd-pitch instance
+    takes it, reading the granule before W's first byte."""
+    x, w = _exit_inputs(cuda, 16, 256, 1024, offset=1)
+    _check_exit(x, w, "odd_pitch")
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -220,7 +245,11 @@ def _qkv(dev, b, sq, skv, nq, nkv, hd, seed=0):
     (2, 1000, 32, 8, 64, True, 256),    # ragged S, sliding window
     (2, 512, 16, 16, 128, False, 0),    # G 1, head dim 128, non-causal
     (1, 77, 4, 4, 64, True, 0),         # shorter than one query tile
-    (1, 300, 8, 2, 128, True, 64)])
+    (1, 300, 8, 2, 128, True, 64),
+    (2, 128, 8, 2, 64, True, 0),        # exactly one 128-row query tile
+    (2, 129, 8, 2, 64, True, 0),        # one row past it
+    (2, 128, 4, 4, 128, True, 0),
+    (2, 129, 8, 2, 128, False, 0)])
 def test_flash_kernel_matches_plain(cuda, b, s, nq, nkv, hd, causal, window):
     """bf16 output of unit-normal inputs, held to 1e-2 of max(1, |plain|):
     both accumulate in fp32 and round once, so they may sit one bf16 ulp
