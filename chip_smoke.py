@@ -41,9 +41,11 @@ Phases, each fatal on failure:
      that check and a planted fault (P in fp8 before P V) must fail it.
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
-Phase 2 times the exit head (at both widths, naming the instance each
-takes) and flash attention three times each, interleaved with their
-library calls, and prints each one's median and spread.
+Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
+both widths, naming the instance each takes) and flash attention three
+times each, interleaved with their library calls, and prints each one's
+median and spread; phases 4 and 6 time the paged kernels the same way on
+the live call they capture, at the lengths serving reaches.
 Prints the per-kernel JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside this file.
@@ -131,20 +133,35 @@ def device_ms(torch, fn, args_list, iters=20):
     return e0.elapsed_time(e1) / iters
 
 
-def interleaved_ms(torch, kernel, library, args_list, rounds=3, iters=20):
+def interleaved_ms(torch, kernel, library, args_list, rounds=3, iters=20,
+                   lib_args=None):
     """A redesigned kernel and its library call, each timed ``rounds``
     times in turns (library, kernel, kernel, library, ...): the median and
-    the spread (max - min) of each, and every reading."""
+    the spread (max - min) of each, and every reading.  ``lib_args`` are
+    the library call's own arguments where they differ."""
     times = {"kernel": [], "library": []}
     fns = {"kernel": kernel, "library": library}
+    args = {"kernel": args_list, "library": lib_args or args_list}
     for r in range(rounds):
         for name in (("library", "kernel") if r % 2 == 0
                      else ("kernel", "library")):
-            times[name].append(device_ms(torch, fns[name], args_list,
+            times[name].append(device_ms(torch, fns[name], args[name],
                                          iters))
     return {name: {"median": sorted(t)[len(t) // 2],
                    "spread": max(t) - min(t), "ms": t}
             for name, t in times.items()}
+
+
+def live_timing(torch, kernel, library, args_list, lib_args, bound_by):
+    """A kernel on a call captured from a serving run, interleaved with its
+    library call: both medians and spreads, and the call's bound."""
+    spread = interleaved_ms(torch, kernel, library, args_list,
+                            lib_args=lib_args)
+    return {"shapes": [list(t.shape) for t in args_list[0]],
+            "ms": spread["kernel"]["median"],
+            "library_ms": spread["library"]["median"],
+            "bound_ms": bound_by[0], "bound_by": bound_by[1],
+            "spread": spread}
 
 
 def print_spread(label, spread):
@@ -152,29 +169,6 @@ def print_spread(label, spread):
         print(f"  {label} {name}: median {r['median']:.4f} ms, spread "
               f"{r['spread']:.4f} ms over {len(r['ms'])} interleaved runs "
               f"{[round(t, 4) for t in r['ms']]}")
-
-
-def paged_inputs(torch, gen, b, nq, nkv, hd, page, pps, max_pos, sets):
-    """Ragged positions, shuffled page tables with sentinel tails; ``sets``
-    independent pool copies so timed launches do not reuse L2."""
-    dev = "cuda"
-    pos = torch.randint(0, max_pos, (b,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    n_pages = b * pps
-    perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
-    tbl = perm.reshape(b, pps).clone()
-    used = (pos.long() // page + 1)[:, None]
-    cols = torch.arange(pps, device=dev)[None, :]
-    tbl = torch.where(cols < used, tbl, torch.full_like(tbl, n_pages))
-    out = []
-    for _ in range(sets):
-        q = torch.randn(b, 1, nq, hd, generator=gen, device=dev).bfloat16()
-        pk = torch.randn(n_pages, page, nkv, hd, generator=gen,
-                         device=dev).bfloat16()
-        pv = torch.randn(n_pages, page, nkv, hd, generator=gen,
-                         device=dev).bfloat16()
-        out.append((q, pk, pv, tbl, pos))
-    return out
 
 
 def bound(nbytes, ops):
@@ -201,49 +195,6 @@ def exit_bound(x, w):
     return bound(x.numel() * 2 + w.numel() * 2 + t * 4, 2 * t * d * v)
 
 
-def sdpa_gathered(F, torch):
-    """The library yardstick for paged attention: one
-    scaled_dot_product_attention call on the gathered view, kv heads
-    repeated to the query heads (the page gather and the repeat are done
-    beforehand and not timed)."""
-    def prep(q, pk, pv, tbl, pos):
-        from repro_torch.models.attention import paged_view
-        g = q.shape[2] // pk.shape[2]
-        k = paged_view(pk, tbl).transpose(1, 2).repeat_interleave(g, dim=1)
-        v = paged_view(pv, tbl).transpose(1, 2).repeat_interleave(g, dim=1)
-        mask = (torch.arange(k.shape[2], device=q.device)[None, :]
-                <= pos.long()[:, None])[:, None, None, :]
-        return (q.transpose(1, 2), k, v, mask)
-
-    def call(q, k, v, mask):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-    return prep, call
-
-
-def mla_inputs(torch, gen, b, n, r, hr, page, pps, max_pos, sets):
-    """Paged-MLA inputs like ``paged_inputs``: ragged positions, shuffled
-    tables with sentinel tails, ``sets`` independent pool copies."""
-    dev = "cuda"
-    pos = torch.randint(0, max_pos, (b,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    n_pages = b * pps
-    perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
-    tbl = perm.reshape(b, pps).clone()
-    cols = torch.arange(pps, device=dev)[None, :]
-    tbl = torch.where(cols < (pos.long() // page + 1)[:, None], tbl,
-                      torch.full_like(tbl, n_pages))
-    out = []
-    for _ in range(sets):
-        ql = torch.randn(b, 1, n, r, generator=gen, device=dev).bfloat16()
-        qr = torch.randn(b, 1, n, hr, generator=gen, device=dev).bfloat16()
-        pc = torch.randn(n_pages, page, r, generator=gen,
-                         device=dev).bfloat16()
-        pk = torch.randn(n_pages, page, hr, generator=gen,
-                         device=dev).bfloat16()
-        out.append((ql, qr, pc, pk, tbl, pos))
-    return out
-
-
 def mla_bound(args):
     ql, qr, pc, _, _, pos = args
     b, _, n, r = ql.shape
@@ -254,27 +205,6 @@ def mla_bound(args):
     nbytes = ((ql.numel() + qr.numel()) * 2 + pages * page * (r + hr) * 2
               + b * n * r * 4 + pages * 4 + pos.numel() * 4)
     return bound(nbytes, 2 * n * (r + hr + r) * tokens)
-
-
-def sdpa_mla_gathered(F, torch):
-    """The library yardstick for paged MLA: one
-    scaled_dot_product_attention call on the gathered latent view, the N
-    heads as N queries of one head (MLA is multi-query in latent space):
-    q [B, 1, N, R+Hr], k [B, 1, S, R+Hr], v = c_kv [B, 1, S, R].  The
-    gather and the concatenation are done beforehand and not timed."""
-    def prep(ql, qr, pc, pk, tbl, pos, scale):
-        from repro_torch.models.attention import paged_view
-        ckv = paged_view(pc, tbl)
-        k = torch.cat([ckv, paged_view(pk, tbl)], dim=-1)[:, None]
-        q = torch.cat([ql, qr], dim=-1)
-        mask = (torch.arange(k.shape[2], device=q.device)[None, :]
-                <= pos.long()[:, None])[:, None, None, :]
-        return (q, k, ckv[:, None], mask, scale)
-
-    def call(q, k, v, mask, scale):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              scale=scale)
-    return prep, call
 
 
 def quant_bound(x):
@@ -383,7 +313,9 @@ def main(argv=None):
                                        "csrc", "paged_attention.cu")):
         fail(f"the port's sources are not under {SRC}")
     sys.path.insert(0, SRC)
-    from repro_torch.kernels import build, exit_head, ops, ref
+    from repro_torch.kernels import (build, exit_head, ops, paged_attention,
+                                     paged_mla, ref)
+    from repro_torch.launch import kernel_ab as ab
     from repro_torch.launch.serve import serve_poisson
     from repro_torch.models.attention import make_mask
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -414,26 +346,31 @@ def main(argv=None):
 
     # ---- phase 2: kernels vs plain at main-path shapes ----------------
     # paged GQA: 16 slots, 32/8 heads of 64, pages of 16, pos up to 2047
-    sets = paged_inputs(torch, gen, 16, 32, 8, 64, 16, 128, 2048, 4)
+    sets = ab.paged_inputs(gen, 16, 32, 8, 64, 16, 128, 2048, 4)
     a = sets[0]
     got = ops.paged_gqa_attention(*a)
     want = ref.paged_gqa_attention_ref(*a)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    print(f"paged_gqa_attention: max_abs_err {err:.3e} (tol {PAGED_TOL})")
+    plan = paged_attention.plan(16, 8, 128, paged_mla.sm_count("cuda"))
+    print(f"paged_gqa_attention: max_abs_err {err:.3e} (tol {PAGED_TOL}); "
+          f"plan {plan}")
     if not math.isfinite(err) or err > PAGED_TOL:
         fail(f"paged_gqa_attention disagrees with its plain version: {err}")
-    prep, sdpa = sdpa_gathered(F, torch)
-    lib_args = [prep(*s) for s in sets]
+    prep, sdpa = ab.sdpa_gathered()
+    lib_args = [prep(*st) for st in sets]
     lib_out = sdpa(*lib_args[0]).transpose(1, 2)
     lib_err = (lib_out.float() - want.float()).abs().max().item()
     bound_ms, by = paged_bound(a)
+    spread = interleaved_ms(torch, ops.paged_gqa_attention, sdpa, sets,
+                            lib_args=lib_args)
+    print_spread("paged_gqa_attention", spread)
     results["paged_gqa_attention"] = {
-        "max_abs_err": err,
-        "ms": device_ms(torch, ops.paged_gqa_attention, sets),
+        "max_abs_err": err, "ms": spread["kernel"]["median"],
         "plain_ms": device_ms(torch, ref.paged_gqa_attention_ref, sets),
-        "library_ms": device_ms(torch, sdpa, lib_args),
-        "bound_ms": bound_ms, "bound_by": by}
+        "library_ms": spread["library"]["median"],
+        "bound_ms": bound_ms, "bound_by": by, "spread": spread,
+        "plan": plan}
     print(f"  sdpa yardstick agrees to {lib_err:.3e}; "
           f"{json.dumps(results['paged_gqa_attention'])}")
     del sets, lib_args
@@ -441,17 +378,19 @@ def main(argv=None):
     # paged MLA: deepseek-v3 at full width, 16 slots, 128 heads, R 512,
     # Hr 64, pages of 16, positions up to 2047
     scale = 1.0 / math.sqrt(128 + 64)
-    sets = mla_inputs(torch, gen, 16, 128, 512, 64, 16, 128, 2048, 4)
+    sets = ab.mla_inputs(gen, 16, 128, 512, 64, 16, 128, 2048, 4)
     a = sets[0]
     got = ops.paged_mla_attention(*a, scale=scale)
     want = ref.paged_mla_attention_ref(*a, scale=scale)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    print(f"paged_mla_attention: max_abs_err {err:.3e} (tol {MLA_TOL})")
+    plan = paged_mla.plan(16, 128, 128, paged_mla.sm_count("cuda"))
+    print(f"paged_mla_attention: max_abs_err {err:.3e} (tol {MLA_TOL}); "
+          f"plan {plan}")
     if not math.isfinite(err) or err > MLA_TOL:
         fail(f"paged_mla_attention disagrees with its plain version: {err}")
-    prep, sdpa = sdpa_mla_gathered(F, torch)
-    lib_args = [prep(*st, scale) for st in sets]
+    prep, sdpa = ab.sdpa_mla_gathered(scale)
+    lib_args = [prep(*st) for st in sets]
     lib_err = (sdpa(*lib_args[0]).float() - want).abs().max().item()
     bound_ms, by = mla_bound(a)
 
@@ -460,12 +399,14 @@ def main(argv=None):
 
     def mla_plain(*t):
         return ref.paged_mla_attention_ref(*t, scale=scale)
+    spread = interleaved_ms(torch, mla, sdpa, sets, lib_args=lib_args)
+    print_spread("paged_mla_attention", spread)
     results["paged_mla_attention"] = {
-        "max_abs_err": err,
-        "ms": device_ms(torch, mla, sets),
+        "max_abs_err": err, "ms": spread["kernel"]["median"],
         "plain_ms": device_ms(torch, mla_plain, sets),
-        "library_ms": device_ms(torch, sdpa, lib_args),
-        "bound_ms": bound_ms, "bound_by": by}
+        "library_ms": spread["library"]["median"],
+        "bound_ms": bound_ms, "bound_by": by, "spread": spread,
+        "plan": plan}
     print(f"  sdpa yardstick agrees to {lib_err:.3e}; "
           f"{json.dumps(results['paged_mla_attention'])}")
     del sets, lib_args
@@ -692,6 +633,16 @@ def main(argv=None):
             fail(f"{kname} disagrees with its plain version on live inputs")
         results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"],
                                             err)
+    # the paged kernel's time on the live call: the lengths serving reaches
+    a = captured["paged_gqa_attention"]
+    prep, sdpa = ab.sdpa_gathered()
+    live = live_timing(torch, orig["paged_gqa_attention"], sdpa, [a],
+                       [prep(*a)], paged_bound(a))
+    live["plan"] = paged_attention.plan(a[0].shape[0], a[1].shape[2],
+                                        a[3].shape[1],
+                                        paged_mla.sm_count("cuda"))
+    results["paged_gqa_attention"]["live"] = live
+    print(f"  live paged_gqa_attention timing: {json.dumps(live)}")
 
     # ---- phase 5: the tiered path at full width ----------------------
     tiered, tier_launches = run_tiered(torch, ops, ref, results)
@@ -1064,6 +1015,8 @@ DS_TRACE = dict(rate=8.0, n_requests=24, slots=16, prompt_len=128,
 def run_deepseek(torch, ops, ref, results, exit_ds):
     """Phase 6 (see the module docstring).  Returns a summary and the
     launch counts of the serving run."""
+    from repro_torch.kernels import paged_mla
+    from repro_torch.launch import kernel_ab as ab
     from repro_torch.configs import get_config
     from repro_torch.launch.profile_decode import profile_decode
     from repro_torch.launch.serve import serve_poisson
@@ -1171,6 +1124,17 @@ def run_deepseek(torch, ops, ref, results, exit_ds):
             fail(f"{kname} disagrees with its plain version on live "
                  f"deepseek-v3 inputs")
         res["max_abs_err"] = max(res["max_abs_err"], err)
+    # the paged kernel's time on the live call: the lengths serving reaches
+    a, kw = captured["paged_mla_attention"]
+    prep, sdpa = ab.sdpa_mla_gathered(kw["scale"])
+
+    def mla(*t):
+        return orig["paged_mla_attention"](*t, **kw)
+    live = live_timing(torch, mla, sdpa, [a], [prep(*a)], mla_bound(a))
+    live["plan"] = paged_mla.plan(a[0].shape[0], a[0].shape[2],
+                                  a[4].shape[1], paged_mla.sm_count("cuda"))
+    results["paged_mla_attention"]["live"] = live
+    print(f"  live paged_mla_attention timing: {json.dumps(live)}")
 
     # one live MoE input's routing, recomputed on the host
     if "moe_ffn" not in captured:
@@ -1199,6 +1163,8 @@ def run_deepseek(torch, ops, ref, results, exit_ds):
           f"{prof['device_busy_share'] * 100:.1f} %, "
           f"{prof['cuda_kernels_per_step']:.0f} CUDA kernels/step; top "
           f"{[(k['name'][:40], round(k['ms_per_step'], 3)) for k in prof['top_kernels'][:5]]}")
+    print(f"  the port's kernels a step: "
+          f"{[(k['name'][:48], round(k['ms_per_step'], 4), k['calls_per_step']) for k in prof['port_kernels']]}")
     # the full-sequence forward on the same weights: MLA and the MoE
     # forward (capacity drops at 512 tokens) at 128 heads
     toks = torch.randint(0, cfg.vocab_size, (2, 256), device="cuda",

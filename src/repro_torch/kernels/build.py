@@ -38,14 +38,14 @@ SIGNATURES = {
     "paged_attention": {
         "repro_paged_gqa_supported": ([_I, _I, _I], _I),
         "repro_paged_gqa_attention": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+             _F, _P], _I),
     },
     "paged_mla": {
         "repro_paged_mla_supported": ([_I, _I, _I, _I], _I),
-        "repro_paged_mla_split_pages": ([], _I),
         "repro_paged_mla_attention": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _F, _P], _I),
+             _I, _F, _P], _I),
     },
     "exit_head": {
         "repro_exit_head_block_v": ([], _I),

@@ -2,7 +2,7 @@
 one card.
 
     python -m repro_torch.launch.kernel_ab --parent DIR [--kernels exit_head
-        flash_attention] [--json PATH]
+        flash_attention paged_attention paged_mla] [--json PATH]
 
 ``DIR`` is a checkout of an earlier commit of this repository (for
 example ``git archive <commit> | tar -x -C DIR``).  Each named kernel's
@@ -16,10 +16,19 @@ shapes:
 
   exit_head        x [16, 2048] / W [2048, 49155] (granite-3-2b) and
                    x [16, 7168] / W [7168, 129280] (deepseek-v3);
-  flash_attention  q [8, 2048, 32, 64], k/v [8, 2048, 8, 64], causal.
+  flash_attention  q [8, 2048, 32, 64], k/v [8, 2048, 8, 64], causal;
+  paged_attention  q [16, 1, 32, 64], pools [2048, 16, 8, 64], positions
+                   below 2048 (granite-3-2b decode), and at serving's
+                   lengths: 18-page tables, positions below 288 (phase 4
+                   of chip_smoke.py); four pool copies each;
+  paged_mla        q_lat [16, 1, 128, 512], q_rope [16, 1, 128, 64], pools
+                   [2048, 16, 512] / [2048, 16, 64], positions below 2048
+                   (deepseek-v3 decode), and 9-page tables, positions below
+                   144 (phase 6); four pool copies each.
 
-Prints each timing's median and spread (max - min over the rounds).  The
-card is required.
+The paged kernels' library call is one scaled_dot_product_attention on
+the gathered view (gathered beforehand, not timed).  Prints each timing's
+median and spread (max - min over the rounds).  The card is required.
 """
 from __future__ import annotations
 
@@ -37,8 +46,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import build, ops, ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C entry points as the sources before the exit head's instance flag
-# declare them
+# the C entry points as the earlier sources declare them: the exit head's
+# before its instance flag
 PARENT_SIGNATURES = {
     "exit_head": {
         "repro_exit_head_block_v": ([], _I),
@@ -47,6 +56,17 @@ PARENT_SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    # as the sources before the split plan moved to the host declare them
+    "paged_attention": {
+        "repro_paged_gqa_attention": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    "paged_mla": {
+        "repro_paged_mla_split_pages": ([], _I),
+        "repro_paged_mla_attention": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _F, _P], _I),
     },
 }
 
@@ -94,31 +114,152 @@ def parent_flash(lib):
     return call
 
 
-def device_ms(fn, args, iters=20):
-    """Device time of one call: CUDA events around ``iters`` calls queued
-    behind a sleep kernel, so host enqueue time is not counted."""
-    for _ in range(2):
-        fn(*args)
+def parent_paged_gqa(lib):
+    def call(q, pk, pv, tbl, pos):
+        b, _, nq, hd = q.shape
+        n_pages, page, nkv, _ = pk.shape
+        out = torch.empty_like(q)
+        build.check(lib.repro_paged_gqa_attention(
+            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), tbl.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), b, nkv, nq // nkv, hd, page,
+            n_pages, tbl.shape[1], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream().cuda_stream), "parent paged gqa")
+        return out
+    return call
+
+
+def parent_paged_mla(lib, scale):
+    def call(ql, qr, pc, pk, tbl, pos):
+        b, _, n, r = ql.shape
+        pps = tbl.shape[1]
+        splits = -(-pps // lib.repro_paged_mla_split_pages())
+        out = torch.empty((b, 1, n, r), dtype=torch.float32,
+                          device=ql.device)
+        acc = torch.empty((b, splits, n, r), dtype=torch.float32,
+                          device=ql.device)
+        ml = torch.empty((b, splits, n, 2), dtype=torch.float32,
+                         device=ql.device)
+        build.check(lib.repro_paged_mla_attention(
+            ql.data_ptr(), qr.data_ptr(), pc.data_ptr(), pk.data_ptr(),
+            tbl.data_ptr(), pos.data_ptr(), out.data_ptr(), acc.data_ptr(),
+            ml.data_ptr(), b, n, r, qr.shape[3], pc.shape[1], pc.shape[0],
+            pps, scale, torch.cuda.current_stream().cuda_stream),
+            "parent paged mla")
+        return out
+    return call
+
+
+def _table(gen, b, page, pps, max_pos):
+    """Ragged positions below ``max_pos`` and a shuffled page table whose
+    entries past each sequence's last page are the sentinel n_pages."""
+    pos = torch.randint(0, max_pos, (b,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    n_pages = b * pps
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    tbl = perm.to(torch.int32).reshape(b, pps).clone()
+    cols = torch.arange(pps, device="cuda")[None, :]
+    tbl = torch.where(cols < (pos.long() // page + 1)[:, None], tbl,
+                      torch.full_like(tbl, n_pages))
+    return tbl, pos
+
+
+def paged_inputs(gen, b, nq, nkv, hd, page, pps, max_pos, sets):
+    """Paged-GQA inputs: ``sets`` independent q and pool copies (so timed
+    launches do not reuse L2) over one ragged table."""
+    tbl, pos = _table(gen, b, page, pps, max_pos)
+    out = []
+    for _ in range(sets):
+        q = torch.randn(b, 1, nq, hd, generator=gen, device="cuda").bfloat16()
+        pk, pv = (torch.randn(b * pps, page, nkv, hd, generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        out.append((q, pk, pv, tbl, pos))
+    return out
+
+
+def mla_inputs(gen, b, n, r, hr, page, pps, max_pos, sets):
+    """Paged-MLA inputs like ``paged_inputs``."""
+    tbl, pos = _table(gen, b, page, pps, max_pos)
+    out = []
+    for _ in range(sets):
+        ql = torch.randn(b, 1, n, r, generator=gen, device="cuda").bfloat16()
+        qr = torch.randn(b, 1, n, hr, generator=gen, device="cuda").bfloat16()
+        pc = torch.randn(b * pps, page, r, generator=gen,
+                         device="cuda").bfloat16()
+        pk = torch.randn(b * pps, page, hr, generator=gen,
+                         device="cuda").bfloat16()
+        out.append((ql, qr, pc, pk, tbl, pos))
+    return out
+
+
+def sdpa_gathered():
+    """The library yardstick for paged GQA: one
+    scaled_dot_product_attention call on the gathered view, kv heads
+    repeated to the query heads.  ``prep`` gathers (not timed)."""
+    def prep(q, pk, pv, tbl, pos):
+        from repro_torch.models.attention import paged_view
+        g = q.shape[2] // pk.shape[2]
+        k = paged_view(pk, tbl).transpose(1, 2).repeat_interleave(g, dim=1)
+        v = paged_view(pv, tbl).transpose(1, 2).repeat_interleave(g, dim=1)
+        mask = (torch.arange(k.shape[2], device=q.device)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        return (q.transpose(1, 2), k, v, mask)
+
+    def call(q, k, v, mask):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return prep, call
+
+
+def sdpa_mla_gathered(scale):
+    """The library yardstick for paged MLA: one
+    scaled_dot_product_attention call on the gathered latent view, the N
+    heads as N queries of one head (MLA is multi-query in latent space):
+    q [B, 1, N, R+Hr], k [B, 1, S, R+Hr], v = c_kv [B, 1, S, R].  ``prep``
+    gathers and concatenates (not timed)."""
+    def prep(ql, qr, pc, pk, tbl, pos):
+        from repro_torch.models.attention import paged_view
+        ckv = paged_view(pc, tbl)
+        k = torch.cat([ckv, paged_view(pk, tbl)], dim=-1)[:, None]
+        q = torch.cat([ql, qr], dim=-1)
+        mask = (torch.arange(k.shape[2], device=q.device)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        return (q, k, ckv[:, None], mask)
+
+    def call(q, k, v, mask):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=scale)
+    return prep, call
+
+
+def device_ms(fn, args_list, iters=20):
+    """Device time of one call: CUDA events around ``iters`` calls, cycling
+    through ``args_list``, queued behind a sleep kernel so host enqueue
+    time is not counted."""
+    for a in args_list[:2]:
+        fn(*a)
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(200_000_000)
     e0.record()
-    for _ in range(iters):
-        fn(*args)
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / iters
 
 
-def interleaved(fns, args, rounds, iters):
+def interleaved(fns, args_list, rounds, iters):
     """Time each of ``fns`` (name -> callable) ``rounds`` times, the order
-    reversed every other round; returns name -> {median, spread, all}."""
+    reversed every other round; returns name -> {median, spread, all}.
+    ``args_list`` maps a name to its argument tuples, or is one list for
+    all."""
     names = list(fns)
+    if not isinstance(args_list, dict):
+        args_list = {n: args_list for n in names}
     times = {n: [] for n in names}
     for r in range(rounds):
         for n in (names if r % 2 == 0 else names[::-1]):
-            times[n].append(device_ms(fns[n], args, iters))
+            times[n].append(device_ms(fns[n], args_list[n], iters))
     return {n: {"median_ms": statistics.median(t),
                 "spread_ms": max(t) - min(t), "ms": t}
             for n, t in times.items()}
@@ -150,7 +291,7 @@ def run(parent: Path, kernels, rounds: int = 3):
                     (("parent", old), ("current", ops.exit_head_entropy))}
             r = interleaved({"library": entropy_library, "parent": old,
                              "current": ops.exit_head_entropy},
-                            (x, w), rounds, 10)
+                            [(x, w)], rounds, 10)
             r["max_abs_err"] = errs
             results[f"exit_head_{label}"] = r
             print(f"exit_head {label} x {tuple(x.shape)} w {tuple(w.shape)}: "
@@ -169,20 +310,62 @@ def run(parent: Path, kernels, rounds: int = 3):
             lambda *a: ops.flash_attention(*a, causal=True))}
         r = interleaved({"library": sdpa, "parent": old,
                          "current": lambda *a: ops.flash_attention(
-                             *a, causal=True)}, (q, k, v), rounds, 20)
+                             *a, causal=True)}, [(q, k, v)], rounds, 20)
         r["max_err_of_max1_plain"] = errs
         results["flash_attention"] = r
         print(f"flash_attention q {tuple(q.shape)} k {tuple(k.shape)}: "
               f"{json.dumps(r)}", flush=True)
+    if "paged_attention" in kernels:
+        old = parent_paged_gqa(parent_library(parent, "paged_attention"))
+        prep, lib = sdpa_gathered()
+        for label, pps, max_pos in (("", 128, 2048), ("_serving", 18, 288)):
+            sets = paged_inputs(gen, 16, 32, 8, 64, 16, pps, max_pos, 4)
+            want = ref.paged_gqa_attention_ref(*sets[0]).float()
+            errs = {n: (f(*sets[0]).float() - want).abs().max().item()
+                    for n, f in (("parent", old),
+                                 ("current", ops.paged_gqa_attention))}
+            r = interleaved({"library": lib, "parent": old,
+                             "current": ops.paged_gqa_attention},
+                            {"library": [prep(*a) for a in sets],
+                             "parent": sets, "current": sets}, rounds, 20)
+            r["max_abs_err"] = errs
+            results["paged_attention" + label] = r
+            print(f"paged_attention q {tuple(sets[0][0].shape)} pools "
+                  f"{tuple(sets[0][1].shape)} positions < {max_pos}: "
+                  f"{json.dumps(r)}", flush=True)
+            del sets
+    if "paged_mla" in kernels:
+        scale = 1.0 / math.sqrt(128 + 64)
+        old = parent_paged_mla(parent_library(parent, "paged_mla"), scale)
+
+        def cur(*a):
+            return ops.paged_mla_attention(*a, scale=scale)
+        prep, lib = sdpa_mla_gathered(scale)
+        for label, pps, max_pos in (("", 128, 2048), ("_serving", 9, 144)):
+            sets = mla_inputs(gen, 16, 128, 512, 64, 16, pps, max_pos, 4)
+            want = ref.paged_mla_attention_ref(*sets[0], scale=scale)
+            errs = {n: (f(*sets[0]) - want).abs().max().item()
+                    for n, f in (("parent", old), ("current", cur))}
+            r = interleaved({"library": lib, "parent": old, "current": cur},
+                            {"library": [prep(*a) for a in sets],
+                             "parent": sets, "current": sets}, rounds, 20)
+            r["max_abs_err"] = errs
+            results["paged_mla" + label] = r
+            print(f"paged_mla q_lat {tuple(sets[0][0].shape)} pools "
+                  f"{tuple(sets[0][2].shape)} positions < {max_pos}: "
+                  f"{json.dumps(r)}", flush=True)
+            del sets
     return results
+
+
+KERNELS = ["exit_head", "flash_attention", "paged_attention", "paged_mla"]
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--kernels", nargs="+",
-                    default=["exit_head", "flash_attention"],
-                    choices=["exit_head", "flash_attention"])
+    ap.add_argument("--kernels", nargs="+", default=KERNELS,
+                    choices=KERNELS)
     ap.add_argument("--json", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

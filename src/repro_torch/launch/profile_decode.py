@@ -7,8 +7,9 @@ Fills every slot of a paged, segmented scheduler with a prompt, then
 profiles ``--steps`` decode polls with ``torch.profiler`` (CPU and CUDA
 activity).  Reports the host wall time per step, the device kernel time per
 step (sum over CUDA kernels), the device busy share (kernel time / wall
-time), CUDA kernel launches per step, and the kernels that take the most
-device time.  Weights are random (seeded) unless the caller passes
+time), CUDA kernel launches per step, the kernels that take the most
+device time, and each of the port's own kernels (``kernels/csrc``) with
+its time and launches per step.  Weights are random (seeded) unless the caller passes
 ``params``; ``arch`` is an arch name or a ``ModelConfig``; the card is
 required.
 """
@@ -25,6 +26,12 @@ from repro_torch.configs import resolve_config
 from repro_torch.models.model import Model
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
                                            SchedulerConfig)
+
+# the __global__ functions of kernels/csrc/*.cu
+PORT_KERNELS = ("paged_gqa_partial", "paged_gqa_combine", "paged_mla_partial",
+                "paged_mla_combine", "exit_head_partial", "exit_head_finish",
+                "flash_fwd_kernel", "quantize_rows_kernel",
+                "dequantize_rows_kernel")
 
 
 def profile_decode(arch="granite-3-2b", slots: int = 16,
@@ -64,6 +71,7 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
     dev_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    port = [e for e in events if any(k in e.key for k in PORT_KERNELS)]
     return {
         "arch": model.cfg.name, "slots": slots, "prompt_len": prompt_len,
         "steps": steps,
@@ -72,10 +80,15 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
         "device_ms_per_step": dev_us / steps / 1e3,
         "device_busy_share": (dev_us / 1e6) / wall_s if wall_s else 0.0,
         "cuda_kernels_per_step": launches / steps,
-        "top_kernels": [{"name": e.key[:80],
-                         "ms_per_step": e.self_device_time_total / steps / 1e3,
-                         "calls_per_step": e.count / steps} for e in top],
+        "top_kernels": [_per_step(e, steps) for e in top],
+        "port_kernels": [_per_step(e, steps) for e in port],
     }
+
+
+def _per_step(e, steps):
+    return {"name": e.key[:80],
+            "ms_per_step": e.self_device_time_total / steps / 1e3,
+            "calls_per_step": e.count / steps}
 
 
 def main(argv=None):

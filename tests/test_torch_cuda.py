@@ -7,11 +7,15 @@ Every test is marked ``gpu`` and skips where there is no card; whether
 there is one is decided when a test runs, never at import.
 
 Tolerances: the paged attention output is bf16 and both versions
-accumulate in fp32 and round once (one bf16 ulp at |out| < 4 is 2^-6);
-the paged MLA output is fp32 from the same bf16 inputs, and differs only
-by the order of fp32 sums of R + Hr <= 576 products and of the softmax
-terms (1e-3, against outputs that are convex combinations of latents
-|c| < 5); the entropy is fp32 summed in another order (1e-4 at small D,
+accumulate in fp32 and round once (one bf16 ulp at |out| < 4 is 2^-6; the
+kernel feeds P to the tensor cores as a bf16 high part plus a bf16 low
+part, so only the order of the fp32 sums differs); the paged MLA output is fp32 from the same bf16 inputs, and
+differs by the order of fp32 sums of R + Hr <= 576 products and of the
+softmax terms, and by P, which the kernel feeds to the tensor cores as a
+bf16 high part plus a bf16 low part (about 2^-16 relative; a single bf16
+P would miss 1e-3 at full width, see tests/test_torch_paged_plan.py):
+1e-3, against outputs that are convex combinations of latents |c| < 5;
+the entropy is fp32 summed in another order (1e-4 at small D,
 1e-3 at D >= 2048).  The int8 kernels are held bit for bit: one IEEE division and
 one rounding per element, and a max that no order changes.
 """
@@ -33,11 +37,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _paged(dev, b, nq, nkv, hd, page=16, pps=8, seed=0):
+def _paged(dev, b, nq, nkv, hd, page=16, pps=8, seed=0, pos0=False):
     g = torch.Generator(device=dev).manual_seed(seed)
     n_pages = b * pps + 3
     pos = torch.randint(0, pps * page, (b,), generator=g, device=dev,
                         dtype=torch.int32)
+    if pos0:
+        pos[0] = 0                             # a one-token sequence
     perm = torch.randperm(n_pages, generator=g, device=dev).to(torch.int32)
     tbl = perm[:b * pps].reshape(b, pps).clone()
     cols = torch.arange(pps, device=dev)[None, :]
@@ -51,16 +57,34 @@ def _paged(dev, b, nq, nkv, hd, page=16, pps=8, seed=0):
     return q, pk, pv, tbl, pos
 
 
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
-@pytest.mark.parametrize("hd", [64, 128])
-def test_paged_gqa_kernel_matches_plain(cuda, group, hd):
-    args = _paged(cuda, 5, 2 * group, 2, hd, seed=group + hd)
+def _check_paged_gqa(args):
     n0 = ops.LAUNCHES["paged_gqa_attention"]
     got = ops.paged_gqa_attention(*args)
     want = ref.paged_gqa_attention_ref(*args)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["paged_gqa_attention"] == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
     assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 5, 6, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_gqa_kernel_matches_plain(cuda, group, hd):
+    """Every group size up to 8 (llama4 runs 5, qwen2-vl 6) at both head
+    dims; tables of 8 pages, split in two or more."""
+    _check_paged_gqa(_paged(cuda, 5, 2 * group, 2, hd, seed=group + hd))
+
+
+@pytest.mark.parametrize("b,nkv,group,hd,pps", [
+    (16, 8, 4, 64, 128),       # granite-3-2b, positions up to 2047
+    (16, 8, 4, 64, 18),        # ... at serving's table length
+    (3, 12, 4, 128, 37),       # two kv-head groups, the second part-full
+    (1, 8, 5, 128, 128)])      # one sequence spread over many splits
+def test_paged_gqa_kernel_long_tables(cuda, b, nkv, group, hd, pps):
+    """Tables long enough for several splits (merged by the combine
+    launch), with a one-token sequence (pos 0) in the first row."""
+    _check_paged_gqa(_paged(cuda, b, nkv * group, nkv, hd, pps=pps,
+                            seed=b + pps, pos0=True))
 
 
 def _paged_mla(dev, b, n, r, hr, page=16, pps=8, seed=0):
@@ -83,12 +107,14 @@ def _paged_mla(dev, b, n, r, hr, page=16, pps=8, seed=0):
 
 @pytest.mark.parametrize("b,n,r,hr,pps", [
     (5, 4, 32, 16, 8), (5, 4, 32, 16, 40), (16, 128, 512, 64, 9),
-    (16, 128, 512, 64, 128)])
+    (16, 128, 512, 64, 128), (3, 128, 512, 64, 37), (1, 128, 512, 64, 128),
+    (1, 4, 32, 16, 37)])
 def test_paged_mla_kernel_matches_plain(cuda, b, n, r, hr, pps):
-    """deepseek-v3 smoke and full widths, with one split of pages (tables
-    of up to 16 pages: the serving path's 9) and with several merged by
-    the combine pass (40 pages; 128 at 16 slots and positions up to 2047,
-    the chip smoke's phase 2)."""
+    """deepseek-v3 smoke and full widths, with one split of pages (the
+    serving path's tables of 9) and with several merged by the combine
+    pass (40 pages; 128 at 16 slots and positions up to 2047, the chip
+    smoke's phase 2); 37 pages are no whole number of splits, and one
+    sequence (B 1) spreads a long table over few blocks."""
     args = _paged_mla(cuda, b, n, r, hr, pps=pps, seed=n + r)
     scale = 1.0 / math.sqrt(3 * hr)            # 1 / sqrt(nope + rope)
     n0 = ops.LAUNCHES["paged_mla_attention"]
@@ -170,6 +196,9 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):             # no instance for page 8
         ops.paged_gqa_attention(q, pk[:, :8].contiguous(),
                                 pv[:, :8].contiguous(), tbl, pos)
+    with pytest.raises(ValueError):             # no instance for group 9
+        ops.paged_gqa_attention(q[:, :, :2].repeat(1, 1, 9, 1), pk, pv, tbl,
+                                pos)
     x = torch.zeros(2, 8, device=cuda)
     with pytest.raises(ValueError):
         ops.exit_head_entropy(x, torch.zeros(8, 5, device=cuda))
