@@ -45,7 +45,11 @@ Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
 both widths, naming the instance each takes) and flash attention three
 times each, interleaved with their library calls, and prints each one's
 median and spread; phases 4 and 6 time the paged kernels the same way on
-the live call they capture, at the lengths serving reaches.
+the live call they capture, at the lengths serving reaches.  The int8
+kernels (no library call computes either) are timed three times each on
+two copies of the granite-3-2b slot leaf and of a deepseek-v3 c_kv slot
+leaf [124928, 512], and phase 5 times them on its live export leaf; every
+int8 line names the instance the plan picks.
 Prints the per-kernel JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside this file.
@@ -138,13 +142,14 @@ def interleaved_ms(torch, kernel, library, args_list, rounds=3, iters=20,
     """A redesigned kernel and its library call, each timed ``rounds``
     times in turns (library, kernel, kernel, library, ...): the median and
     the spread (max - min) of each, and every reading.  ``lib_args`` are
-    the library call's own arguments where they differ."""
-    times = {"kernel": [], "library": []}
+    the library call's own arguments where they differ; with no library
+    call (``library`` None) the kernel alone, ``rounds`` times."""
     fns = {"kernel": kernel, "library": library}
     args = {"kernel": args_list, "library": lib_args or args_list}
+    order = [n for n in ("library", "kernel") if fns[n] is not None]
+    times = {name: [] for name in order}
     for r in range(rounds):
-        for name in (("library", "kernel") if r % 2 == 0
-                     else ("kernel", "library")):
+        for name in (order if r % 2 == 0 else order[::-1]):
             times[name].append(device_ms(torch, fns[name], args[name],
                                          iters))
     return {name: {"median": sorted(t)[len(t) // 2],
@@ -227,9 +232,24 @@ def bits_equal(torch, a, b):
     return bool(torch.equal(a, b))
 
 
+def int8_instances(x, out_dtype_bytes):
+    """The instances the plan picks for quantizing ``x`` [..., D] and for
+    dequantizing its q to an output of ``out_dtype_bytes`` (the wrappers'
+    outputs are fresh, hence aligned)."""
+    from repro_torch.kernels import feature_compress as fc
+    x = x.reshape(-1, x.shape[-1])
+    t, d = x.shape
+    return {"quantize": fc.plan(t, d, x.element_size(),
+                                (x.data_ptr(),))["instance"],
+            "dequantize": fc.plan(t, d, out_dtype_bytes, (0,),
+                                  kernel="dequantize")["instance"]}
+
+
 def check_quant_pair(torch, ops, ref, x, out_dtype, label):
     """Both int8 kernels against their plain versions on ``x``; fails on
     any bit that differs.  Returns the max abs difference (0.0)."""
+    inst = int8_instances(x, torch.tensor([], dtype=out_dtype)
+                          .element_size())
     q, s = ops.compress_rows(x)
     qr, sr = ref.quantize_rows_ref(x)
     y = ops.decompress_rows(q, s, dtype=out_dtype)
@@ -242,7 +262,8 @@ def check_quant_pair(torch, ops, ref, x, out_dtype, label):
               (y.float() - yr.float()).abs().max().item() if y.numel()
               else 0.0)
     print(f"  {label} {tuple(x.shape)} {x.dtype} -> {out_dtype}: "
-          f"{'bit-exact' if ok else 'MISMATCH'} (max abs diff {err:.3e})")
+          f"{'bit-exact' if ok else 'MISMATCH'} (max abs diff {err:.3e}); "
+          f"instances {inst}")
     if not ok:
         bad = (q != qr).nonzero()[:5].tolist()
         fail(f"int8 kernels disagree with their plain versions on {label}: "
@@ -471,52 +492,77 @@ def main(argv=None):
 
     # int8 handoff kernels: one full-width granite-3-2b slot leaf at 2048
     # tokens (40 layers x 128 pages x 16 tokens x 8 kv heads rows of 64),
-    # one row per hidden state at [4096, 2048] fp32, a zero row, a ragged D
+    # a deepseek-v3 c_kv slot leaf (61 layers x 128 pages x 16 tokens rows
+    # of 512), one row per hidden state at [4096, 2048] fp32, a zero row,
+    # a ragged D in fp32 and bf16, and a view 2 bytes off 16
     print("int8 handoff kernels against their plain versions "
           "(tolerance: bit-exact)")
-    leaf = torch.randn(40 * 128 * 16 * 8, 64, generator=gen,
-                       device="cuda").bfloat16()
+    leaves = [torch.randn(40 * 128 * 16 * 8, 64, generator=gen,
+                          device="cuda").bfloat16() for _ in range(2)]
+    ckvs = [torch.randn(61 * 128 * 16, 512, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2)]
     hid = torch.randn(4096, 2048, generator=gen, device="cuda") \
         * torch.rand(4096, 1, generator=gen, device="cuda") * 8
     zero = torch.zeros(3, 64, device="cuda").bfloat16()
     zero[1] = torch.randn(64, generator=gen, device="cuda").bfloat16()
     ragged = torch.randn(777, 100, generator=gen, device="cuda")
-    q_err = max(check_quant_pair(torch, ops, ref, leaf, torch.bfloat16,
+    buf = torch.randn(777 * 64 + 1, generator=gen, device="cuda").bfloat16()
+    offset = buf[1:].view(777, 64)
+    q_err = max(check_quant_pair(torch, ops, ref, leaves[0], torch.bfloat16,
                                  "slot leaf"),
+                check_quant_pair(torch, ops, ref, ckvs[0], torch.bfloat16,
+                                 "deepseek-v3 c_kv leaf"),
                 check_quant_pair(torch, ops, ref, hid, torch.float32,
                                  "hidden rows"),
                 check_quant_pair(torch, ops, ref, zero, torch.bfloat16,
                                  "zero rows"),
                 check_quant_pair(torch, ops, ref, ragged, torch.bfloat16,
-                                 "D = 100"))
+                                 "D = 100"),
+                check_quant_pair(torch, ops, ref, ragged.bfloat16(),
+                                 torch.float32, "D = 100 bf16"),
+                check_quant_pair(torch, ops, ref, offset, torch.bfloat16,
+                                 "view 2 bytes off 16"))
     qz, sz = ops.compress_rows(zero)
     if not (bool((qz[0] == 0).all()) and bool((qz[2] == 0).all())
             and sz[0].item() == sz[2].item() == torch.tensor(1e-8).item()):
         fail("a zero row must quantize to q = 0 with scale exactly 1e-8")
-    q_leaf, s_leaf = ops.compress_rows(leaf)
-    bound_ms, by = quant_bound(leaf)
-    results["quantize_rows"] = {
-        "max_abs_err": q_err,
-        "ms": device_ms(torch, ops.compress_rows, [(leaf,)]),
-        "plain_ms": device_ms(torch, ref.quantize_rows_ref, [(leaf,)]),
-        "library_ms": None, "bound_ms": bound_ms, "bound_by": by}
-    print(f"  quantize_rows {json.dumps(results['quantize_rows'])}")
 
     def dequant(q, s):
         return ops.decompress_rows(q, s, dtype=torch.bfloat16)
 
     def dequant_plain(q, s):
         return ref.dequantize_rows_ref(q, s, torch.bfloat16)
-    bound_ms, by = dequant_bound(q_leaf, 2)
-    results["dequantize_rows"] = {
-        "max_abs_err": q_err,
-        "ms": device_ms(torch, dequant, [(q_leaf, s_leaf)]),
-        "plain_ms": device_ms(torch, dequant_plain, [(q_leaf, s_leaf)]),
-        "library_ms": None, "bound_ms": bound_ms, "bound_by": by}
-    print(f"  dequantize_rows {json.dumps(results['dequantize_rows'])}")
+    for kname in ("quantize_rows", "dequantize_rows"):
+        results[kname] = {"max_abs_err": q_err, "library_ms": None}
+    # each timed three times on two copies of a leaf (the granite leaf is
+    # 84 MB, so every call reads from HBM past the 50 MB L2)
+    for label, xs in (("granite", leaves), ("deepseek_c_kv", ckvs)):
+        qs = [ops.compress_rows(x) for x in xs]
+        inst = int8_instances(xs[0], 2)
+        timed = {}
+        for kname, fn, plain, call_args, bnd in (
+                ("quantize_rows", ops.compress_rows, ref.quantize_rows_ref,
+                 [(x,) for x in xs], quant_bound(xs[0])),
+                ("dequantize_rows", dequant, dequant_plain, qs,
+                 dequant_bound(qs[0][0], 2))):
+            spread = interleaved_ms(torch, fn, None, call_args)
+            print_spread(f"{kname} {label} {tuple(xs[0].shape)}", spread)
+            timed[kname] = {
+                "shape": list(xs[0].shape), "ms": spread["kernel"]["median"],
+                "plain_ms": device_ms(torch, plain, call_args[:1], iters=5),
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "spread": spread["kernel"],
+                "instance": inst[kname.split("_")[0]]}
+        for kname, r in timed.items():
+            if label == "granite":
+                results[kname].update(r)
+            else:
+                results[kname][label] = r
+            print(f"  {kname} {label} {json.dumps(r)}")
+        del qs
     print("  library_ms: none (no single PyTorch call computes either "
           "function)")
-    del leaf, hid, q_leaf, s_leaf
+    del leaves, ckvs, hid, buf, offset
 
     # flash attention: phase 7's shape (granite-3-2b's 32/8 heads of 64,
     # 8 x 2048 tokens, causal), a ragged sliding-window case and a
@@ -699,6 +745,9 @@ def main(argv=None):
         if kname == "exit_head_entropy":
             kernels[-1]["instance"] = r["instance"]
             kernels[-1]["deepseek"] = exit_ds
+        if kname in ("quantize_rows", "dequantize_rows"):
+            for key in ("instance", "spread", "deepseek_c_kv", "live"):
+                kernels[-1][key] = r[key]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -829,9 +878,25 @@ def run_tiered(torch, ops, ref, results):
         fail("no live export was captured")
     (x,), _ = captured["compress_rows"]
     err = check_quant_pair(torch, ops, ref, x, x.dtype, "live export leaf")
-    for kname in ("quantize_rows", "dequantize_rows"):
+    # both kernels timed on the live leaf (after the run's counts were
+    # read), each with its own bound
+    x2 = x.reshape(-1, x.shape[-1])
+    q2, s2 = ops.compress_rows(x2)
+    inst = int8_instances(x2, x.element_size())
+    for kname, fn, args, bnd in (
+            ("quantize_rows", ops.compress_rows, [(x2,)], quant_bound(x2)),
+            ("dequantize_rows",
+             lambda q, s: ops.decompress_rows(q, s, dtype=x.dtype),
+             [(q2, s2)], dequant_bound(q2, x.element_size()))):
         results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"],
                                             err)
+        spread = interleaved_ms(torch, fn, None, args)
+        results[kname]["live"] = {
+            "shape": list(x2.shape), "dtype": str(x.dtype),
+            "ms": spread["kernel"]["median"], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "spread": spread["kernel"],
+            "instance": inst[kname.split("_")[0]]}
+        print(f"  live {kname} timing: {json.dumps(results[kname]['live'])}")
     del model, params, cluster
     return summaries, launches
 

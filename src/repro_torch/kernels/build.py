@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_L = ctypes.c_longlong
+_L, _U = ctypes.c_longlong, ctypes.c_uint
 # C entry points of each library: name -> (argtypes, restype)
 SIGNATURES = {
     "paged_attention": {
@@ -54,8 +54,10 @@ SIGNATURES = {
                                     _I),
     },
     "feature_compress": {
-        "repro_quantize_rows": ([_P, _I, _P, _P, _L, _I, _P], _I),
-        "repro_dequantize_rows": ([_P, _P, _P, _I, _L, _I, _P], _I),
+        "repro_quantize_rows": ([_P, _I, _P, _P, _L, _I, _I, _I, _I, _I,
+                                 _P], _I),
+        "repro_dequantize_rows": ([_P, _P, _P, _I, _L, _I, _I, _I, _U, _I,
+                                   _I, _P], _I),
     },
     "flash_attention": {
         "repro_flash_attention": (

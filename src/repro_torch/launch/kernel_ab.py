@@ -2,7 +2,8 @@
 one card.
 
     python -m repro_torch.launch.kernel_ab --parent DIR [--kernels exit_head
-        flash_attention paged_attention paged_mla] [--json PATH]
+        flash_attention paged_attention paged_mla feature_compress]
+        [--json PATH]
 
 ``DIR`` is a checkout of an earlier commit of this repository (for
 example ``git archive <commit> | tar -x -C DIR``).  Each named kernel's
@@ -24,7 +25,12 @@ shapes:
   paged_mla        q_lat [16, 1, 128, 512], q_rope [16, 1, 128, 64], pools
                    [2048, 16, 512] / [2048, 16, 64], positions below 2048
                    (deepseek-v3 decode), and 9-page tables, positions below
-                   144 (phase 6); four pool copies each.
+                   144 (phase 6); four pool copies each;
+  feature_compress quantize_rows and dequantize_rows (to bf16) on the
+                   granite-3-2b slot leaf [655360, 64] bf16 and the
+                   deepseek-v3 c_kv slot leaf [124928, 512] bf16, two
+                   copies each (so every call reads from HBM); no library
+                   call computes either, so only the two versions.
 
 The paged kernels' library call is one scaled_dot_product_attention on
 the gathered view (gathered beforehand, not timed).  Prints each timing's
@@ -46,6 +52,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import build, ops, ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # the C entry points as the earlier sources declare them: the exit head's
 # before its instance flag
 PARENT_SIGNATURES = {
@@ -61,6 +68,11 @@ PARENT_SIGNATURES = {
     "paged_attention": {
         "repro_paged_gqa_attention": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    # as the sources before the host plan picked an instance declare them
+    "feature_compress": {
+        "repro_quantize_rows": ([_P, _I, _P, _P, _L, _I, _P], _I),
+        "repro_dequantize_rows": ([_P, _P, _P, _I, _L, _I, _P], _I),
     },
     "paged_mla": {
         "repro_paged_mla_split_pages": ([], _I),
@@ -147,6 +159,35 @@ def parent_paged_mla(lib, scale):
             "parent paged mla")
         return out
     return call
+
+
+def parent_int8(lib):
+    """The earlier quantize and dequantize (to bf16) kernels."""
+    def quant(x):
+        t, d = x.shape
+        q = torch.empty((t, d), dtype=torch.int8, device=x.device)
+        s = torch.empty((t, 1), dtype=torch.float32, device=x.device)
+        build.check(lib.repro_quantize_rows(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
+            s.data_ptr(), t, d, torch.cuda.current_stream().cuda_stream),
+            "parent quantize")
+        return q, s
+
+    def dequant(q, s):
+        t, d = q.shape
+        out = torch.empty((t, d), dtype=torch.bfloat16, device=q.device)
+        build.check(lib.repro_dequantize_rows(
+            q.data_ptr(), s.data_ptr(), out.data_ptr(), 1, t, d,
+            torch.cuda.current_stream().cuda_stream), "parent dequantize")
+        return out
+    return quant, dequant
+
+
+def _bits_equal(a, b):
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    a = a.view(view[a.dtype]) if a.dtype in view else a
+    b = b.view(view[b.dtype]) if b.dtype in view else b
+    return bool(torch.equal(a, b))
 
 
 def _table(gen, b, page, pps, max_pos):
@@ -355,10 +396,41 @@ def run(parent: Path, kernels, rounds: int = 3):
                   f"{tuple(sets[0][2].shape)} positions < {max_pos}: "
                   f"{json.dumps(r)}", flush=True)
             del sets
+    if "feature_compress" in kernels:
+        old_q, old_d = parent_int8(parent_library(parent, "feature_compress"))
+
+        def cur_d(q, s):
+            return ops.decompress_rows(q, s, dtype=torch.bfloat16)
+        for label, rows, d in (("granite", 655360, 64),
+                               ("deepseek_c_kv", 124928, 512)):
+            xs = [torch.randn(rows, d, generator=gen, device="cuda")
+                  .bfloat16() for _ in range(2)]
+            qs = [ops.compress_rows(x) for x in xs]
+            qr, sr = ref.quantize_rows_ref(xs[0])
+            yr = ref.dequantize_rows_ref(qr, sr, torch.bfloat16)
+            exact = {}
+            for n, fq, fd in (("parent", old_q, old_d),
+                              ("current", ops.compress_rows, cur_d)):
+                q, s = fq(xs[0])
+                exact[n] = (_bits_equal(q, qr) and _bits_equal(s, sr)
+                            and _bits_equal(fd(qr, sr), yr))
+            for kname, fns, args in (
+                    ("quantize_rows", {"parent": old_q,
+                                       "current": ops.compress_rows},
+                     [(x,) for x in xs]),
+                    ("dequantize_rows", {"parent": old_d, "current": cur_d},
+                     qs)):
+                r = interleaved(fns, args, rounds, 20)
+                r["bit_exact"] = exact
+                results[f"{kname}_{label}"] = r
+                print(f"{kname} {label} [{rows}, {d}] bf16: "
+                      f"{json.dumps(r)}", flush=True)
+            del xs, qs
     return results
 
 
-KERNELS = ["exit_head", "flash_attention", "paged_attention", "paged_mla"]
+KERNELS = ["exit_head", "flash_attention", "paged_attention", "paged_mla",
+           "feature_compress"]
 
 
 def main(argv=None):

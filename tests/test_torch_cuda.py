@@ -261,6 +261,76 @@ def test_int8_wrappers_raise_instead_of_falling_back(cuda):
                             dtype=torch.float16)
 
 
+def _int8_rows(dev, rows, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(rows, d, generator=g, device=dev)
+         * torch.rand(rows, 1, generator=g, device=dev) * 10).to(dtype)
+    x[0] = 0                                   # scale exactly 1e-8, q 0
+    return x
+
+
+def _check_int8(x, out_dtype, q_in=None):
+    """Both wrappers (dequantize on ``q_in`` when given, a view of q)
+    against the plain versions, bit for bit, one launch each."""
+    n0 = (ops.LAUNCHES["quantize_rows"], ops.LAUNCHES["dequantize_rows"])
+    q, s = ops.compress_rows(x)
+    y = ops.decompress_rows(q if q_in is None else q_in(q), s,
+                            dtype=out_dtype)
+    qr, sr = ref.quantize_rows_ref(x)
+    yr = ref.dequantize_rows_ref(qr, sr, out_dtype)
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES["quantize_rows"],
+            ops.LAUNCHES["dequantize_rows"]) == (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(q, qr)
+    assert torch.equal(_bits(s), _bits(sr))
+    assert torch.equal(_bits(y), _bits(yr))
+    assert s[0].item() == torch.tensor(1e-8).item() and not q[0].any()
+
+
+@pytest.mark.parametrize("d", [64, 100, 128, 192, 512, 2048, 7168])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_instances_match_plain_bitwise(cuda, d, dtype, out_dtype):
+    """Each D through the instance the plan picks (vec where a float row
+    is whole 16-byte vectors of at most 8 KB: D 100 bf16 is not, D 7168
+    quantizes on the scalar instance; D 192 and 7168 dequantize through
+    the magic divide), on a row count that is no multiple of any warp's
+    rows."""
+    from repro_torch.kernels import feature_compress as fc
+    rows = 1001 if d < 7168 else 67
+    x = _int8_rows(cuda, rows, d, dtype, seed=d)
+    eq, eo = x.element_size(), torch.tensor([], dtype=out_dtype)
+    want_q = "vec" if d * eq % 16 == 0 and d * eq <= 8192 else "scalar"
+    want_d = "vec" if d * eo.element_size() % 16 == 0 else "scalar"
+    assert fc.plan(rows, d, eq, (x.data_ptr(),))["instance"] == want_q
+    assert fc.plan(rows, d, eo.element_size(), (0,),
+                   kernel="dequantize")["instance"] == want_d
+    _check_int8(x, out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_offset_views_take_scalar(cuda, dtype):
+    """Contiguous views whose data start off 16 bytes (x by one element,
+    q by one byte) take the scalar instances, bit for bit."""
+    from repro_torch.kernels import feature_compress as fc
+    rows, d = 513, 64
+    x = _int8_rows(cuda, rows, d, dtype, seed=3)
+    buf = torch.empty(rows * d + 1, dtype=dtype, device=cuda)
+    buf[1:] = x.reshape(-1)
+    xv = buf[1:].view(rows, d)
+    assert fc.plan(rows, d, xv.element_size(),
+                   (xv.data_ptr(),))["instance"] == "scalar"
+
+    def q_view(q):
+        qb = torch.empty(rows * d + 1, dtype=torch.int8, device=cuda)
+        qb[1:] = q.reshape(-1)
+        qv = qb[1:].view(rows, d)
+        assert fc.plan(rows, d, 2, (qv.data_ptr(),),
+                       kernel="dequantize")["instance"] == "scalar"
+        return qv
+    _check_int8(xv, torch.bfloat16, q_in=q_view)
+
+
 def _qkv(dev, b, sq, skv, nq, nkv, hd, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, sq, nq, hd, generator=g, device=dev).bfloat16()
