@@ -17,6 +17,20 @@ Phases, each fatal on failure:
      paged KV arena and depth-segmented decode; both kernels' launch counts
      must go up, and each kernel is held against its plain version again on
      inputs captured from that run;
+  4b. async decode windows at full width: granite-3-2b, paged, 16 slots,
+     monolithic steps.  (a) A closed loop of 16 requests (prompts 16-64
+     tokens, max_new 64) through the eager sync poll, then through windows
+     of 8 steps (one CUDA graph of one step, captured once, replayed 8
+     times a window): tokens bit-identical (a top-2 tie under 1e-2 is the
+     only excuse), one capture, and 40 paged-attention launches per decode
+     step the card ran in each; (b) the same loop again with every decode
+     poll under ``torch.cuda.set_sync_debug_mode("error")`` (the ring wait
+     is an event wait); (c) sampled decode at T 0.7: two runs from the
+     same generator seed give the same in-vocabulary tokens; (d) a Poisson
+     run of 32 requests at 16 req/s (prompts 16-64, max_new 128) through
+     ``serve_poisson``, sync segmented and then async, with tok/s, p50/p95
+     and host and readback ms per decode step; then ``profile_decode``
+     splits a decode step into host and device time, sync and windowed;
   5. the tiered path at full width: granite-3-2b behind the cloud/edge/
      device cluster with an edge outage mid-trace, once through
      ``serve_tiered_poisson`` (contiguous arenas, handoff chosen per link)
@@ -690,11 +704,18 @@ def main(argv=None):
     results["paged_gqa_attention"]["live"] = live
     print(f"  live paged_gqa_attention timing: {json.dumps(live)}")
 
+    # ---- phase 4b: async decode windows at full width ----------------
+    del captured, a
+    gc.collect()
+    torch.cuda.empty_cache()
+    windows = run_async(torch, ops)
+
     # ---- phase 5: the tiered path at full width ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
     tiered, tier_launches = run_tiered(torch, ops, ref, results)
 
     # ---- phase 6: deepseek-v3 at full width, 4 layers ---------------
-    del captured, a
     gc.collect()
     torch.cuda.empty_cache()
     ds, ds_launches = run_deepseek(torch, ops, ref, results, exit_ds)
@@ -753,14 +774,229 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card_line, "kernels": kernels,
-                       "serve": stats, "tiered": tiered, "deepseek": ds,
-                       "forward": fwd},
+                       "serve": stats, "async_decode": windows,
+                       "tiered": tiered, "deepseek": ds, "forward": fwd},
                       f, indent=1)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+ASYNC_R = 8            # decode steps a window (phase 4b)
+ASYNC_SLOTS = 16
+ASYNC_MAX_NEW = 64     # closed loop; the Poisson run takes 128
+
+
+def tie_gap(torch, model, params, prompt, got, want):
+    """First position where two greedy streams of one prompt differ, and
+    the fp32 gap there between the two tokens' logits of a batch-1 decode
+    replay (``Model.prefill``) of ``want``'s stream."""
+    k = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
+    seq = list(prompt) + list(want[:k])
+    toks = torch.tensor([seq], dtype=torch.long, device="cuda")
+    logits, _ = model.prefill(params, {"tokens": toks})
+    row = logits[0, -1].float()
+    return k, float(row[want[k]] - row[got[k]])
+
+
+def closed_loop(torch, ops, sched, prompts, max_new, *, rng=None,
+                guard=False):
+    """Admit every prompt in one prefill poll, then poll the decode to the
+    end (``guard``: under ``set_sync_debug_mode("error")``).  Returns the
+    requests, the decode steps the card ran (sync: committed steps; async:
+    the window's warm-up steps and replays), the launch counts of the
+    decode polls and their wall time."""
+    from repro_torch.serving.scheduler import Request
+    reqs = [Request(tokens=p, max_new=max_new, req_id=j)
+            for j, p in enumerate(prompts)]
+    for r in reqs:
+        sched.submit(r)
+    sched.set_rng(rng)
+    sched.prefill_poll()
+    if sched._pending is not None or sched.queue:
+        fail("closed loop: the prompts were not all admitted at once")
+
+    def device_steps():
+        if sched.cfg.async_decode:
+            return 0 if sched._window is None else sched._window.steps_run
+        return sched._step_idx
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    steps0 = device_steps()
+    t0 = time.perf_counter()
+    if guard:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        while sched.has_work:
+            sched.poll()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return reqs, device_steps() - steps0, dict(ops.LAUNCHES), wall
+
+
+def run_async(torch, ops):
+    """Phase 4b (see the module docstring).  Returns its summary."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_decode import profile_decode
+    from repro_torch.launch.serve import serve_poisson
+    from repro_torch.models import Model
+    from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
+                                               SchedulerConfig)
+    cfg = get_config("granite-3-2b")
+    model = Model(cfg, device="cuda")
+    params = model.init(0)
+    layers = cfg.num_layers
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(16, 65)))
+               for _ in range(ASYNC_SLOTS)]
+    max_len = 64 + ASYNC_MAX_NEW
+
+    def pool(async_decode, **kw):
+        return ContinuousBatchScheduler(model, params, SchedulerConfig(
+            n_slots=ASYNC_SLOTS, max_len=max_len, prefill_chunk=16,
+            exit_threshold=0.5, segmented=False, paged=True,
+            async_decode=async_decode, readback_interval=ASYNC_R, **kw),
+            device="cuda")
+
+    print(f"async decode: granite-3-2b, 40 layers, random weights (seed "
+          f"0), paged, {ASYNC_SLOTS} slots, monolithic steps, windows of "
+          f"{ASYNC_R}; closed loop of {len(prompts)} requests, prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+          f"max_new {ASYNC_MAX_NEW}")
+    out = {"readback_interval": ASYNC_R}
+
+    def check_launches(label, steps, launches):
+        want = layers * steps
+        got = launches["paged_gqa_attention"]
+        print(f"  {label}: {steps} decode steps on the card, paged_gqa "
+              f"launches {got} (40 x steps = {want})")
+        if got != want:
+            fail(f"{label}: {got} paged-attention launches, expected {want}")
+
+    # (a) sync monolithic, then windows: the same tokens
+    s_sync = pool(False)
+    r_sync, steps, launches, wall = closed_loop(
+        torch, ops, s_sync, prompts, ASYNC_MAX_NEW)
+    check_launches("(a) sync", steps, launches)
+    want = [list(r.out_tokens) for r in r_sync]
+    out["sync"] = {"decode_steps": steps, "wall_s": wall,
+                   "ms_per_step": wall / steps * 1e3}
+    del s_sync
+    s_win = pool(True, flush_every=10 ** 9)
+    r_win, steps, launches, wall = closed_loop(
+        torch, ops, s_win, prompts, ASYNC_MAX_NEW)
+    check_launches("(a) async", steps, launches)
+    w = s_win._window
+    out["async"] = {"device_steps": steps, "wall_s": wall,
+                    "ms_per_step": wall / s_win._step_idx * 1e3,
+                    "committed_steps": s_win._step_idx,
+                    "replays": w.replays, "warmup_steps": w.warmup_steps,
+                    "per_replay_launches": w.per_replay,
+                    "peak_tokens_in_flight": s_win.peak_tokens_in_flight}
+    print(f"  (a) decode wall {out['sync']['wall_s']:.2f} s sync "
+          f"({out['sync']['ms_per_step']:.2f} ms a step) against "
+          f"{wall:.2f} s async ({out['async']['ms_per_step']:.2f} ms a "
+          f"committed step; {w.replays} replays, {w.warmup_steps} warm-up "
+          f"steps, launches a replay {w.per_replay})")
+    if s_win.jit_cache_sizes() != {"decode_window": 1}:
+        fail(f"decode window built {s_win.jit_cache_sizes()}, not once")
+    ties = []
+    for p, r, ws in zip(prompts, r_win, want):
+        got = list(r.out_tokens)
+        if len(got) != ASYNC_MAX_NEW:
+            fail(f"async request {r.req_id}: {len(got)} tokens")
+        if got != ws:
+            k, gap = tie_gap(torch, model, params, p, got, ws)
+            print(f"  request {r.req_id} differs at token {k}: fp32 top-2 "
+                  f"gap {gap:.3e}")
+            ties.append({"req": r.req_id, "token": k, "gap": gap})
+            if not 0.0 <= gap < LOGIT_TIE:
+                fail("async tokens differ from the sync poll's (no tie)")
+    out["ties"] = ties
+    print(f"  (a) tokens: {len(prompts) - len(ties)} of {len(prompts)} "
+          f"requests bit-identical to the sync poll, {len(ties)} ties")
+
+    # (b) the same loop with every decode poll under the sync guard
+    r_b, steps, launches, wall = closed_loop(
+        torch, ops, s_win, prompts, ASYNC_MAX_NEW, guard=True)
+    if [list(r.out_tokens) for r in r_b] != [list(r.out_tokens)
+                                              for r in r_win]:
+        fail("(b) tokens differ from (a)'s async run")
+    if s_win.jit_cache_sizes() != {"decode_window": 1}:
+        fail("(b) the window was captured again")
+    check_launches("(b) async under set_sync_debug_mode('error')", steps,
+                   launches)
+    out["guarded"] = {"wall_s": wall, "device_steps": steps}
+    del s_win
+
+    # (c) sampled decode: one generator seed, twice
+    s_t = pool(True, temperature=0.7)
+    short = [p[:16] for p in prompts]
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator().manual_seed(7)
+        r_c, _, _, _ = closed_loop(torch, ops, s_t, short, ASYNC_MAX_NEW,
+                                   rng=gen)
+        runs.append([list(r.out_tokens) for r in r_c])
+    if runs[0] != runs[1]:
+        fail("(c) the same generator seed gave different samples")
+    if any(len(o) != ASYNC_MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                              for t in o) for o in runs[0]):
+        fail("(c) a sampled stream is short or out of the vocabulary")
+    distinct = len({t for o in runs[0] for t in o})
+    print(f"  (c) T 0.7: two runs from seed 7 identical, "
+          f"{sum(map(len, runs[0]))} tokens in range, {distinct} distinct")
+    out["sampled"] = {"tokens": sum(map(len, runs[0])), "distinct": distinct}
+    del s_t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the Poisson run, sync segmented and then async
+    out["poisson"] = {}
+    for label, kw in (("sync segmented", dict(segmented=True)),
+                      ("async", dict(async_decode=True,
+                                     readback_interval=ASYNC_R))):
+        st = serve_poisson("granite-3-2b", rate=16.0, n_requests=32,
+                           slots=ASYNC_SLOTS, prompt_len=64, max_new=128,
+                           threshold=0.5, paged=True, seed=0, params=params,
+                           device="cuda", quiet=True, **kw)
+        outs = st.pop("outputs")
+        if len(outs) != 32 or any(len(o) != 128 for o in outs):
+            fail(f"(d) {label}: not every request produced 128 tokens")
+        n = max(1, st["decode_steps"])
+        st["host_ms_per_decode_step"] = (st["host_ms"]
+                                         - st["prefill_ms"]) / n
+        st["readback_ms_per_decode_step"] = st["device_ms"] / n
+        print(f"  (d) {label}: {st['sustained_tok_s']:.2f} tok/s, p50 "
+              f"{st['p50_latency_s'] * 1e3:.0f} ms, p95 "
+              f"{st['p95_latency_s'] * 1e3:.0f} ms, makespan "
+              f"{st['makespan_s']:.2f} s; {st['decode_steps']} decode steps: "
+              f"host {st['host_ms_per_decode_step']:.2f} ms and readback "
+              f"wait {st['readback_ms_per_decode_step']:.2f} ms a step; "
+              f"prefill {st['prefill_ms'] / 1e3:.2f} s; builds "
+              f"{st['jit_cache_sizes']}")
+        out["poisson"][label] = st
+
+    # one decode step's host/device split, sync and windowed
+    out["profile"] = {}
+    for label, kw in (("sync segmented", dict(steps=8)),
+                      ("async", dict(steps=32, async_decode=True,
+                                     readback_interval=ASYNC_R))):
+        prof = profile_decode("granite-3-2b", slots=ASYNC_SLOTS,
+                              prompt_len=64, params=params, **kw)
+        print(f"  profile {label}: host {prof['wall_ms_per_step']:.2f} ms, "
+              f"device {prof['device_ms_per_step']:.3f} ms, busy "
+              f"{prof['device_busy_share'] * 100:.1f} %, "
+              f"{prof['cuda_kernels_per_step']:.0f} kernels a step, "
+              f"{prof['graph_replays']} graph replays")
+        out["profile"][label] = prof
+    return out
 
 
 TIER_TRACE = dict(rate=100.0, n_requests=8, base_slots=2, prompt_len=12,

@@ -2,12 +2,17 @@
 
     python -m repro_torch.launch.profile_decode [--arch granite-3-2b]
         [--slots 16] [--prompt-len 128] [--steps 8] [--json PATH]
+        [--async-decode [--readback-interval 8]]
 
 Fills every slot of a paged, segmented scheduler with a prompt, then
 profiles ``--steps`` decode polls with ``torch.profiler`` (CPU and CUDA
-activity).  Reports the host wall time per step, the device kernel time per
+activity).  With ``--async-decode`` the scheduler is monolithic and
+decodes in windows (one CUDA graph replayed R times a window): the
+profile covers ``ceil(steps / R)`` polls, each dispatching one window and
+committing the one before, and a final ``sync()``.  Reports the host wall
+time per step, the device kernel time per
 step (sum over CUDA kernels), the device busy share (kernel time / wall
-time), CUDA kernel launches per step, the kernels that take the most
+time), CUDA kernel launches per step, graph replays, the kernels that take the most
 device time, and each of the port's own kernels (``kernels/csrc``) with
 its time and launches per step.  Weights are random (seeded) unless the caller passes
 ``params``; ``arch`` is an arch name or a ``ModelConfig``; the card is
@@ -36,17 +41,24 @@ PORT_KERNELS = ("paged_gqa_partial", "paged_gqa_combine", "paged_mla_partial",
 
 def profile_decode(arch="granite-3-2b", slots: int = 16,
                    prompt_len: int = 128, steps: int = 8, seed: int = 0,
-                   params=None):
+                   params=None, async_decode: bool = False,
+                   readback_interval: int = 8):
     model = Model(resolve_config(arch), device="cuda")
     if params is None:
         params = model.init(seed)
-    warm = 2
-    max_new = warm + steps + 2
+    R = readback_interval if async_decode else 1
+    windows = -(-steps // R)
+    steps = windows * R
+    warm = 2 * R
+    max_new = warm + steps + R + 2
     max_len = prompt_len + max_new
     max_len += (-max_len) % 16
     sched = ContinuousBatchScheduler(
         model, params, SchedulerConfig(n_slots=slots, max_len=max_len,
-                                       paged=True, segmented=True),
+                                       paged=True,
+                                       segmented=not async_decode,
+                                       async_decode=async_decode,
+                                       readback_interval=R),
         device="cuda")
     rs = np.random.RandomState(seed)
     for _ in range(slots):
@@ -56,16 +68,23 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
     sched.prefill_poll()                      # every slot admitted at once
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    for _ in range(warm):
-        sched.step()
+    for _ in range(warm // R):
+        sched.poll()                          # async: the capture
+    sched.sync()
     torch.cuda.synchronize()
+    replays0 = sched._window.replays if async_decode else 0
+    steps0 = sched._step_idx
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            sched.step()                      # ends in the token readback
+        for _ in range(windows):
+            sched.poll()                      # ends in the token readback
+        sched.sync()                          # async: the last window's
         wall_s = time.perf_counter() - t0
+    if sched._step_idx - steps0 != steps:
+        raise RuntimeError(f"profiled {sched._step_idx - steps0} decode "
+                           f"steps, expected {steps}")
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in events)
@@ -74,7 +93,10 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
     port = [e for e in events if any(k in e.key for k in PORT_KERNELS)]
     return {
         "arch": model.cfg.name, "slots": slots, "prompt_len": prompt_len,
-        "steps": steps,
+        "steps": steps, "async_decode": async_decode,
+        "readback_interval": R,
+        "graph_replays": (sched._window.replays - replays0
+                          if async_decode else 0),
         "prefill_s_per_token_step": prefill_s / prompt_len,
         "wall_ms_per_step": wall_s / steps * 1e3,
         "device_ms_per_step": dev_us / steps / 1e3,
@@ -98,8 +120,12 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--json", default="")
+    ap.add_argument("--async-decode", action="store_true")
+    ap.add_argument("--readback-interval", type=int, default=8)
     args = ap.parse_args(argv)
-    out = profile_decode(args.arch, args.slots, args.prompt_len, args.steps)
+    out = profile_decode(args.arch, args.slots, args.prompt_len, args.steps,
+                         async_decode=args.async_decode,
+                         readback_interval=args.readback_interval)
     print(json.dumps(out, indent=1))
     if args.json:
         with open(args.json, "w") as f:

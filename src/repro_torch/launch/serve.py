@@ -6,13 +6,17 @@ pool, or the tiered cloud/edge/device cluster.
     python -m repro_torch.launch.serve --arch granite-3-2b-smoke \\
         --device cpu --tiered --scenario tier-outage --requests 8 \\
         --slots 2 --prompt-len 12 --max-new 8
+    python -m repro_torch.launch.serve --arch granite-3-2b --paged \\
+        --async-decode --readback-interval 8 --requests 32 --slots 16
 
 Requests arrive at Poisson times (seeded), prompts are uniform in
 ``[prompt_len // 4, prompt_len]`` tokens.  Single pool: ``prefix_share``
 of them begin with one common ``prefix_len``-token prefix (so the paged
 arena's prefix cache can hit); reports p50/p95 request latency and
 sustained tok/s on the host clock, around work that ends with the
-per-step token readback.  Tiered (``--tiered``): the admission router
+per-step token readback.  ``--async-decode`` decodes in windows of
+``--readback-interval`` monolithic steps (a CUDA graph on the card) with
+one token readback a window.  Tiered (``--tiered``): the admission router
 places each request on a tier pool; latencies are on the tiers' virtual
 clocks (modelled by the planners' tier profiles, not measured), and the
 wall time of the whole run is on the host clock.
@@ -70,12 +74,15 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
                   threshold: float = 0.5, prefill_chunk: int = 16,
                   paged: bool = False, page_size: int = 16,
                   segmented: bool = True, prefix_share: float = 0.0,
-                  prefix_len: int = 0, seed: int = 0, params=None,
+                  prefix_len: int = 0, async_decode: bool = False,
+                  readback_interval: int = 8, seed: int = 0, params=None,
                   device="cuda", quiet: bool = False):
     """Serve a seeded Poisson trace; returns a stats dict (latency
-    percentiles, sustained tok/s, exit statistics, prefix-cache hits).
-    ``arch`` is an arch name or a ``ModelConfig``.  ``params`` default to
-    ``Model(arch).init(seed)`` on ``device``."""
+    percentiles, sustained tok/s, host/device split, exit statistics,
+    prefix-cache hits, decode-window builds).  ``arch`` is an arch name or
+    a ``ModelConfig``.  ``params`` default to ``Model(arch).init(seed)``
+    on ``device``.  ``async_decode`` runs the window pipeline (and the
+    monolithic step: ``segmented`` is then ignored)."""
     cfg = resolve_config(arch)
     model = Model(cfg, device=device)
     if params is None:
@@ -88,7 +95,10 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
         SchedulerConfig(n_slots=slots, max_len=max_len,
                         prefill_chunk=min(prefill_chunk, max(1, prompt_len)),
                         exit_threshold=threshold, paged=paged,
-                        page_size=page_size, segmented=segmented),
+                        page_size=page_size,
+                        segmented=segmented and not async_decode,
+                        async_decode=async_decode,
+                        readback_interval=readback_interval),
         device=device)
 
     rs = np.random.RandomState(seed)
@@ -109,6 +119,7 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
                                            int(lengths[0])), max_new=1))
     sched.run()
     sched.reset_stats()
+    steps0 = sched._step_idx
 
     t0, makespan = _drive_open_loop(sched, reqs, arrivals)
     lat = np.asarray([r.t_done - (t0 + arrivals[j])
@@ -123,8 +134,13 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
         "p95_latency_s": float(np.percentile(lat, 95)),
         "sustained_tok_s": total_tokens / makespan,
         "tokens": total_tokens,
+        "async_decode": async_decode,
         "host_ms": sched.host_ms_total,
         "device_ms": sched.device_ms_total,
+        "prefill_ms": sched.prefill_ms_total,
+        "decode_steps": sched._step_idx - steps0,
+        "peak_tokens_in_flight": sched.peak_tokens_in_flight,
+        "jit_cache_sizes": sched.jit_cache_sizes(),
         "stage_calls": dict(sched.stage_calls),
         "exit_stats": sched.exit_stats(),
         "outputs": [list(r.out_tokens) for r in reqs],
@@ -135,11 +151,16 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
     if not quiet:
         print(f"arch={cfg.name} poisson rate={rate}/s requests={n_requests} "
               f"slots={slots}" + (" paged" if paged else "")
+              + (f" async(r={readback_interval})" if async_decode else "")
               + f" device={model.device}")
         print(f"  p50={stats['p50_latency_s']*1e3:.0f}ms "
               f"p95={stats['p95_latency_s']*1e3:.0f}ms "
               f"sustained={stats['sustained_tok_s']:.1f} tok/s "
               f"makespan={makespan:.2f}s")
+        print(f"  host={stats['host_ms']:.0f}ms "
+              f"device={stats['device_ms']:.0f}ms peak-in-flight="
+              f"{stats['peak_tokens_in_flight']} tokens; decode-window "
+              f"builds (must stay 1): {stats['jit_cache_sizes']}")
     return stats
 
 
@@ -169,8 +190,9 @@ def serve_tiered_poisson(arch, *, rate: float = 4.0,
                          prompt_len: int = 16, max_new: int = 32,
                          threshold: float = 0.5, prefill_chunk: int = 16,
                          scenario: str = "default", plan_arch: str = "",
-                         deadline: float = 0.0, seed: int = 0, params=None,
-                         device="cuda", quiet: bool = False):
+                         deadline: float = 0.0, async_decode: bool = False,
+                         readback_interval: int = 8, seed: int = 0,
+                         params=None, device="cuda", quiet: bool = False):
     """Poisson trace through the tiered cluster: the admission router sends
     each arrival to a cloud/edge/device pool (or a prefill/decode split)
     with the paradigm planners.  Arrivals and the reported latencies live
@@ -180,7 +202,8 @@ def serve_tiered_poisson(arch, *, rate: float = 4.0,
     default to ``Model(arch).init(seed)``; the plan config defaults to
     ``arch`` without ``-smoke`` (a ``ModelConfig`` plans itself).  Returns
     the cluster's stats dict plus ``wall_s``, ``tokens`` and each
-    request's outputs."""
+    request's outputs.  ``async_decode`` gives every tier pool the window
+    pipeline."""
     cfg = resolve_config(arch)
     model = Model(cfg, device=device)
     if params is None:
@@ -197,7 +220,9 @@ def serve_tiered_poisson(arch, *, rate: float = 4.0,
                           max_len=prompt_len + max_new,
                           prefill_chunk=min(prefill_chunk,
                                             max(1, prompt_len)),
-                          exit_threshold=threshold))
+                          exit_threshold=threshold,
+                          async_decode=async_decode,
+                          readback_interval=readback_interval))
     rs = np.random.RandomState(seed)
     arrivals, lengths = poisson_trace(rs, rate, n_requests, prompt_len)
     crs = [cluster.submit(rs.randint(0, cfg.vocab_size, int(n)),
@@ -209,12 +234,14 @@ def serve_tiered_poisson(arch, *, rate: float = 4.0,
     wall = time.time() - t0
     stats = cluster.stats()
     stats["wall_s"] = wall
+    stats["async_decode"] = async_decode
     stats["tokens"] = sum(len(cr.req.out_tokens) for cr in crs)
     stats["outputs"] = [list(cr.req.out_tokens) for cr in crs]
     if not quiet:
         print(f"arch={cfg.name} tiered poisson scenario={scenario} "
               f"rate={rate}/s requests={n_requests} (plan={plan_cfg.name}) "
-              f"device={model.device}")
+              + (f"async(r={readback_interval}) " if async_decode else "")
+              + f"device={model.device}")
         print(f"  routed: {stats['route_counts']} splits={stats['splits']} "
               f"deadline-hit={stats['deadline_hit_rate']:.2f}")
         print(f"  modelled virtual p50={stats['p50_latency_s']*1e3:.0f}ms "
@@ -243,6 +270,12 @@ def main(argv=None):
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--monolithic", action="store_true",
                     help="one decode_step per token instead of segments")
+    ap.add_argument("--async-decode", action="store_true",
+                    help="decode windows (monolithic steps, a CUDA graph "
+                         "on the card) with one token readback every "
+                         "--readback-interval steps")
+    ap.add_argument("--readback-interval", type=int, default=8,
+                    help="[async] decode steps per token readback")
     ap.add_argument("--prefix-share", type=float, default=0.0)
     ap.add_argument("--prefix-len", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
@@ -260,13 +293,17 @@ def main(argv=None):
             base_slots=args.slots, prompt_len=args.prompt_len,
             max_new=args.max_new, threshold=args.threshold,
             scenario=args.scenario, plan_arch=args.plan_arch,
-            deadline=args.deadline, seed=args.seed, device=args.device)
+            deadline=args.deadline, async_decode=args.async_decode,
+            readback_interval=args.readback_interval, seed=args.seed,
+            device=args.device)
         return
     serve_poisson(args.arch, rate=args.rate, n_requests=args.requests,
                   slots=args.slots, prompt_len=args.prompt_len,
                   max_new=args.max_new, threshold=args.threshold,
                   paged=args.paged, segmented=not args.monolithic,
                   prefix_share=args.prefix_share, prefix_len=args.prefix_len,
+                  async_decode=args.async_decode,
+                  readback_interval=args.readback_interval,
                   seed=args.seed, device=args.device)
 
 

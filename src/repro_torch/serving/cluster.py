@@ -39,8 +39,13 @@ in-flight slots migrate to surviving tiers without re-running prefill,
 queued and still-prefilling requests are re-routed and restart, and
 ``stats()`` reports the migration ledger and the resilience report.
 
-Not ported yet (``ValueError``): multi-model ``ModelGroup`` clusters, the
-speculative device/cloud pair (``spec_draft``) and ``async_decode`` pools.
+``async_decode`` runs every tier pool's decode as windows of
+``readback_interval`` steps (monolithic pools): tier clocks charge every
+committed step, and a pool's windows in flight are drained
+(``_sync_pool``) before a slot leaves it.
+
+Not ported yet (``ValueError``): multi-model ``ModelGroup`` clusters and
+the speculative device/cloud pair (``spec_draft``).
 """
 from __future__ import annotations
 
@@ -84,7 +89,11 @@ class ClusterConfig:
     paged: bool = False
     page_size: int = 16
     spec_draft: str = ""               # not ported: rejected
-    async_decode: bool = False         # not ported: rejected
+    # decode windows in every tier pool (scheduler ``async_decode``):
+    # tier clocks charge per committed step, migrations drain in-flight
+    # windows first; forces monolithic pools
+    async_decode: bool = False
+    readback_interval: int = 8
 
     def __post_init__(self):
         if self.kv_handoff not in KV_HANDOFFS:
@@ -92,9 +101,6 @@ class ClusterConfig:
         if self.spec_draft:
             raise ValueError("repro_torch: the speculative device/cloud "
                              "pair (spec_draft) is not ported yet")
-        if self.async_decode:
-            raise ValueError("repro_torch: async_decode tier pools are not "
-                             "ported yet")
 
 
 @dataclasses.dataclass
@@ -240,7 +246,9 @@ class TieredServingCluster:
             prefill_chunk=cfg.prefill_chunk,
             exit_threshold=cfg.exit_threshold,
             max_prefill_chunks_per_step=cfg.max_prefill_chunks_per_step,
-            paged=cfg.paged, page_size=cfg.page_size)
+            paged=cfg.paged, page_size=cfg.page_size,
+            segmented=not cfg.async_decode, async_decode=cfg.async_decode,
+            readback_interval=cfg.readback_interval)
         self.tiers: Dict[str, TierRuntime] = {}
         for name, uplink in (("device", None), ("edge", sc.dev_edge),
                              ("cloud", sc.dev_cloud)):
@@ -389,6 +397,36 @@ class TieredServingCluster:
             cr.pf_booked_until, cr.pf_booked_released0)
         cr.pf_booked_slot = -1
 
+    def _stamp_done(self, tr: TierRuntime, r: Request):
+        """A request completed in ``tr``'s pool: stamp the tier clock plus
+        the downlink and release its bookings."""
+        cr = self._cr_of[id(r)]
+        down = (tr.uplink.tx_time(len(r.out_tokens) * 4.0)
+                if tr.uplink else 0.0)
+        cr.t_done_v = tr.vclock + down
+        cr.final_tier = tr.name
+        self._release_pf_booking(cr)   # EOS at admission on the pf tier
+        self._reconcile_booking(self.tiers[cr.booked_tier or tr.name], cr)
+
+    def _sync_pool(self, tr: TierRuntime):
+        """Drain a tier pool's async decode windows before a slot leaves
+        it (split handoff, outage drain): commit every window in flight,
+        charge the tier clock for the drained steps (windows run full
+        depth), and stamp the completions the drain surfaced; no later
+        poll reports them.  No-op for sync pools."""
+        if not tr.sched.cfg.async_decode:
+            return
+        steps0, toks0 = tr.sched._step_idx, tr.sched.tokens_served
+        done = tr.sched.sync()
+        steps = tr.sched._step_idx - steps0
+        cost = tr.tok_cost * steps
+        tr.vclock += cost
+        tr.busy += cost
+        tr.decode_steps += steps
+        tr.slot_tokens += tr.sched.tokens_served - toks0
+        for r in done:
+            self._stamp_done(tr, r)
+
     def _poll_tier(self, tr: TierRuntime) -> bool:
         if tr.dead:
             return False
@@ -416,27 +454,26 @@ class TieredServingCluster:
             tr.prefill_rows = []
         if rep.decode_stepped:
             # the truncated step cost: the layer-weighted share of the stack
-            # the segment pipeline dispatched
+            # the segment pipeline dispatched, for every step committed
+            # (an async readback commits a whole window)
             depth = rep.decode_depth_frac \
                 if rep.decode_depth_frac > 0.0 else 1.0
-            cost = tr.tok_cost * depth
+            steps = rep.decode_steps or 1
+            cost = tr.tok_cost * depth * steps
             tr.vclock += cost
             tr.busy += cost
-            tr.decode_steps += 1
-            tr.slot_tokens += rep.n_active
+            tr.decode_steps += steps
+            tr.slot_tokens += rep.n_active * steps
         for r in rep.completed:
-            cr = self._cr_of[id(r)]
-            down = (tr.uplink.tx_time(len(r.out_tokens) * 4.0)
-                    if tr.uplink else 0.0)
-            cr.t_done_v = tr.vclock + down
-            cr.final_tier = tr.name
-            self._release_pf_booking(cr)   # EOS at admission on the pf tier
-            self._reconcile_booking(self.tiers[cr.booked_tier or tr.name],
-                                    cr)
+            self._stamp_done(tr, r)
         # splits whose prefill just landed leave for their decode tier (the
         # poll above ran this tier's decode step: a clean token boundary);
         # if the decode tier died meanwhile, fail over to a survivor,
-        # possibly this tier, where the slot simply stays
+        # possibly this tier, where the slot simply stays.  Async pools
+        # drain their windows first: the export must see committed state
+        if any(cr.decision.is_split and cr.decision.tier != tr.name
+               and not cr.req.done for cr in went_live):
+            self._sync_pool(tr)
         for cr in went_live:
             self._release_pf_booking(cr)   # prompt replay is over
             if (cr.decision.is_split and cr.decision.tier != tr.name
@@ -549,6 +586,9 @@ class TieredServingCluster:
         tr.dead = True
         self.dead.add(tr.name)
         now = self.virtual_now()
+        # the dying pool's windows in flight decoded before the outage:
+        # commit them, so the exports below ship committed state
+        self._sync_pool(tr)
         redo = list(tr.waiting)
         tr.waiting = []
         for r in tr.sched.drain_queue() + tr.sched.cancel_pending():
@@ -650,9 +690,8 @@ class TieredServingCluster:
         latency and utilization here is on the virtual clocks (modelled by
         the planners' tier profiles); ``host_ms``/``device_ms`` are the
         pools' measured wall-time split.  ``stage_calls`` counts each
-        pool's segment, probe and finalize dispatches (the reference
-        reports jit cache sizes there, which eager torch has no analogue
-        of)."""
+        pool's segment, probe and finalize dispatches; ``jit_cache_sizes``
+        each pool's decode-window builds (async pools)."""
         done = [cr for cr in self.requests if cr.done]
         lats = [cr.latency for cr in done]
         per_tier = {}
@@ -672,6 +711,7 @@ class TieredServingCluster:
                 "p95_latency_s": _pctl(tl, 95),
                 "host_ms": tr.sched.host_ms_total,
                 "device_ms": tr.sched.device_ms_total,
+                "peak_tokens_in_flight": tr.sched.peak_tokens_in_flight,
                 "stage_calls": dict(tr.sched.stage_calls),
             }
         out: Dict[str, object] = {
@@ -685,6 +725,8 @@ class TieredServingCluster:
                                   / len(done) if done else 1.0),
             "migration": dict(self.migration_stats),
             "tiers": per_tier,
+            "jit_cache_sizes": {n: tr.sched.jit_cache_sizes()
+                                for n, tr in self.tiers.items()},
         }
         if self.dead or self.scenario.outages:
             # survey §5 resilience accounting: expected accuracy with the

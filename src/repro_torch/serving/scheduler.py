@@ -20,6 +20,15 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
   the host stops dispatching segments once no active slot is alive.
   ``segmented=False`` runs the monolithic ``decode_step`` instead.
 * **Device exit counters**, flushed to the host every ``flush_every`` steps.
+* **Sampled decode** (``temperature > 0`` and an rng from ``set_rng`` or
+  ``run(rng=)``; greedy otherwise): Gumbel-max draws from a counter-based
+  hash of (key, tick, slot, token) (``serving/sampling.py``).
+* **Async decode windows** (``async_decode``, monolithic only): decode runs
+  as windows of ``readback_interval`` steps with token feedback and
+  eos/max_new termination on the device (``serving/window.py``: one CUDA
+  graph of one step replayed R times on the card); ``poll()`` dispatches
+  window N+1 from the device carry before it reads window N's token ring
+  back, and replays that ring through the sync commit rules.
 * **Slot migration**: ``export_slot`` lifts one slot's serving state (cache
   rows truncated to the written prefix, or the slot's pages in paged
   arenas, plus position, pending token and request) out of the arena as a
@@ -31,14 +40,15 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
   primitive behind the tiered cluster's prefill/decode splits and its
   failover when a tier dies.
 
-Host/device traffic per decode step: one upload of (tokens, positions,
-active), one upload of the block table when it changed, one read per exit
-probe (the intended short-circuit), and one readback of the step's tokens.
-A migration moves each exported leaf to the host once and back once.
+Host/device traffic per sync decode step: one upload of (tokens,
+positions, active), one upload of the block table when it changed (into
+one persistent buffer), one read per exit probe (the intended
+short-circuit), and one readback of the step's tokens.  An async window
+uploads nothing when it chains from the carry (a fresh dispatch writes the
+carry through pinned staging), and reads its [B, R] ring back once.  A
+migration moves each exported leaf to the host once and back once.
 
-Not ported yet (``SchedulerConfig`` rejects them): ``async_decode``,
-``temperature > 0``; speculative ``propose``/``verify`` has no counterpart
-here yet.
+Not ported yet: speculative ``propose``/``verify``.
 
 Typical use::
 
@@ -63,10 +73,12 @@ from repro_torch.core.early_exit import exit_stats_dict, first_exit_index
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import PagedKV
 from repro_torch.models.common import resolve_device, tree_leaves, tree_map
+from repro_torch.serving import sampling
 from repro_torch.serving.paged import (PageAllocator, RadixPrefixCache,
                                        chunk_digests)
+from repro_torch.serving.window import DecodeWindow, RingHandle
 
-FLUSH_EVERY = 32                       # decode steps between counter reads
+FIRST_TICK = 1_000_003                 # tick base of first-token draws
 
 
 @dataclasses.dataclass
@@ -93,19 +105,27 @@ class SchedulerConfig:
     max_len: int = 256                 # per-slot logical sequence capacity
     prefill_chunk: int = 16            # tokens per prefill round
     exit_threshold: float = 0.5
-    temperature: float = 0.0           # 0 = greedy (the only ported mode)
+    temperature: float = 0.0           # 0 = greedy
+    flush_every: int = 32              # decode steps between counter reads
     max_prefill_chunks_per_step: int = 0   # 0 = whole prompt in one poll
     segmented: bool = True
     paged: bool = False                # pool of n_slots full rows of pages
     page_size: int = 16
-    async_decode: bool = False         # not ported: rejected
+    # decode windows of readback_interval monolithic steps, read back once
+    # each (serving/window.py); the segmented step's per-probe host
+    # short-circuit would be a sync point inside a window
+    async_decode: bool = False
+    readback_interval: int = 8
 
     def __post_init__(self):
         if self.async_decode:
-            raise ValueError("repro_torch: async_decode is not ported yet")
-        if self.temperature > 0.0:
-            raise ValueError("repro_torch: sampled decode (temperature > 0) "
-                             "is not ported yet; use greedy decode")
+            if self.segmented:
+                raise ValueError(
+                    "async_decode requires segmented=False: the segment "
+                    "pipeline's per-probe host short-circuit is a sync "
+                    "point inside the zero-readback decode window")
+            if self.readback_interval < 1:
+                raise ValueError("readback_interval must be >= 1")
 
 
 @dataclasses.dataclass
@@ -120,14 +140,20 @@ class StepReport:
     n_active: int = 0
     decode_segments_run: int = 0
     decode_depth_frac: float = 0.0
+    # decode steps committed this poll (a whole window's at an async
+    # readback, 1 for a stepped sync poll) and windows dispatched: a
+    # dispatch-only poll did device work though nothing committed yet
+    decode_steps: int = 0
+    decode_dispatched: int = 0
     host_ms: float = 0.0               # host time of the poll
     device_ms: float = 0.0             # time blocked in the token readback
+    tokens_in_flight: int = 0          # in dispatched, unread windows
     completed: List[Request] = dataclasses.field(default_factory=list)
 
     @property
     def worked(self) -> bool:
         return bool(self.admitted) or self.prefill_chunks > 0 \
-            or self.decode_stepped
+            or self.decode_stepped or self.decode_dispatched > 0
 
 
 @dataclasses.dataclass
@@ -167,6 +193,15 @@ class SlotSnapshot:
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """A dispatched, unread decode window: its ring, the mask of slots in
+    its chain, and how many of them were alive at dispatch."""
+    ring: RingHandle
+    part: Any                          # np [n_slots] bool
+    alive_hint: int
 
 
 @dataclasses.dataclass
@@ -224,9 +259,12 @@ class ContinuousBatchScheduler:
             # every cache leaf of the ported kinds is pool-backed, so the
             # shared pages fully determine the replay a prefix hit skips
             self.prefix_cache = RadixPrefixCache(self.page_alloc)
-            # host block table, sentinel = n_pages; uploaded when dirty
+            # host block table, sentinel = n_pages; written into one
+            # persistent device buffer when dirty (a decode window's graph
+            # keeps its pointer)
             self._tbl = np.full((b, self._pps), n_pages, np.int32)
-            self._tbl_device = None
+            self._tbl_buf = torch.empty((b, self._pps), dtype=torch.int32,
+                                        device=self.device)
             self._tbl_dirty = True
             self._slot_digests: List[List[bytes]] = [[] for _ in range(b)]
 
@@ -250,10 +288,29 @@ class ContinuousBatchScheduler:
         self._dev_s = 0.0
         self.host_ms_total = 0.0
         self.device_ms_total = 0.0
+        self.prefill_ms_total = 0.0        # wall time of the polls' prefill
+        # sampling: per-run tick counters, reset by set_rng / run() so the
+        # same (requests, rng) reproduce the same samples
+        self._rng: Optional[torch.Generator] = None
+        self._rng_tick = 0
+        self._admit_tick = 0
+        # async decode: FIFO of dispatched, unread windows; the carry is
+        # valid while host state equals the window's device carry
+        # (admission, import and sync invalidate it)
+        self._win_q: deque = deque()
+        self._carry_valid = False
+        self._window: Optional[DecodeWindow] = None
+        self.peak_tokens_in_flight = 0
 
         dev = self.device
         self._counters = torch.zeros(self._n_exits + 1, dtype=torch.int32,
                                      device=dev)
+        self._key_dev = torch.zeros(2, dtype=torch.int64, device=dev)
+        # hashed (slot, token) counters of the sampling noise (shapes only)
+        self._sample_ctr = None
+        if cfg.temperature > 0.0:
+            self._sample_ctr = sampling.counter_rows(
+                torch.arange(b, dtype=torch.int64, device=dev), self._vocab)
         self._alive0 = torch.ones(b, dtype=torch.bool, device=dev)
         self._first_exit0 = torch.full((b,), self._n_exits,
                                        dtype=torch.int64, device=dev)
@@ -286,13 +343,25 @@ class ContinuousBatchScheduler:
     def _upload(self, arr: np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _put(self, dst, arr):
+        """Write a host array into the persistent device buffer ``dst`` in
+        place.  On the card the bytes go through pinned staging with a
+        ``non_blocking`` copy, which does not wait for the stream (a
+        pageable copy would wait for every window in flight); the caching
+        host allocator keeps the staging block until the copy has run."""
+        src = torch.from_numpy(np.ascontiguousarray(arr)).to(dst.dtype)
+        if dst.device.type == "cuda":
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+
     def _tbl_dev(self):
-        """Device copy of the block table, re-uploaded only when a host-side
+        """The device block table, rewritten in place only when a host-side
         allocation or release changed it."""
         if self._tbl_dirty:
-            self._tbl_device = self._upload(self._tbl)
+            self._put(self._tbl_buf, self._tbl)
             self._tbl_dirty = False
-        return self._tbl_device
+        return self._tbl_buf
 
     # ------------------------------------------------------------------
     # public API
@@ -311,6 +380,18 @@ class ContinuousBatchScheduler:
         self.n_submitted += 1
         self.queue.append(req)
 
+    def set_rng(self, rng: Optional[torch.Generator]):
+        """Install a sampling generator (None = greedy) and reset the tick
+        counters, so the same (requests, generator seed) reproduce the same
+        samples.  One 64-bit key is drawn from ``rng``; with
+        ``temperature > 0`` every draw hashes it with its tick."""
+        self._rng = rng
+        self._rng_tick = 0
+        self._admit_tick = 0
+        if rng is not None:
+            self._put(self._key_dev, np.asarray(sampling.draw_key(rng),
+                                                np.int64))
+
     @property
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.active.any()) \
@@ -323,12 +404,17 @@ class ContinuousBatchScheduler:
     def poll(self) -> StepReport:
         """One scheduler round: begin an admission if slots are free,
         advance at most ``max_prefill_chunks_per_step`` prefill chunks, then
-        run one pool decode step."""
+        run one pool decode step.  With ``async_decode`` the decode half is
+        the window pipeline (``_poll_async``)."""
+        if self.cfg.async_decode:
+            return self._poll_async()
         t_poll = time.perf_counter()
         self._dev_s = 0.0
         rep = self.prefill_poll()
+        self.prefill_ms_total += (time.perf_counter() - t_poll) * 1e3
         done_before = len(self.completed)
         rep.decode_stepped = self.step()
+        rep.decode_steps = 1 if rep.decode_stepped else 0
         rep.n_active = self._last_step_active
         if rep.decode_stepped:
             rep.decode_segments_run = self._last_segments_run
@@ -351,8 +437,10 @@ class ContinuousBatchScheduler:
         rep.completed = self.completed[done_before:]
         return rep
 
-    def run(self):
-        """Drain the queue and all slots to completion."""
+    def run(self, rng: Optional[torch.Generator] = None):
+        """Drain the queue and all slots to completion; greedy unless an
+        ``rng`` is given (and ``temperature > 0``)."""
+        self.set_rng(rng)
         while self.has_work:
             if not self.poll().worked:  # pragma: no cover - defensive
                 break
@@ -502,7 +590,7 @@ class ContinuousBatchScheduler:
                     self.prefix_cache.insert(
                         self._slot_digests[slot][:n_full], r.tokens,
                         [int(pg) for pg in self._tbl[slot, :n_full]])
-        first = torch.argmax(p.last, dim=-1).cpu().numpy()  # one readback
+        first = self._first_tokens(p)              # one readback
         for slot, r in zip(p.slots, p.reqs):
             tok0 = int(first[slot])
             r.out_tokens.append(tok0)
@@ -515,18 +603,55 @@ class ContinuousBatchScheduler:
                 self._finish(slot)
         self._pending = None
         rep.prefill_done = True
+        # new live slots: the next decode window must be a fresh dispatch
+        self._carry_valid = False
+
+    def _sampling(self) -> bool:
+        """Sampled decode needs both temperature > 0 and a generator."""
+        return self.cfg.temperature > 0.0 and self._rng is not None
+
+    def _first_tokens(self, p: _PendingPrefill) -> np.ndarray:
+        """Each admitted row's first token from its last prompt logits:
+        greedy, or (sampling) a draw at tick ``FIRST_TICK + admit_tick``,
+        one tick per admitted request in slot order, as the reference's
+        ``_sample_first``.  Returns [n_slots] (rows not admitted: 0)."""
+        if not self._sampling():
+            return torch.argmax(p.last, dim=-1).cpu().numpy()
+        ticks = []
+        for _ in p.slots:
+            self._admit_tick += 1
+            ticks.append(FIRST_TICK + self._admit_tick)
+        rows = self._upload(np.asarray(p.slots, np.int64))
+        tok = sampling.sample_rows(
+            p.last.index_select(0, rows), self.cfg.temperature,
+            self._key_dev, self._upload(np.asarray(ticks, np.int64)))
+        first = np.zeros(self.cfg.n_slots, np.int64)
+        first[p.slots] = tok.cpu().numpy()
+        return first
 
     # ------------------------------------------------------------------
     # decode: one fixed-shape step over the whole pool
     # ------------------------------------------------------------------
-    def _count_exits(self, logits, first_exit, active):
-        """Greedy tokens + first-exit histogram update (shared by the
-        monolithic step and the segmented finalize)."""
+    def _count_exits(self, logits, first_exit, active, tick=None):
+        """Greedy tokens, the sampled draw at ``tick`` (None: no draw) and
+        the first-exit histogram update, shared by the monolithic step, the
+        segmented finalize and the decode window."""
         greedy = torch.argmax(logits, dim=-1)
+        sampled = None
+        if tick is not None:
+            sampled = sampling.sample(logits, self.cfg.temperature,
+                                      self._key_dev, tick, self._sample_ctr)
         hist = torch.nn.functional.one_hot(first_exit, self._n_exits + 1)
         self._counters += torch.sum(hist * active[:, None], dim=0,
                                     dtype=torch.int32)
-        return greedy
+        return greedy, sampled
+
+    def _step_tick(self):
+        """The sync step's draw tick on the device (None: greedy)."""
+        if not self._sampling():
+            return None
+        return torch.full((1,), self._rng_tick, dtype=torch.int64,
+                          device=self.device)
 
     def _probe(self, exit_index: int, x, alive, first_exit, thr: float):
         """Exit decision after a segment: fused entropy (no [B,V] logits),
@@ -535,7 +660,7 @@ class ContinuousBatchScheduler:
         hit = alive & (ent / float(np.log(float(self._vocab))) < thr)
         return alive & ~hit, first_exit.masked_fill(hit, exit_index)
 
-    def _step_segmented(self, tokens, positions, active_d, thr):
+    def _step_segmented(self, tokens, positions, active_d, thr, tick):
         """One decode step through the segment pipeline: run a segment,
         probe its exit head, drop exited slots from ``alive``, and stop
         once no *active* slot is alive (the host short-circuit where early
@@ -574,13 +699,12 @@ class ContinuousBatchScheduler:
             if not bool((alive & active_d).any()):
                 break
         logits = model.finalize_decode(self.params, x)
-        greedy = self._count_exits(logits, first_exit, active_d)
         self.stage_calls["finalize"] += 1
         self._last_segments_run = segs_run
         self._last_depth_frac = layers_run / max(1, model.cfg.num_layers)
-        return greedy
+        return self._count_exits(logits, first_exit, active_d, tick)
 
-    def _step_monolithic(self, tokens, positions, active_d, thr):
+    def _step_monolithic(self, tokens, positions, active_d, thr, tick):
         paged = (PagedKV(self._tbl_dev(), active_d)
                  if self.page_alloc is not None else None)
         logits, ee, self.cache = self.model.decode_step(
@@ -592,27 +716,31 @@ class ContinuousBatchScheduler:
                               device=self.device)
         self._last_segments_run = len(self._segments)
         self._last_depth_frac = 1.0
-        return self._count_exits(logits, idx, active_d)
+        return self._count_exits(logits, idx, active_d, tick)
 
     def step(self) -> bool:
+        if self._win_q:
+            raise RuntimeError("step(): async decode windows in flight - "
+                               "sync() first")
         self._last_step_active = int(self.active.sum())
         if not self.active.any():
             return False
         thr = self.cfg.exit_threshold
+        tick = self._step_tick()
         host = np.stack([self.current_tok.astype(np.int64), self.positions,
                          self.active.astype(np.int64)])
         dev = self._upload(host)                   # one upload per step
         tokens = dev[0][:, None]
         positions = dev[1].to(torch.int32)
         active_d = dev[2].bool()
-        if self.cfg.segmented:
-            greedy = self._step_segmented(tokens, positions, active_d, thr)
-        else:
-            greedy = self._step_monolithic(tokens, positions, active_d, thr)
+        step = (self._step_segmented if self.cfg.segmented
+                else self._step_monolithic)
+        greedy, sampled = step(tokens, positions, active_d, thr, tick)
         t0 = time.perf_counter()
-        nxt = greedy.cpu().numpy()                 # one readback per step
-        self._dev_s += time.perf_counter() - t0
+        nxt = (greedy if sampled is None else sampled).cpu().numpy()
+        self._dev_s += time.perf_counter() - t0    # one readback per step
         self._step_idx += 1
+        self._rng_tick += 1
         n_active = int(self.active.sum())
         self.tokens_served += n_active
         self.depth_weighted_tokens += self._last_depth_frac * n_active
@@ -628,9 +756,166 @@ class ContinuousBatchScheduler:
             self.current_tok[slot] = tok
             if r.eos_id is not None and tok == r.eos_id:
                 self._finish(slot)
-        if self._step_idx % FLUSH_EVERY == 0:
-            self.flush_counters()
+        self._maybe_flush()
         return True
+
+    # ------------------------------------------------------------------
+    # async decode (cfg.async_decode): the double-buffered window pipeline
+    # ------------------------------------------------------------------
+    def _poll_async(self) -> StepReport:
+        """One overlapped round: admission and prefill as usual, then, if
+        a window is in flight, dispatch window N+1 from the device carry
+        before blocking on window N's ring (the card computes N+1 while
+        the host commits N), else dispatch a fresh window from host state.
+        One ring readback per committed window."""
+        t_poll = time.perf_counter()
+        self._dev_s = 0.0
+        rep = self.prefill_poll()
+        self.prefill_ms_total += (time.perf_counter() - t_poll) * 1e3
+        done_before = len(self.completed)
+        if self._win_q:
+            if self._carry_valid:
+                self._dispatch_window(from_carry=True)
+                rep.decode_dispatched += 1
+            win = self._win_q.popleft()
+            self._commit_window(self._read_ring(win), win.part, rep)
+        elif self.active.any():
+            self._dispatch_window(from_carry=False)
+            rep.decode_dispatched += 1
+        rep.completed += self.completed[done_before:]
+        rep.tokens_in_flight = self.tokens_in_flight
+        self.peak_tokens_in_flight = max(self.peak_tokens_in_flight,
+                                         rep.tokens_in_flight)
+        rep.device_ms = self._dev_s * 1e3
+        rep.host_ms = (time.perf_counter() - t_poll) * 1e3 - rep.device_ms
+        self.host_ms_total += rep.host_ms
+        self.device_ms_total += rep.device_ms
+        return rep
+
+    def _read_ring(self, win: _InFlight) -> np.ndarray:
+        """The one readback of a window: wait for its ring copy."""
+        t0 = time.perf_counter()
+        ring = win.ring.read()
+        self._dev_s += time.perf_counter() - t0
+        return ring
+
+    def _eos_host(self) -> np.ndarray:
+        """Per-slot eos for the window (-1 = none: token ids are
+        non-negative, so the device compare never fires)."""
+        eos = np.full(self.cfg.n_slots, -1, np.int64)
+        for slot in np.nonzero(self.active)[0]:
+            r = self.slot_req[slot]
+            if r.eos_id is not None:
+                eos[slot] = r.eos_id
+        return eos
+
+    @property
+    def tokens_in_flight(self) -> int:
+        """Upper bound on tokens inside dispatched, unread windows (slots
+        alive at dispatch x window length, per queued window)."""
+        return sum(w.alive_hint * self.cfg.readback_interval
+                   for w in self._win_q)
+
+    def _dispatch_window(self, *, from_carry: bool):
+        """Enqueue one decode window.  ``from_carry`` chains the previous
+        window's device carry (cur, pos, alive, budget): nothing is
+        uploaded, the chain and its slot mask stay the same.  A fresh
+        dispatch writes host state into the carry and opens a chain whose
+        mask snapshots ``active`` (slots admitted later join at the next
+        fresh dispatch, never mid-chain).  The block table is rewritten
+        only when it changed; the stream orders that write after every
+        window already enqueued."""
+        w = self._window
+        if w is None:
+            w = self._window = DecodeWindow(self)
+        thr = self.cfg.exit_threshold
+        if self.page_alloc is not None:
+            self._tbl_dev()
+        if from_carry:
+            if not (self._carry_valid and self._win_q):
+                raise RuntimeError("no valid decode carry to chain from")
+            part = self._win_q[-1].part
+        else:
+            budget = np.zeros(self.cfg.n_slots, np.int64)
+            for slot in np.nonzero(self.active)[0]:
+                budget[slot] = (self.slot_req[slot].max_new
+                                - self.steps_taken[slot])
+            host = (self.current_tok, self.positions, self.active, budget,
+                    self._eos_host(), self._rng_tick, self._rng is not None)
+            if w.needs_build(thr):
+                w.load(*host)
+                w.prepare(thr)
+            w.load(*host)
+            part = self.active.copy()
+        ring = w.run()
+        self._carry_valid = True
+        self._rng_tick += self.cfg.readback_interval
+        self._win_q.append(_InFlight(ring, part,
+                                     int((self.active & part).sum())))
+
+    def _commit_window(self, ring: np.ndarray, part: np.ndarray,
+                       rep: StepReport):
+        """Replay one window's token ring through the sync commit rules of
+        ``step()`` (same order, the same max_new trailing-sample discard,
+        the same eos handling), so host state after the replay equals R
+        sync polls'.  ``part`` masks the replay to the window's chain:
+        slots admitted while it was in flight have no ring tokens.
+
+        A chain whose slots all finished leaves any queued successor
+        window dead (no live row: no counts, no page writes): it is
+        dropped, and the carry with it, without a readback."""
+        R = self.cfg.readback_interval
+        replayed = 0
+        for j in range(R):
+            mask = self.active & part
+            if not mask.any():
+                break
+            n_active = int(mask.sum())
+            self.tokens_served += n_active
+            self.depth_weighted_tokens += 1.0 * n_active
+            rep.n_active = n_active
+            for slot in np.nonzero(mask)[0]:
+                r = self.slot_req[slot]
+                self.steps_taken[slot] += 1
+                self.positions[slot] += 1
+                if self.steps_taken[slot] >= r.max_new:
+                    self._finish(slot)  # trailing sample discarded; the
+                    part[slot] = False  # slot leaves the chain for good
+                    continue
+                tok = int(ring[slot, j])
+                r.out_tokens.append(tok)
+                self.current_tok[slot] = tok
+                if r.eos_id is not None and tok == r.eos_id:
+                    self._finish(slot)
+                    part[slot] = False
+            self._step_idx += 1
+            replayed += 1
+        if replayed:
+            self._last_segments_run = len(self._segments)
+            self._last_depth_frac = 1.0
+            rep.decode_stepped = True
+            rep.decode_steps += replayed
+            rep.decode_segments_run = self._last_segments_run
+            rep.decode_depth_frac = self._last_depth_frac
+        if not (self.active & part).any():
+            self._win_q.clear()
+            self._carry_valid = False
+        self._maybe_flush(steps=max(1, replayed))
+
+    def sync(self) -> List[Request]:
+        """Drain the pipeline: read back and commit every window in
+        flight and invalidate the carry.  Returns the requests the drain
+        completed (no later ``poll()`` reports them).  No-op on sync
+        schedulers; ``export_slot``, ``release_slot`` and ``step()`` need
+        it first, and ``reset_stats`` runs it."""
+        n0 = len(self.completed)
+        while self._win_q:
+            win = self._win_q.popleft()
+            if not (self.active & win.part).any():
+                continue                # dead chain: no readback needed
+            self._commit_window(self._read_ring(win), win.part, StepReport())
+        self._carry_valid = False
+        return self.completed[n0:]
 
     def _release_slot_pages(self, slot: int):
         """Drop the slot's block-table references; pages the prefix tree
@@ -757,6 +1042,9 @@ class ContinuousBatchScheduler:
         ceil(position / P)`` and ``skip`` the leading prompt pages whose
         digests are in ``skip_keys`` (the destination's ``prefix_keys()``).
         """
+        if self._win_q:
+            raise RuntimeError("export_slot: async decode windows in "
+                               "flight - sync() first")
         r = self.slot_req[slot]
         if r is None or not self.active[slot]:
             raise ValueError(f"export_slot: slot {slot} is not active")
@@ -899,6 +1187,7 @@ class ContinuousBatchScheduler:
         self.steps_taken[slot] = snap.steps_taken
         self.active[slot] = True
         self.n_imported += 1
+        self._carry_valid = False      # a new live slot: fresh dispatch next
         return slot
 
     def free_slots(self) -> List[int]:
@@ -916,6 +1205,9 @@ class ContinuousBatchScheduler:
         path: the request continues elsewhere from its snapshot).  The
         cache rows are left stale; an admission or ``import_slot``
         overwrites them before the slot is read again."""
+        if self._win_q:
+            raise RuntimeError("release_slot: async decode windows in "
+                               "flight - sync() first")
         r = self.slot_req[slot]
         if r is None:
             raise ValueError(f"release_slot: slot {slot} is empty")
@@ -948,6 +1240,13 @@ class ContinuousBatchScheduler:
     # ------------------------------------------------------------------
     # exit statistics
     # ------------------------------------------------------------------
+    def _maybe_flush(self, steps: int = 1):
+        """Flush the counters iff ``_step_idx`` crossed a multiple of
+        ``flush_every`` within the last ``steps`` decode steps (a window
+        commit lands R at once; ``steps=1`` is the per-step check)."""
+        if (self._step_idx % self.cfg.flush_every) < steps:
+            self.flush_counters()
+
     def flush_counters(self) -> np.ndarray:
         """Read the cumulative device exit histogram back to the host."""
         self.exit_counts = self._counters.cpu().numpy().astype(np.int64)
@@ -955,7 +1254,10 @@ class ContinuousBatchScheduler:
 
     def reset_stats(self):
         """Zero served-token accounting and exit counters (e.g. after a
-        warm-up request, so reports cover only the real trace)."""
+        warm-up request, so reports cover only the real trace).  Drains the
+        async windows in flight first: their tokens belong before the
+        reset."""
+        self.sync()
         self._counters.zero_()
         self.exit_counts = np.zeros(self._n_exits + 1, np.int64)
         self.tokens_served = 0
@@ -964,6 +1266,8 @@ class ContinuousBatchScheduler:
             self.stage_calls[name] = 0
         self.host_ms_total = 0.0
         self.device_ms_total = 0.0
+        self.prefill_ms_total = 0.0
+        self.peak_tokens_in_flight = 0
         self.completed.clear()
 
     def measured_depth_fraction(self) -> float:
@@ -977,3 +1281,12 @@ class ContinuousBatchScheduler:
         st = exit_stats_dict(self.exit_counts, self.tokens_served)
         st["measured_depth"] = self.measured_depth_fraction()
         return st
+
+    def jit_cache_sizes(self) -> Dict[str, int]:
+        """Builds of the compiled decode stages: the async window's CUDA
+        graph captures (its eager builds on the CPU), which must stay 1
+        per scheduler.  Eager stages have no entry."""
+        if not self.cfg.async_decode:
+            return {}
+        return {"decode_window": 0 if self._window is None
+                else self._window.captures}

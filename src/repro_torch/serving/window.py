@@ -1,0 +1,193 @@
+"""Async decode windows: R monolithic decode steps with sampling, token
+feedback and eos/max_new termination on the device, read back once.
+
+The port of the reference's ``_make_decode_window`` (a jitted
+``lax.scan`` of ``readback_interval`` steps).  PyTorch runs eagerly, so on
+the card the scan becomes one CUDA graph of one step, captured once and
+replayed R times; on the CPU the same step runs eagerly R times.
+
+The step reads and writes only persistent buffers, so the graph's
+pointers stay valid from window to window:
+
+* ``state`` [5, B] int64: the carry ``cur``, ``pos``, ``alive``, ``budget``
+  (``max_new - steps_taken``) and each slot's ``eos`` (-1 = none);
+* ``scal`` [3] int64: the sampling tick, the ring column ``j`` and the
+  greedy-or-sampled flag;
+* ``ring`` [B, R] int64: token j of each slot;
+* the scheduler's cache, block table (paged arenas), exit counters and
+  sampling key.
+
+The on-device commit is the reference's, line for line: a live row's
+budget drops by one each step; a row whose budget reaches zero freezes
+without taking the trailing token (``max_new`` discards it, as the sync
+``step()`` does); otherwise the token feeds back as ``cur`` and a token
+equal to the row's eos freezes the row.  Frozen rows keep computing
+garbage like inactive slots under the sync monolithic step (private rows
+in contiguous arenas, write-masked pages in paged ones), so greedy tokens
+stay bit-identical to the sync path's.
+
+A window on the card is R graph replays, a ``non_blocking`` copy of the
+ring into a pinned host buffer of its own, and an event; the host waits
+on that event only when it commits the window.  ``kernels.ops.LAUNCHES``
+counts Python calls, which a replay does not make, so each window adds the
+launches one step made during capture times R.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.early_exit import first_exit_index
+from repro_torch.kernels import ops as kops
+from repro_torch.models.attention import PagedKV
+
+CUR, POS, ALIVE, BUDGET, EOS = range(5)     # rows of DecodeWindow.state
+TICK, COL, SAMPLED = range(3)                # entries of DecodeWindow.scal
+WARMUP_STEPS = 2        # side-stream steps before capture (lazy inits)
+
+
+@dataclasses.dataclass
+class RingHandle:
+    """One dispatched window's token ring: a host buffer that the ring
+    copy fills, and the event recorded behind that copy (None on the
+    CPU, where the copy has already happened)."""
+    host: torch.Tensor                 # [B, R] int64 (pinned on the card)
+    event: Optional[torch.cuda.Event] = None
+
+    def read(self) -> np.ndarray:
+        """The ring as numpy, after waiting on the window's event."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class DecodeWindow:
+    """The decode window of one ``ContinuousBatchScheduler``
+    (``async_decode``): ``load`` host state into the carry, ``prepare``
+    the step (one capture per exit threshold and R), then ``run`` one
+    window."""
+
+    def __init__(self, sched):
+        self.sched = sched
+        b, dev = sched.cfg.n_slots, sched.device
+        self.R = sched.cfg.readback_interval
+        self.on_card = dev.type == "cuda"
+        self.state = torch.zeros((5, b), dtype=torch.int64, device=dev)
+        self.scal = torch.zeros(3, dtype=torch.int64, device=dev)
+        self.ring = torch.zeros((b, self.R), dtype=torch.int64, device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._key = None                   # (threshold, R) of the capture
+        self.threshold = 0.0
+        self.captures = 0                  # graph captures (CPU: builds)
+        self.replays = 0                   # graph replays (CPU: eager steps)
+        self.warmup_steps = 0              # side-stream steps run to capture
+        self.per_replay: Dict[str, int] = {}   # launches one step makes
+
+    @property
+    def steps_run(self) -> int:
+        """Decode steps this window object ran on the device."""
+        return self.replays + self.warmup_steps
+
+    # ------------------------------------------------------------------
+    def load(self, cur, pos, alive, budget, eos, tick: int,
+             use_sampled: bool):
+        """A fresh dispatch: write host state into the carry (two writes
+        through the scheduler's pinned staging)."""
+        host = np.stack([np.asarray(cur, np.int64), np.asarray(pos, np.int64),
+                         np.asarray(alive, np.int64),
+                         np.asarray(budget, np.int64),
+                         np.asarray(eos, np.int64)])
+        self.sched._put(self.state, host)
+        self.sched._put(self.scal, np.asarray([tick, 0, int(use_sampled)],
+                                              np.int64))
+
+    def needs_build(self, threshold: float) -> bool:
+        return self._key != (threshold, self.R)
+
+    def prepare(self, threshold: float):
+        """Capture the step for this threshold (on the card), once.  Call
+        after ``load``: the warm-up steps run with every row frozen (no
+        page writes, no counts), and contiguous arenas write each row's
+        K/V at its own next position, which the first real step rewrites
+        with the same values.  The caller loads the carry again after.  A
+        failed capture raises: there is no eager fallback on the card."""
+        self.threshold = threshold
+        if self.on_card:
+            self._capture()
+        self._key = (threshold, self.R)
+        self.captures += 1
+
+    def _capture(self):
+        dev = self.sched.device
+        self.state[ALIVE].zero_()
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self._step()
+        main.wait_stream(side)
+        self.warmup_steps += WARMUP_STEPS
+        before = dict(kops.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._step()
+        # capture records launches without running them
+        self.per_replay = {k: kops.LAUNCHES[k] - before[k] for k in before}
+        kops.LAUNCHES.update(before)
+        self.graph = graph
+
+    def _step(self):
+        """One monolithic decode step and its on-device commit."""
+        s = self.sched
+        st = self.state
+        act = st[ALIVE] != 0
+        paged = (PagedKV(s._tbl_buf, act) if s.page_alloc is not None
+                 else None)
+        logits, ee, _ = s.model.decode_step(
+            s.params, s.cache, st[CUR][:, None], st[POS].to(torch.int32),
+            paged=paged)
+        if s._n_exits:
+            idx = first_exit_index(ee, self.threshold, s._vocab)
+        else:
+            idx = torch.zeros(act.shape[0], dtype=torch.int64,
+                              device=act.device)
+        sampling = s.cfg.temperature > 0.0
+        greedy, sampled = s._count_exits(
+            logits, idx, act, tick=self.scal[TICK:TICK + 1] if sampling
+            else None)
+        tok = (torch.where(self.scal[SAMPLED] != 0, sampled, greedy)
+               if sampling else greedy)
+        self.ring.index_copy_(1, self.scal[COL:COL + 1], tok[:, None])
+        a = act.to(torch.int64)
+        st[POS] += a
+        st[BUDGET] -= a
+        spent = act & (st[BUDGET] <= 0)
+        keep = act & ~spent
+        st[CUR] = torch.where(keep, tok, st[CUR])
+        st[ALIVE] = (keep & (tok != st[EOS])).to(torch.int64)
+        self.scal[TICK] += 1
+        self.scal[COL] = (self.scal[COL] + 1) % self.R
+
+    def run(self) -> RingHandle:
+        """Enqueue one window of R steps from the carry; returns its ring."""
+        R = self.R
+        if not self.on_card:
+            for _ in range(R):
+                self._step()
+            self.replays += R
+            return RingHandle(self.ring.clone())
+        for _ in range(R):
+            self.graph.replay()
+        self.replays += R
+        for name, n in self.per_replay.items():
+            kops.LAUNCHES[name] += n * R
+        host = torch.empty(tuple(self.ring.shape), dtype=torch.int64,
+                           pin_memory=True)
+        host.copy_(self.ring, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return RingHandle(host, event)

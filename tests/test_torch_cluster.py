@@ -241,8 +241,10 @@ def test_unported_cluster_options_are_rejected(models):
     _, _, tm, tp = models
     with pytest.raises(ValueError):
         ClusterConfig(spec_draft="draft")
-    with pytest.raises(ValueError):
-        ClusterConfig(async_decode=True)
+    assert ClusterConfig(async_decode=True).async_decode   # ported
+    with pytest.raises(ValueError, match="readback_interval"):
+        TieredServingCluster(tm, tp, cfg=ClusterConfig(async_decode=True,
+                                                       readback_interval=0))
     with pytest.raises(ValueError):
         ClusterConfig(kv_handoff="fp8")
     with pytest.raises(ValueError):

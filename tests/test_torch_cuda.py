@@ -408,3 +408,84 @@ def test_smoke_forward_card_matches_cpu(cuda, long_mode):
     assert len(got.exit_logits) == len(want.exit_logits) == 1
     for e_got, e_want in zip(got.exit_logits, want.exit_logits):
         assert (e_got.cpu() - e_want).abs().max().item() <= 6e-2
+
+
+def _smoke_pool(dev, async_decode, slots=4, max_new=9, R=4, paged=True):
+    """granite-3-2b-smoke paged monolithic pool on the card, six requests
+    through four slots (two re-admissions)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import (ContinuousBatchScheduler, Request,
+                                     SchedulerConfig)
+    model = Model(get_config("granite-3-2b-smoke"), device=dev)
+    params = model.init(0)
+    max_len = 16 + max_new
+    max_len += (-max_len) % 16
+    sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
+        n_slots=slots, max_len=max_len, prefill_chunk=8, exit_threshold=0.0,
+        segmented=False, paged=paged, async_decode=async_decode,
+        readback_interval=R), device=dev)
+    rs = np.random.RandomState(2)
+    reqs = [Request(tokens=rs.randint(0, model.cfg.vocab_size,
+                                      int(rs.randint(4, 17))),
+                    max_new=max_new, req_id=j) for j in range(6)]
+    for r in reqs:
+        sched.submit(r)
+    return sched, reqs
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contig"])
+def test_decode_window_graph_matches_eager_sync(cuda, paged):
+    """The window's CUDA graph (R 4, which does not divide the 8 decode
+    steps after the first token) against the eager sync monolithic step on
+    the same weights and requests: the same greedy tokens, one capture."""
+    s_sync, r_sync = _smoke_pool(cuda, False, paged=paged)
+    s_sync.run()
+    s_win, r_win = _smoke_pool(cuda, True, paged=paged)
+    s_win.run()
+    torch.cuda.synchronize()
+    assert [r.out_tokens for r in r_win] == [r.out_tokens for r in r_sync]
+    assert s_win.jit_cache_sizes() == {"decode_window": 1}
+    assert s_win._window.graph is not None
+    assert s_win.tokens_served == s_sync.tokens_served
+
+
+def test_decode_window_counts_replayed_launches(cuda):
+    """A replay makes no Python call, so the window adds the launches one
+    step made during capture times R: after the first window the paged
+    kernel's count is layers x (warm-up steps + R), and each later window
+    adds layers x R."""
+    sched, _ = _smoke_pool(cuda, True, R=4)
+    sched.prefill_poll()                          # four slots admitted
+    assert sched._pending is None and sched.active.all()
+    layers = sched.model.cfg.num_layers
+    ops.reset_launches()
+    sched.poll()                                  # capture + window 1
+    w = sched._window
+    assert w.captures == 1 and w.replays == 4
+    assert w.per_replay["paged_gqa_attention"] == layers
+    assert ops.LAUNCHES["paged_gqa_attention"] == layers * w.steps_run
+    sched.poll()                                  # window 2, commit 1
+    assert w.replays == 8 and w.captures == 1
+    assert ops.LAUNCHES["paged_gqa_attention"] == layers * w.steps_run
+    sched.sync()
+
+
+def test_decode_window_capture_failure_raises(cuda, monkeypatch):
+    """A step that cannot be captured (here one that synchronizes the
+    card) makes the dispatch raise; the window never runs eagerly on the
+    card instead."""
+    from repro_torch.serving import window as win
+    sched, _ = _smoke_pool(cuda, True, R=4)
+    sched.prefill_poll()
+    real_step = win.DecodeWindow._step
+
+    def syncing_step(self):
+        real_step(self)
+        torch.cuda.synchronize()
+    monkeypatch.setattr(win.DecodeWindow, "_step", syncing_step)
+    with pytest.raises(RuntimeError):
+        sched.poll()
+    assert sched._window.graph is None and sched._window.replays == 0
+    assert not sched._win_q

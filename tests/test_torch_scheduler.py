@@ -123,10 +123,16 @@ def test_greedy_outputs_match_reference(models, ref_runs, case):
 
 
 def test_unported_options_are_rejected():
-    with pytest.raises(ValueError):
-        SchedulerConfig(async_decode=True, segmented=False)
-    with pytest.raises(ValueError):
-        SchedulerConfig(temperature=0.7)
+    """async_decode and sampled decode are ported: the config accepts
+    them and refuses only what the reference refuses (async windows on the
+    segmented step, a window of no steps)."""
+    with pytest.raises(ValueError, match="segmented"):
+        SchedulerConfig(async_decode=True)
+    with pytest.raises(ValueError, match="readback_interval"):
+        SchedulerConfig(async_decode=True, segmented=False,
+                        readback_interval=0)
+    assert SchedulerConfig(async_decode=True, segmented=False).async_decode
+    assert SchedulerConfig(temperature=0.7).temperature == 0.7
 
 
 def test_prefill_budget_interleaves_with_decode(models):
