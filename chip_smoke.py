@@ -8,10 +8,14 @@ Phases, each fatal on failure:
      CUDA kernel of the port with nvcc from the sources in this checkout;
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, with its time, its plain version's time, one library call's
-     time and its bound (CUDA events);
-  3. small-input references: granite-3-2b-smoke and deepseek-v3-671b-smoke
-     paged decode on the card (kernels) against the same weights on the
-     CPU (plain versions);
+     time and its bound (CUDA events); then at the dense configs' shapes:
+     paged GQA at yi-6b's and mistral-nemo-12b's heads (32 of 128 over 4
+     and 8 kv heads), the exit head at their vocab widths, flash attention
+     at starcoder2-3b's (8192 tokens, 24 / 2 heads of 128, window 4096);
+  3. small-input references: granite-3-2b-smoke, deepseek-v3-671b-smoke,
+     yi-6b-smoke and mistral-nemo-12b-smoke paged decode, and
+     starcoder2-3b-smoke on its contiguous ring past the window, on the
+     card (kernels) against the same weights on the CPU (plain versions);
   4. the main path at full width: granite-3-2b (40 layers, random seeded
      weights) serving a Poisson trace through ``serve_poisson`` with the
      paged KV arena and depth-segmented decode; both kernels' launch counts
@@ -38,12 +42,16 @@ Phases, each fatal on failure:
      forced int8 handoff; every request must complete, in-flight slots must
      migrate, and all four kernels must launch during the second run; the
      int8 kernels are held against their plain versions again on a leaf
-     captured from a live export;
+     captured from a live export; a third run takes the first's trace
+     through async decode windows of 4 in every tier pool, whose windows
+     in flight must be drained before the outage export;
   6. the deepseek-v3 path at full width, cut to 4 layers (3 dense, 1 MoE
      with 256 experts): ``serve_poisson`` with the paged arena, the prefix
      cache and segmented decode; the paged-MLA and exit-head kernels must
      launch and are held again on live inputs, one live MoE input's
-     capacity drops are recounted on the host, ``profile_decode``
+     capacity drops are recounted on the host, a closed loop of 16
+     requests (max_new 8 to 24) runs through async decode windows with
+     tokens equal to the sync monolithic poll's, ``profile_decode``
      splits a decode step into host and device time, and one
      ``Model.forward`` over 2 x 256 tokens runs MLA and the MoE forward;
   7. the full-sequence forward at full width: granite-3-2b (40 layers)
@@ -52,7 +60,19 @@ Phases, each fatal on failure:
      to the forward) and with block 0 dead, and the forward's greedy tokens
      against the decode replay of ``Model.prefill`` on 2 x 128 tokens,
      measured on an fp32 forward; the plain-attention forward must pass
-     that check and a planted fault (P in fp8 before P V) must fail it.
+     that check and a planted fault (P in fp8 before P V) must fail it;
+  8. multi-model pools and speculative pairs at full width: (a) one
+     ``MultiModelScheduler`` serving granite-3-2b, yi-6b and
+     mistral-nemo-12b (seeds 0, 1, 2) through ``serve_multi_poisson``, 12
+     Poisson requests round-robin, paged and segmented, 8 slots a model;
+     each model's streams must equal a dedicated scheduler's bit for bit
+     and both kernels must launch for every model; (b) a ``SpecPair`` at k
+     4, granite-3-2b drafting for itself with shared params and with a
+     draft seeded 7, streams bit-identical to the target-only monolithic
+     greedy pool, acceptance at least 2.5 with shared params; (c) the
+     tiered cluster over a ``ModelGroup`` with ``spec_draft``, where every
+     request must route speculative, match target-only greedy, and feed
+     its measured acceptance (at least 4 at k 6) back to the router.
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
@@ -609,10 +629,15 @@ def main(argv=None):
     print(f"  sdpa yardstick agrees to {lib_err:.3e}; "
           f"{json.dumps(results['flash_attention'])}")
     del sets
+    # ... and each kernel at the shapes of the dense configs phase 8 serves
+    slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask)
 
     # ---- phase 3: small-input references, card vs CPU -----------------
     check_smoke_vs_cpu(torch, "granite-3-2b-smoke")
     check_smoke_vs_cpu(torch, "deepseek-v3-671b-smoke")
+    for arch in ("yi-6b-smoke", "starcoder2-3b-smoke",
+                 "mistral-nemo-12b-smoke"):
+        check_smoke_vs_cpu(torch, arch)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=True)
     check_forward_vs_cpu(torch, "deepseek-v3-671b-smoke", long_mode=False)
@@ -725,6 +750,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     fwd, fwd_launches = run_forward(torch, ops)
 
+    # ---- phase 8: multi-model pools and speculative pairs -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi, multi_launches = run_multi(torch, ops)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -769,19 +799,134 @@ def main(argv=None):
         if kname in ("quantize_rows", "dequantize_rows"):
             for key in ("instance", "spread", "deepseek_c_kv", "live"):
                 kernels[-1][key] = r[key]
+        if "shapes" in r:
+            kernels[-1]["shapes"] = r["shapes"]
+        kernels[-1]["phase8_launches"] = {
+            part: n[kname] for part, n in multi_launches.items()}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card_line, "kernels": kernels,
                        "serve": stats, "async_decode": windows,
-                       "tiered": tiered, "deepseek": ds, "forward": fwd},
+                       "tiered": tiered, "deepseek": ds, "forward": fwd,
+                       "multi": multi},
                       f, indent=1)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
+    """Phase 2 at the shapes the dense configs give the kernels (yi-6b,
+    mistral-nemo-12b and starcoder2-3b at their published widths): each
+    kernel against its plain version, then timed three times interleaved
+    with its library call.  Adds a sub-row per shape under
+    ``results[kernel]["shapes"]``."""
+    from repro_torch.kernels import exit_head, paged_attention, paged_mla
+    prep, sdpa = ab.sdpa_gathered()
+    # paged GQA, 8 slots, 32 query heads of 128, pages of 16, pos < 2048
+    for label, nkv in (("yi-6b", 4), ("mistral-nemo-12b", 8)):
+        sets = ab.paged_inputs(gen, 8, 32, nkv, 128, 16, 128, 2048, 4)
+        a = sets[0]
+        got = ops.paged_gqa_attention(*a)
+        want = ref.paged_gqa_attention_ref(*a)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        plan = paged_attention.plan(8, nkv, 128, paged_mla.sm_count("cuda"))
+        print(f"paged_gqa_attention {label} q {tuple(a[0].shape)} Nkv {nkv}:"
+              f" max_abs_err {err:.3e} (tol {PAGED_TOL}); plan {plan}")
+        if not math.isfinite(err) or err > PAGED_TOL:
+            fail(f"paged_gqa_attention disagrees with its plain version at "
+                 f"{label}'s shape: {err}")
+        lib_args = [prep(*st) for st in sets]
+        spread = interleaved_ms(torch, ops.paged_gqa_attention, sdpa, sets,
+                                lib_args=lib_args)
+        print_spread(f"paged_gqa_attention {label}", spread)
+        bound_ms, by = paged_bound(a)
+        row = {"q": list(a[0].shape), "pool": list(a[1].shape),
+               "max_abs_err": err, "ms": spread["kernel"]["median"],
+               "plain_ms": device_ms(torch, ref.paged_gqa_attention_ref,
+                                     sets),
+               "library_ms": spread["library"]["median"],
+               "bound_ms": bound_ms, "bound_by": by, "plan": plan}
+        results["paged_gqa_attention"].setdefault("shapes", {})[label] = row
+        results["paged_gqa_attention"]["max_abs_err"] = max(
+            results["paged_gqa_attention"]["max_abs_err"], err)
+        print(f"  {json.dumps(row)}")
+        del sets, lib_args
+    # the exit head's aligned instance at yi-6b's and mistral-nemo-12b's
+    # vocab widths, 8 rows
+    lib = entropy_library(torch)
+    for label, d, v in (("yi-6b", 4096, 64000),
+                        ("mistral-nemo-12b", 5120, 131072)):
+        x = torch.randn(8, d, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(d, v, generator=gen, device="cuda")
+             / math.sqrt(d)).bfloat16()
+        got = ops.exit_head_entropy(x, w)
+        want = ref.exit_head_entropy_ref(x, w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        inst = exit_head.plan(8, d, v, w.data_ptr())["instance"]
+        print(f"exit_head_entropy {label} [8, {d}] x [{d}, {v}]: max_abs_err "
+              f"{err:.3e} (tol {ENT_TOL}), instance {inst}")
+        if not math.isfinite(err) or err > ENT_TOL:
+            fail(f"exit_head_entropy disagrees with its plain version at "
+                 f"{label}'s widths: {err}")
+        spread = interleaved_ms(torch, ops.exit_head_entropy, lib, [(x, w)],
+                                iters=10)
+        print_spread(f"exit_head_entropy {label}", spread)
+        bound_ms, by = exit_bound(x, w)
+        row = {"x": list(x.shape), "w": list(w.shape), "max_abs_err": err,
+               "ms": spread["kernel"]["median"],
+               "plain_ms": device_ms(torch, ref.exit_head_entropy_ref,
+                                     [(x, w)], iters=5),
+               "library_ms": spread["library"]["median"],
+               "bound_ms": bound_ms, "bound_by": by, "instance": inst}
+        results["exit_head_entropy"].setdefault("shapes", {})[label] = row
+        results["exit_head_entropy"]["max_abs_err"] = max(
+            results["exit_head_entropy"]["max_abs_err"], err)
+        print(f"  {json.dumps(row)}")
+        del x, w
+    # flash at starcoder2-3b's shape: 24 query heads over 2 kv heads of
+    # 128 (G 12), 8192 tokens, causal, window 4096; the library call is
+    # SDPA with the same boolean mask
+    sets = flash_inputs(torch, gen, 1, 8192, 24, 2, 128, sets=2)
+    window = 4096
+    err = check_flash(torch, ops, ref, sets[0], True, window,
+                      "starcoder2-3b")
+    mask = make_mask(8192, 8192, causal=True, window=window).cuda()
+
+    def flash(q, k, v):
+        return ops.flash_attention(q, k, v, causal=True, window=window)
+
+    def flash_plain(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=True, window=window)
+
+    def lib_flash(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True).transpose(1, 2)
+    lib_err = (lib_flash(*sets[0]).float()
+               - flash_plain(*sets[0]).float()).abs().max().item()
+    spread = interleaved_ms(torch, flash, lib_flash, sets, iters=10)
+    print_spread("flash_attention starcoder2-3b", spread)
+    bound_ms, by = flash_bound(make_mask, sets[0][0], sets[0][1], True,
+                               window)
+    row = {"q": list(sets[0][0].shape), "kv": list(sets[0][1].shape),
+           "window": window, "max_abs_err": err,
+           "ms": spread["kernel"]["median"],
+           "plain_ms": device_ms(torch, flash_plain, sets, iters=2),
+           "library_ms": spread["library"]["median"],
+           "bound_ms": bound_ms, "bound_by": by}
+    results["flash_attention"].setdefault("shapes", {})["starcoder2-3b"] = row
+    results["flash_attention"]["max_abs_err"] = max(
+        results["flash_attention"]["max_abs_err"], err)
+    print(f"  sdpa (boolean mask) agrees to {lib_err:.3e}; "
+          f"{json.dumps(row)}")
+    del sets, mask
 
 
 ASYNC_R = 8            # decode steps a window (phase 4b)
@@ -1133,7 +1278,42 @@ def run_tiered(torch, ops, ref, results):
             "bound_by": bnd[1], "spread": spread["kernel"],
             "instance": inst[kname.split("_")[0]]}
         print(f"  live {kname} timing: {json.dumps(results[kname]['live'])}")
-    del model, params, cluster
+    del cluster
+
+    # run 3: the same trace with async decode windows in every tier pool
+    # (a CUDA graph each); a pool's windows in flight are drained
+    # (_sync_pool) before a slot leaves it
+    drains = []
+    orig_sync = TieredServingCluster._sync_pool
+
+    def counting_sync(self, tr):
+        if tr.sched.cfg.async_decode:
+            drains.append((tr.name, len(tr.sched._win_q)))
+        return orig_sync(self, tr)
+    TieredServingCluster._sync_pool = counting_sync
+    ops.reset_launches()
+    t0 = time.time()
+    try:
+        st = serve_tiered_poisson("granite-3-2b", scenario="tier-outage",
+                                  params=params, device="cuda", quiet=True,
+                                  async_decode=True, readback_interval=4,
+                                  **tr)
+    finally:
+        TieredServingCluster._sync_pool = orig_sync
+    torch.cuda.synchronize()
+    summarize("run 3 serve_tiered_poisson (async windows of 4)", st,
+              time.time() - t0, dict(ops.LAUNCHES))
+    edge = [n for name, n in drains if name == "edge"]
+    print(f"  run 3: _sync_pool calls (tier, windows in flight) {drains}; "
+          f"decode-window builds {st['jit_cache_sizes']}")
+    if not edge:
+        fail("run 3: the edge pool was not drained before its outage export")
+    if any(v.get("decode_window", 0) > 1
+           for v in st["jit_cache_sizes"].values()):
+        fail("run 3: a tier pool captured its decode window more than once")
+    summaries["run 3 serve_tiered_poisson (async windows of 4)"][
+        "sync_pool_calls"] = drains
+    del model, params
     return summaries, launches
 
 
@@ -1154,7 +1334,9 @@ def check_smoke_vs_cpu(torch, arch):
     """A smoke-width paged decode: the card (kernels, cuBLAS) against the
     CPU (plain versions) on the same weights and inputs.  A row whose MoE
     routing differs between the two is left out of the logits check, and
-    must be a router tie (probabilities within ROUTE_TIE)."""
+    must be a router tie (probabilities within ROUTE_TIE).  A sliding-window
+    model (no paged arena) decodes on its contiguous ring instead, from
+    positions that have wrapped around it."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, ffn
     from repro_torch.models.attention import PagedKV
@@ -1168,9 +1350,15 @@ def check_smoke_vs_cpu(torch, arch):
     n_pages = b * pps
     g = torch.Generator().manual_seed(1)
     tbl = torch.randperm(n_pages, generator=g).to(torch.int32).reshape(b, pps)
-    c_cpu = cpu.init_decode_cache_paged(b, n_pages, page)
-    c_gpu = gpu.init_decode_cache_paged(b, n_pages, page)
-    pos = torch.tensor([0, 5, 17, 40], dtype=torch.int32)
+    ring = cfg.attention == "sliding"
+    if ring:
+        c_cpu = cpu.init_decode_cache(b, 4 * cfg.sliding_window)
+        c_gpu = gpu.init_decode_cache(b, 4 * cfg.sliding_window)
+        pos = torch.tensor([0, 60, 70, 130], dtype=torch.int32)
+    else:
+        c_cpu = cpu.init_decode_cache_paged(b, n_pages, page)
+        c_gpu = gpu.init_decode_cache_paged(b, n_pages, page)
+        pos = torch.tensor([0, 5, 17, 40], dtype=torch.int32)
     worst = worst_ent = 0.0
     log = []
     orig = record_routes(ffn, log)
@@ -1179,10 +1367,12 @@ def check_smoke_vs_cpu(torch, arch):
         toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=g)
         mask = torch.ones(b, dtype=torch.bool)
         del log[:]
-        lc, _, _ = cpu.decode_step(p_cpu, c_cpu, toks, pos,
-                                   paged=PagedKV(tbl, mask))
-        lg, _, _ = gpu.decode_step(p_gpu, c_gpu, toks.cuda(), pos.cuda(),
-                                   paged=PagedKV(tbl.cuda(), mask.cuda()))
+        lc, _, _ = cpu.decode_step(
+            p_cpu, c_cpu, toks, pos,
+            paged=None if ring else PagedKV(tbl, mask))
+        lg, _, _ = gpu.decode_step(
+            p_gpu, c_gpu, toks.cuda(), pos.cuda(),
+            paged=None if ring else PagedKV(tbl.cuda(), mask.cuda()))
         keep = torch.ones(b, dtype=torch.bool)
         host = [r for r in log if r[0] == "cpu"]
         card = [r for r in log if r[0] == "cuda"]
@@ -1204,7 +1394,8 @@ def check_smoke_vs_cpu(torch, arch):
         worst_ent = max(worst_ent, (eg.cpu() - ec).abs().max().item())
         pos = pos + 1
     ffn._route = orig
-    print(f"smoke reference {arch} (card vs CPU, 8 paged decode steps): "
+    print(f"smoke reference {arch} (card vs CPU, 8 "
+          f"{'ring' if ring else 'paged'} decode steps): "
           f"logits max_abs_err {worst:.3e} over {compared} rows (tol "
           f"{LOGIT_TOL}; {flips} rows left out at router ties), probe "
           f"entropy {worst_ent:.3e} (tol {ENT_TOL})")
@@ -1455,6 +1646,10 @@ def run_deepseek(torch, ops, ref, results, exit_ds):
           f"{'identically' if same else 'differently'}")
     del captured, lp_moe, h, x2d
 
+    # async decode windows (one CUDA graph of the monolithic step) against
+    # the sync monolithic poll, closed loop on the same weights
+    windows = run_deepseek_async(torch, ops, model, params)
+
     # one decode step's host/device split, on the same weights
     prof = profile_decode(cfg, slots=tr["slots"], prompt_len=128, steps=4,
                           seed=tr["seed"], params=params)
@@ -1494,9 +1689,351 @@ def run_deepseek(torch, ops, ref, results, exit_ds):
                             "dropped": dropped,
                             "assignments": t_tok * m.top_k,
                             "card_routes_same": same},
-               "profile_decode": prof, "forward": fwd}
+               "profile_decode": prof, "forward": fwd, "async": windows}
     del model, params
     return summary, launches
+
+
+MULTI_ARCHS = ("granite-3-2b", "yi-6b", "mistral-nemo-12b")
+MULTI_TRACE = dict(rate=8.0, n_requests=12, slots=8, prompt_len=96,
+                   max_new=16, threshold=0.5, prefill_chunk=16,
+                   max_prefill_chunks=2, paged=True, page_size=16,
+                   segmented=True, seed=0)
+SPEC_TRACE = dict(slots=8, requests=8, prompt=(32, 64), max_new=32, k=4)
+BRIDGE_TRACE = dict(requests=4, prompt=(6, 12), max_new=16, k=6)
+
+
+def _first_diff(torch, model, params, prompt, got, want):
+    """A printable note of where two greedy streams first differ."""
+    if len(got) != len(want):
+        return f"{len(got)} tokens, expected {len(want)}"
+    k, gap = tie_gap(torch, model, params, prompt, got, want)
+    return f"token {k} differs, fp32 top-2 gap {gap:.3e}"
+
+
+def run_multi(torch, ops):
+    """Phase 8: multi-model pools and speculative pairs at full width (see
+    the module docstring).  Returns its summary and each part's launch
+    counts."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import Scenario
+    from repro_torch.launch.serve import _build_group, serve_multi_poisson
+    from repro_torch.models import Model
+    from repro_torch.serving import (ClusterConfig, ContinuousBatchScheduler,
+                                     ModelGroup, Request, SchedulerConfig,
+                                     SpecPair, TieredServingCluster)
+    from repro_torch.models.common import tree_leaves
+    t_phase = time.time()
+    out, launches = {}, {}
+    gb = 1e9
+
+    # (a) one pool serving three dense models
+    tr = MULTI_TRACE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    group = _build_group(MULTI_ARCHS, tr["seed"], "cuda")
+    torch.cuda.synchronize()
+    pbytes = {e.name: sum(t.numel() * t.element_size()
+                          for t in tree_leaves(e.params)) for e in group}
+    print(f"multi-model pool: {', '.join(MULTI_ARCHS)} at their published "
+          f"widths, random weights (seeds 0, 1, 2), params "
+          f"{ {k: round(v / gb, 2) for k, v in pbytes.items()} } GB, init "
+          f"{time.time() - t0:.1f}s; paged (page {tr['page_size']}) + "
+          f"segmented, threshold {tr['threshold']}, {tr['slots']} slots a "
+          f"model, pool-wide prefill budget {tr['max_prefill_chunks']} "
+          f"chunks a poll; {tr['n_requests']} Poisson requests at "
+          f"{tr['rate']} req/s, round-robin, prompts {tr['prompt_len'] // 4}"
+          f"-{tr['prompt_len']} tokens, {tr['max_new']} new tokens")
+    keys = ("paged_gqa_attention", "exit_head_entropy")
+    per_model = {a: dict.fromkeys(keys, 0) for a in MULTI_ARCHS}
+    orig_poll = ContinuousBatchScheduler.poll
+
+    def attributed(self, *a, **kw):
+        before = dict(ops.LAUNCHES)
+        rep = orig_poll(self, *a, **kw)
+        for k in keys:
+            per_model[self.model.cfg.name][k] += ops.LAUNCHES[k] - before[k]
+        return rep
+    ContinuousBatchScheduler.poll = attributed
+    ops.reset_launches()
+    t0 = time.time()
+    try:
+        st = serve_multi_poisson(MULTI_ARCHS, group=group, device="cuda",
+                                 quiet=True, **tr)
+    finally:
+        ContinuousBatchScheduler.poll = orig_poll
+    torch.cuda.synchronize()
+    launches["pool"] = dict(ops.LAUNCHES)
+    wall = time.time() - t0
+    for arch, ms in st["models"].items():
+        print(f"  {arch}: {ms['tokens']} tokens, {ms['tok_s']:.2f} tok/s, "
+              f"p50 {ms['p50_latency_s'] * 1e3:.0f} ms, p95 "
+              f"{ms['p95_latency_s'] * 1e3:.0f} ms; launches "
+              f"{per_model[arch]}")
+        if any(v <= 0 for v in per_model[arch].values()):
+            fail(f"phase 8 (a): a kernel was not launched for {arch}")
+    print(f"  pool: {st['sustained_tok_s']:.2f} tok/s over "
+          f"{st['makespan_s']:.2f} s, {st['polls']} polls, host "
+          f"{st['host_ms_per_poll']:.1f} ms a poll; {wall:.1f}s with warm-up"
+          f"; launches {launches['pool']}")
+    if len(st["outputs"]) != tr["n_requests"] or any(
+            len(o) != tr["max_new"] for o in st["outputs"]):
+        fail("phase 8 (a): not every request produced max_new tokens")
+    # each model's streams against a dedicated single-model scheduler fed
+    # the same requests at once
+    max_len = tr["prompt_len"] + tr["max_new"]
+    max_len += (-max_len) % tr["page_size"]
+    t0 = time.time()
+    for e in group:
+        ded = ContinuousBatchScheduler(e.model, e.params, SchedulerConfig(
+            n_slots=tr["slots"], max_len=max_len,
+            prefill_chunk=tr["prefill_chunk"],
+            exit_threshold=tr["threshold"],
+            max_prefill_chunks_per_step=tr["max_prefill_chunks"],
+            paged=True, page_size=tr["page_size"], segmented=True),
+            device="cuda")
+        idx = [j for j, m in enumerate(st["request_models"]) if m == e.name]
+        reqs = [Request(tokens=np.asarray(st["prompts"][j]),
+                        max_new=tr["max_new"], req_id=j) for j in idx]
+        for r in reqs:
+            ded.submit(r)
+        ded.run()
+        for j, r in zip(idx, reqs):
+            if list(r.out_tokens) != st["outputs"][j]:
+                fail(f"phase 8 (a): {e.name} request {j} differs from its "
+                     f"dedicated scheduler's: " + _first_diff(
+                         torch, e.model, e.params, st["prompts"][j],
+                         st["outputs"][j], list(r.out_tokens)))
+        del ded
+    print(f"  every stream bit-identical to a dedicated scheduler of its "
+          f"model ({time.time() - t0:.1f}s); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / gb:.2f} GB")
+    st.pop("prompts")
+    out["pool"] = dict(st, launches_per_model=per_model,
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       param_bytes=pbytes)
+    del group, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) SpecPair at k 4: granite-3-2b drafting for itself
+    sp = SPEC_TRACE
+    cfg = get_config("granite-3-2b")
+    model = Model(cfg, device="cuda")
+    params = model.init(0)
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(sp["prompt"][0],
+                                                            sp["prompt"][1]
+                                                            + 1)))
+               for _ in range(sp["requests"])]
+    pcfg = SchedulerConfig(n_slots=sp["slots"], max_len=96,
+                           prefill_chunk=16, exit_threshold=0.0,
+                           segmented=False, paged=True, page_size=16)
+
+    def submit(sched, prompts, max_new):
+        reqs = [Request(tokens=p, max_new=max_new, req_id=j)
+                for j, p in enumerate(prompts)]
+        for r in reqs:
+            sched.submit(r)
+        return reqs
+    target_only = ContinuousBatchScheduler(model, params, pcfg,
+                                           device="cuda")
+    reqs = submit(target_only, prompts, sp["max_new"])
+    target_only.run()
+    want = [list(r.out_tokens) for r in reqs]
+    del target_only
+    print(f"speculative pair: granite-3-2b target and draft at full width, "
+          f"k {sp['k']}, {sp['slots']} slots, {sp['requests']} requests, "
+          f"prompts {min(map(len, prompts))}-{max(map(len, prompts))} "
+          f"tokens, {sp['max_new']} new tokens, paged, against the "
+          f"target-only monolithic greedy pool")
+    out["spec"] = {}
+    for label, seed in (("shared params", None), ("draft seed 7", 7)):
+        dparams = params if seed is None else model.init(seed)
+        pair = SpecPair(ModelGroup([("draft", model, dparams),
+                                    ("target", model, params)]), pcfg,
+                        k=sp["k"])
+        reqs = submit(pair, prompts, sp["max_new"])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        rounds = wall_r = host_r = 0
+        t0 = time.perf_counter()
+        while pair.has_work:
+            tp = time.perf_counter()
+            rep = pair.poll()
+            if rep.spec_rounds and not rep.prefill_chunks:
+                rounds += 1
+                wall_r += time.perf_counter() - tp
+                host_r += rep.host_ms
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"spec {label}"] = dict(ops.LAUNCHES)
+        for j, r in enumerate(reqs):
+            if list(r.out_tokens) != want[j]:
+                fail(f"phase 8 (b) {label}: request {j} differs from "
+                     f"target-only greedy: " + _first_diff(
+                         torch, model, params, prompts[j],
+                         list(r.out_tokens), want[j]))
+        ss = pair.spec_stats()
+        res = dict(ss, wall_s=wall, decode_rounds=rounds,
+                   wall_ms_per_round=wall_r / max(1, rounds) * 1e3,
+                   host_ms_per_round=host_r / max(1, rounds),
+                   launches=launches[f"spec {label}"])
+        print(f"  {label}: streams bit-identical; {ss['rounds']:.0f} rounds, "
+              f"{ss['slot_rounds']:.0f} slot-rounds, {ss['committed']:.0f} "
+              f"committed, acceptance {ss['acceptance_len']:.3f}; "
+              f"{wall:.2f} s, {res['wall_ms_per_round']:.1f} ms wall and "
+              f"{res['host_ms_per_round']:.1f} ms host a round (rounds "
+              f"without prefill); launches {res['launches']}")
+        if res["launches"]["paged_gqa_attention"] <= 0:
+            fail(f"phase 8 (b) {label}: paged attention was not launched")
+        if seed is None and ss["acceptance_len"] < 2.5:
+            fail(f"phase 8 (b): shared-param acceptance "
+                 f"{ss['acceptance_len']:.3f} < 2.5")
+        for pool in pair.pools.values():
+            if pool.page_alloc.free_count + len(pool.prefix_cache) \
+                    != pool.page_alloc.n_pages:
+                fail(f"phase 8 (b) {label}: pages leaked")
+        out["spec"][label] = res
+        del pair, dparams
+
+    # (c) the tiered cluster's speculative bridge
+    bt = BRIDGE_TRACE
+    group = ModelGroup([("small", model, params), ("big", model, params)])
+    cl = TieredServingCluster(
+        group, scenario=Scenario.high_rtt_access(),
+        plan_cfg={"small": cfg, "big": get_config("deepseek-v3-671b")},
+        cfg=ClusterConfig(base_slots=8, max_len=32, prefill_chunk=16,
+                          exit_threshold=0.0, paged=True, page_size=16,
+                          spec_draft="small", spec_k=bt["k"]))
+    rs = np.random.RandomState(6)
+    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(bt["prompt"][0],
+                                                            bt["prompt"][1]
+                                                            + 1)))
+               for _ in range(bt["requests"])]
+    crs = [cl.submit(p.copy(), max_new=bt["max_new"], arrival=0.05 * j,
+                     model="big") for j, p in enumerate(prompts)]
+    ops.reset_launches()
+    t0 = time.time()
+    cl.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches["bridge"] = dict(ops.LAUNCHES)
+    target_only = ContinuousBatchScheduler(model, params, dataclasses.replace(
+        pcfg, max_len=32), device="cuda")
+    reqs = submit(target_only, prompts, bt["max_new"])
+    target_only.run()
+    for j, (cr, r) in enumerate(zip(crs, reqs)):
+        if not cr.done or cr.decision.paradigm != "speculative":
+            fail(f"phase 8 (c): request {j} routed "
+                 f"{cr.decision.paradigm}, not speculative")
+        if list(cr.req.out_tokens) != list(r.out_tokens):
+            fail(f"phase 8 (c): request {j} differs from target-only "
+                 f"greedy: " + _first_diff(torch, model, params, prompts[j],
+                                          list(cr.req.out_tokens),
+                                          list(r.out_tokens)))
+    st = cl.stats()
+    sp_st = st["speculative"]
+    print(f"tiered speculative bridge: granite-3-2b drafting on the device "
+          f"tier for granite-3-2b on the cloud tier (planned as "
+          f"granite-3-2b / deepseek-v3-671b), Scenario.high_rtt_access, k "
+          f"{bt['k']}, {bt['requests']} requests: routes "
+          f"{st['route_counts']}, {sp_st['rounds']} rounds, acceptance "
+          f"{sp_st['acceptance_len']:.3f}, router.spec_accept "
+          f"{cl.router.spec_accept:.3f}, modelled virtual p50 "
+          f"{sp_st['p50_latency_s'] * 1e3:.1f} ms; measured wall "
+          f"{wall:.2f} s; launches {launches['bridge']}")
+    if sp_st["acceptance_len"] < 4.0 \
+            or cl.router.spec_accept != sp_st["acceptance_len"]:
+        fail("phase 8 (c): acceptance below 4, or not fed back to the "
+             "router")
+    if launches["bridge"]["paged_gqa_attention"] <= 0:
+        fail("phase 8 (c): paged attention was not launched")
+    out["bridge"] = {"wall_s": wall, "route_counts": st["route_counts"],
+                     "speculative": sp_st,
+                     "spec_accept": cl.router.spec_accept,
+                     "launches": launches["bridge"]}
+    del cl, group, model, params, target_only
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 8 wall time {out['wall_s']:.1f}s")
+    return out, launches
+
+
+DS_ASYNC = dict(slots=16, requests=16, max_new=24, readback_interval=8)
+
+
+def run_deepseek_async(torch, ops, model, params):
+    """Phase 6's deepseek-v3 through async decode windows: a closed loop of
+    16 requests (prompts 16-64 tokens, max_new from 8 to 24, so rows leave
+    the window's chain at different steps and the MoE's capacity sees
+    frozen rows) through the eager sync monolithic poll, then through
+    windows of 8; the tokens must be equal (a top-2 tie under LOGIT_TIE is
+    the only excuse).  Returns the two runs' numbers."""
+    import numpy as np
+    from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
+                                               Request, SchedulerConfig)
+    cfg, d = model.cfg, DS_ASYNC
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(16, 65)))
+               for _ in range(d["requests"])]
+    max_news = [8 + (j * 16) // (d["requests"] - 1)
+                for j in range(d["requests"])]
+    out, streams = {}, {}
+    for label, async_decode in (("sync", False), ("async", True)):
+        sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
+            n_slots=d["slots"], max_len=96, prefill_chunk=16,
+            exit_threshold=0.5, segmented=False, paged=True,
+            async_decode=async_decode,
+            readback_interval=d["readback_interval"]), device="cuda")
+        reqs = [Request(tokens=p, max_new=n, req_id=j)
+                for j, (p, n) in enumerate(zip(prompts, max_news))]
+        for r in reqs:
+            sched.submit(r)
+        sched.prefill_poll()
+        if sched._pending is not None or sched.queue:
+            fail("deepseek-v3 async: the prompts were not all admitted")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        while sched.has_work:
+            sched.poll()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        streams[label] = [list(r.out_tokens) for r in reqs]
+        out[label] = {"wall_s": wall, "committed_steps": sched._step_idx,
+                      "launches": dict(ops.LAUNCHES),
+                      "builds": sched.jit_cache_sizes()}
+        if async_decode:
+            w = sched._window
+            out[label].update(replays=w.replays, captures=w.captures,
+                              per_replay=w.per_replay)
+        del sched
+    ties = []
+    for j, (got, want) in enumerate(zip(streams["async"], streams["sync"])):
+        if len(got) != max_news[j]:
+            fail(f"deepseek-v3 async request {j}: {len(got)} tokens")
+        if got != want:
+            k, gap = tie_gap(torch, model, params, prompts[j], got, want)
+            print(f"  async request {j} differs at token {k}: fp32 top-2 "
+                  f"gap {gap:.3e}")
+            ties.append({"req": j, "token": k, "gap": gap})
+            if not 0.0 <= gap < LOGIT_TIE:
+                fail("deepseek-v3: async tokens differ from the sync "
+                     "monolithic poll's (no tie)")
+    out["ties"] = ties
+    if out["async"]["captures"] != 1:
+        fail(f"deepseek-v3 async: {out['async']['captures']} captures")
+    if out["async"]["launches"]["paged_mla_attention"] <= 0:
+        fail("deepseek-v3 async: no paged-MLA launch in the windows")
+    print(f"  async windows of {d['readback_interval']}: "
+          f"{d['requests'] - len(ties)} of {d['requests']} streams "
+          f"bit-identical to the sync monolithic poll, {len(ties)} ties; "
+          f"decode {out['sync']['wall_s']:.2f} s sync against "
+          f"{out['async']['wall_s']:.2f} s async ({out['async']['replays']} "
+          f"replays, one capture; launches a replay "
+          f"{out['async']['per_replay']})")
+    return out
 
 
 FWD_BATCH = (8, 2048)      # phase 7's forward

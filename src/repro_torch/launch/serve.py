@@ -8,6 +8,12 @@ pool, or the tiered cloud/edge/device cluster.
         --slots 2 --prompt-len 12 --max-new 8
     python -m repro_torch.launch.serve --arch granite-3-2b --paged \\
         --async-decode --readback-interval 8 --requests 32 --slots 16
+    python -m repro_torch.launch.serve --device cpu --paged \\
+        --models granite-3-2b-smoke,yi-6b-smoke --requests 8 --slots 2
+    python -m repro_torch.launch.serve --device cpu --tiered \\
+        --scenario high-rtt-access --models granite-3-2b-smoke,yi-6b-smoke \\
+        --spec-draft granite-3-2b-smoke --spec-k 4 --threshold 0 \\
+        --requests 4 --prompt-len 12 --max-new 8
 
 Requests arrive at Poisson times (seeded), prompts are uniform in
 ``[prompt_len // 4, prompt_len]`` tokens.  Single pool: ``prefix_share``
@@ -20,6 +26,15 @@ one token readback a window.  Tiered (``--tiered``): the admission router
 places each request on a tier pool; latencies are on the tiers' virtual
 clocks (modelled by the planners' tier profiles, not measured), and the
 wall time of the whole run is on the host clock.
+
+``--models a,b,...`` serves requests for several architectures, assigned
+round-robin, through one ``MultiModelScheduler`` (one arena per model
+behind one queue and one poll); with ``--tiered`` they are routed per
+(model, request) across the cloud/edge/device pools, each model planned as
+its arch without ``-smoke``.  ``--spec-draft`` (with ``--tiered``) names
+the entry that drafts ``--spec-k`` tokens a round on the device tier while
+the cloud verifies: requests the router sends speculative run through a
+``SpecPair`` bridge.
 """
 from __future__ import annotations
 
@@ -32,6 +47,7 @@ from repro_torch.configs import get_config, resolve_config
 from repro_torch.core import Scenario
 from repro_torch.models.model import Model
 from repro_torch.serving.cluster import ClusterConfig, TieredServingCluster
+from repro_torch.serving.multipool import ModelGroup, MultiModelScheduler
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
                                            SchedulerConfig)
 
@@ -54,9 +70,9 @@ def poisson_trace(rs: np.random.RandomState, rate: float, n_requests: int,
 
 def _drive_open_loop(sched, reqs, arrivals):
     """Submit each request at its arrival offset and poll until every
-    request completes.  Returns (t0, makespan_seconds)."""
+    request completes.  Returns (t0, makespan_seconds, polls)."""
     t0 = time.time()
-    i = 0
+    i = polls = 0
     while len(sched.completed) < len(reqs):
         now = time.time() - t0
         while i < len(reqs) and arrivals[i] <= now:
@@ -64,9 +80,15 @@ def _drive_open_loop(sched, reqs, arrivals):
             i += 1
         if sched.has_work:
             sched.tick()
+            polls += 1
         elif i < len(reqs):
             time.sleep(min(0.002, max(0.0, arrivals[i] - now)))
-    return t0, time.time() - t0
+    return t0, time.time() - t0, polls
+
+
+def _pctl(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if len(xs) \
+        else float("nan")
 
 
 def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
@@ -121,7 +143,7 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
     sched.reset_stats()
     steps0 = sched._step_idx
 
-    t0, makespan = _drive_open_loop(sched, reqs, arrivals)
+    t0, makespan, _ = _drive_open_loop(sched, reqs, arrivals)
     lat = np.asarray([r.t_done - (t0 + arrivals[j])
                       for j, r in enumerate(reqs)])
     total_tokens = sum(len(r.out_tokens) for r in reqs)
@@ -258,6 +280,206 @@ def serve_tiered_poisson(arch, *, rate: float = 4.0,
     return stats
 
 
+def _build_group(archs, seed: int, device="cuda") -> ModelGroup:
+    """One (model, params) entry per arch name, named by it; entry i's
+    params are ``Model.init(seed + i)`` on ``device``."""
+    entries = []
+    for i, arch in enumerate(archs):
+        model = Model(get_config(arch), device=device)
+        entries.append((arch, model, model.init(seed + i)))
+    return ModelGroup(entries)
+
+
+def _plan_name(arch: str) -> str:
+    return arch[:-len("-smoke")] if arch.endswith("-smoke") else arch
+
+
+def serve_multi_poisson(archs, *, rate: float = 4.0, n_requests: int = 32,
+                        slots: int = 4, prompt_len: int = 16,
+                        max_new: int = 32, threshold: float = 0.5,
+                        prefill_chunk: int = 16,
+                        max_prefill_chunks: int = 0, paged: bool = False,
+                        page_size: int = 16, segmented: bool = True,
+                        async_decode: bool = False,
+                        readback_interval: int = 8, seed: int = 0,
+                        group: ModelGroup = None, device="cuda",
+                        quiet: bool = False):
+    """Open-loop Poisson trace through one multi-model pool: requests are
+    assigned round-robin across ``archs`` and one ``MultiModelScheduler``
+    serves every model's arena in the same poll loop, ``slots`` slots
+    each.  ``max_prefill_chunks`` is the pool-wide prefill budget a poll
+    (0 = unbounded).  ``group`` defaults to ``_build_group(archs, seed,
+    device)`` (its entries must be named by ``archs``).  Returns a stats
+    dict with per-model tokens, tok/s and latencies, the host and
+    readback split per poll, stage builds, and each request's model,
+    prompt and outputs."""
+    if group is None:
+        group = _build_group(archs, seed, device)
+    max_len = prompt_len + max_new
+    if paged:                          # page-pool arenas need whole pages
+        max_len += (-max_len) % page_size
+    sched = MultiModelScheduler(group, SchedulerConfig(
+        n_slots=slots, max_len=max_len,
+        prefill_chunk=min(prefill_chunk, max(1, prompt_len)),
+        exit_threshold=threshold,
+        max_prefill_chunks_per_step=max_prefill_chunks, paged=paged,
+        page_size=page_size, segmented=segmented and not async_decode,
+        async_decode=async_decode, readback_interval=readback_interval))
+
+    rs = np.random.RandomState(seed)
+    arrivals, lengths = poisson_trace(rs, rate, n_requests, prompt_len)
+    vocab = {e.name: e.model.cfg.vocab_size for e in group}
+    reqs = []
+    for i, n in enumerate(lengths):
+        arch = archs[i % len(archs)]
+        reqs.append(Request(tokens=rs.randint(0, vocab[arch], int(n)),
+                            max_new=max_new, model=arch))
+
+    # warm up each arena outside the timed trace
+    for arch in archs:
+        sched.submit(Request(tokens=rs.randint(0, vocab[arch],
+                                               int(lengths[0])),
+                             max_new=1, model=arch))
+    sched.run()
+    sched.reset_stats()
+
+    t0, makespan, polls = _drive_open_loop(sched, reqs, arrivals)
+    lat = [r.t_done - (t0 + arrivals[j]) for j, r in enumerate(reqs)]
+    total_tokens = sum(len(r.out_tokens) for r in reqs)
+    per_model = {}
+    for arch in archs:
+        ml = [lat[j] for j, r in enumerate(reqs) if r.model == arch]
+        tokens = sum(len(r.out_tokens) for r in reqs if r.model == arch)
+        per_model[arch] = {
+            "requests": len(ml),
+            "tokens": tokens,
+            "tok_s": tokens / makespan,
+            "p50_latency_s": _pctl(ml, 50),
+            "p95_latency_s": _pctl(ml, 95),
+        }
+    stats = {
+        "requests": n_requests,
+        "models": per_model,
+        "slots": slots,
+        "rate_req_s": rate,
+        "makespan_s": makespan,
+        "p50_latency_s": _pctl(lat, 50),
+        "p95_latency_s": _pctl(lat, 95),
+        "sustained_tok_s": total_tokens / makespan,
+        "tokens": total_tokens,
+        "async_decode": async_decode,
+        "polls": polls,
+        "host_ms": sched.host_ms_total,
+        "device_ms": sched.device_ms_total,
+        "host_ms_per_poll": sched.host_ms_total / max(1, polls),
+        "peak_tokens_in_flight": sched.peak_tokens_in_flight,
+        "jit_cache_sizes": sched.jit_cache_sizes(),
+        "exit_stats": sched.exit_stats(),
+        "request_models": [r.model for r in reqs],
+        "prompts": [r.tokens.tolist() for r in reqs],
+        "outputs": [list(r.out_tokens) for r in reqs],
+    }
+    if not quiet:
+        print(f"multi-model poisson models={','.join(archs)} rate={rate}/s "
+              f"requests={n_requests} slots={slots}/model"
+              + (" paged" if paged else "")
+              + (f" async(r={readback_interval})" if async_decode else ""))
+        print(f"  p50={stats['p50_latency_s']*1e3:.0f}ms "
+              f"p95={stats['p95_latency_s']*1e3:.0f}ms "
+              f"sustained={stats['sustained_tok_s']:.1f} tok/s "
+              f"makespan={makespan:.2f}s host/poll="
+              f"{stats['host_ms_per_poll']:.1f}ms")
+        for arch, ms in per_model.items():
+            print(f"  {arch:24s} requests={ms['requests']:3d} "
+                  f"tokens={ms['tokens']:4d} tok/s={ms['tok_s']:.1f} "
+                  f"p95={ms['p95_latency_s']*1e3:.0f}ms")
+        print(f"  stage builds (each must stay <= 1): "
+              f"{stats['jit_cache_sizes']}")
+    return stats
+
+
+def serve_multi_tiered_poisson(archs, *, rate: float = 4.0,
+                               n_requests: int = 32, base_slots: int = 8,
+                               prompt_len: int = 16, max_new: int = 32,
+                               threshold: float = 0.5,
+                               prefill_chunk: int = 16,
+                               scenario: str = "default",
+                               deadline: float = 0.0, spec_draft: str = "",
+                               spec_k: int = 4, paged: bool = False,
+                               async_decode: bool = False,
+                               readback_interval: int = 8, seed: int = 0,
+                               device="cuda", quiet: bool = False):
+    """Multi-model Poisson trace through the tiered cluster: each request
+    is routed per (model, request) with that model's cost graphs (plan
+    config: the arch without ``-smoke``), so heavy and light models can
+    land on different tiers within one trace.
+
+    ``spec_draft`` names the entry that drafts on the device tier: the
+    router then also prices the speculative candidate (k drafted tokens a
+    round, one batched verify on the cloud, one uplink of k token ids and
+    one downlink of the accepted count a round instead of a round trip a
+    token), and requests routed speculative run through a ``SpecPair``
+    bridge.  Returns the cluster's stats plus ``wall_s`` (host clock),
+    ``tokens`` and each request's outputs."""
+    group = _build_group(archs, seed, device)
+    max_len = prompt_len + max_new
+    if paged:
+        max_len += (-max_len) % 16
+    cluster = TieredServingCluster(
+        group, scenario=SCENARIOS[scenario](),
+        plan_cfg={arch: get_config(_plan_name(arch)) for arch in archs},
+        cfg=ClusterConfig(base_slots=base_slots, max_len=max_len,
+                          prefill_chunk=min(prefill_chunk,
+                                            max(1, prompt_len)),
+                          exit_threshold=threshold, spec_draft=spec_draft,
+                          spec_k=spec_k, paged=paged,
+                          async_decode=async_decode,
+                          readback_interval=readback_interval))
+    rs = np.random.RandomState(seed)
+    arrivals, lengths = poisson_trace(rs, rate, n_requests, prompt_len)
+    crs = []
+    for i, (arr, n) in enumerate(zip(arrivals, lengths)):
+        arch = archs[i % len(archs)]
+        crs.append(cluster.submit(
+            rs.randint(0, group[arch].model.cfg.vocab_size, int(n)),
+            max_new=max_new, arrival=float(arr), deadline=deadline or None,
+            model=arch))
+    t0 = time.time()
+    cluster.run()
+    wall = time.time() - t0
+    stats = cluster.stats()
+    stats["wall_s"] = wall
+    stats["tokens"] = sum(len(cr.req.out_tokens) for cr in crs)
+    stats["outputs"] = [list(cr.req.out_tokens) for cr in crs]
+    if not quiet:
+        print(f"multi-model tiered poisson models={','.join(archs)} "
+              f"scenario={scenario} rate={rate}/s requests={n_requests} "
+              f"device={group[archs[0]].model.device}")
+        print(f"  routed: {stats['route_counts']} splits={stats['splits']} "
+              f"deadline-hit={stats['deadline_hit_rate']:.2f}")
+        print(f"  modelled virtual p50={stats['p50_latency_s']*1e3:.0f}ms "
+              f"p95={stats['p95_latency_s']*1e3:.0f}ms; measured wall "
+              f"{wall:.2f}s, {stats['tokens'] / wall:.2f} tok/s")
+        for arch, ms in stats["models"].items():
+            print(f"  {arch:24s} routed={ms['routed']:3d} "
+                  f"{ms['route_counts']} tokens={ms['tokens']}")
+        for name, ts in stats["tiers"].items():
+            print(f"  {name:6s} slots={ts['n_slots']} "
+                  f"routed={ts['routed']:3d} util={ts['utilization']:.2f} "
+                  f"p95={ts['p95_latency_s']*1e3:.0f}ms"
+                  + (" DEAD" if ts.get("dead") else ""))
+        sp = stats.get("speculative")
+        if sp is not None:
+            print(f"  speculative: draft={sp['draft']} k={sp['k']} "
+                  f"rounds={sp['rounds']} "
+                  f"acceptance={sp['acceptance_len']:.2f} "
+                  f"requests={sp['requests_completed']} "
+                  f"modelled p50={sp['p50_latency_s']*1e3:.0f}ms "
+                  f"tokens/round={sp['mean_speedup_x']:.2f}")
+        _print_migration(stats)
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="granite-3-2b-smoke")
@@ -286,7 +508,36 @@ def main(argv=None):
     ap.add_argument("--scenario", default="default", choices=sorted(SCENARIOS))
     ap.add_argument("--plan-arch", default="")
     ap.add_argument("--deadline", type=float, default=0.0)
+    ap.add_argument("--models", default="",
+                    help="comma-separated archs served by one multi-model "
+                         "pool (overrides --arch; --slots is per model)")
+    ap.add_argument("--spec-draft", default="",
+                    help="[--tiered --models] the entry that drafts on the "
+                         "device tier for cross-tier speculative decoding")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="[--spec-draft] draft tokens a round")
     args = ap.parse_args(argv)
+    if args.spec_draft and not (args.tiered and args.models):
+        ap.error("--spec-draft needs --tiered and --models")
+    if args.models:
+        archs = [a.strip() for a in args.models.split(",") if a.strip()]
+        if args.spec_draft and args.spec_draft not in archs:
+            ap.error("--spec-draft must name a --models entry")
+        common = dict(rate=args.rate, n_requests=args.requests,
+                      prompt_len=args.prompt_len, max_new=args.max_new,
+                      threshold=args.threshold, paged=args.paged,
+                      async_decode=args.async_decode,
+                      readback_interval=args.readback_interval,
+                      seed=args.seed, device=args.device)
+        if args.tiered:
+            serve_multi_tiered_poisson(
+                archs, base_slots=args.slots, scenario=args.scenario,
+                deadline=args.deadline, spec_draft=args.spec_draft,
+                spec_k=args.spec_k, **common)
+        else:
+            serve_multi_poisson(archs, slots=args.slots,
+                                segmented=not args.monolithic, **common)
+        return
     if args.tiered:
         serve_tiered_poisson(
             args.arch, rate=args.rate, n_requests=args.requests,

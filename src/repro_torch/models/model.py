@@ -243,6 +243,13 @@ class Model:
                                             dev) for _ in range(n)])
             for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]}
 
+    def all_cache_paged(self) -> bool:
+        """True iff every decode-cache leaf is pool-backed in paged mode
+        (no sequential SSM/xLSTM state rows): a position-indexed cache
+        whose rows past a rejected speculation are simply overwritten."""
+        return all(s[1] in B.PAGED_KINDS for s in self.plan
+                   if s[0] == "scan")
+
     def init_decode_cache_paged(self, batch_size: int, n_pages: int,
                                 page_size: int, *, device=None):
         """Paged cache: per block, (k, v) pools

@@ -39,6 +39,14 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
   ``kernels.ops.compress_rows`` / ``decompress_rows`` kernels.  This is the
   primitive behind the tiered cluster's prefill/decode splits and its
   failover when a tier dies.
+* **Speculative stages** (``ensure_spec``, ``spec_propose``,
+  ``spec_verify``; driven by ``serving/multipool.py: SpecPair``): a draft
+  arena proposes a k-token window, a target arena verifies it, both as k
+  write-gated monolithic ``decode_step`` calls with one readback a round.
+  Rejected positions never write the cache.
+* **Multi-model pools** (``serving/multipool.py``) run one of these arenas
+  per model: ``Request.model`` names the arena, and
+  ``poll(prefill_budget=)`` shares one prefill budget across them.
 
 Host/device traffic per sync decode step: one upload of (tokens,
 positions, active), one upload of the block table when it changed (into
@@ -46,9 +54,9 @@ one persistent buffer), one read per exit probe (the intended
 short-circuit), and one readback of the step's tokens.  An async window
 uploads nothing when it chains from the carry (a fresh dispatch writes the
 carry through pinned staging), and reads its [B, R] ring back once.  A
-migration moves each exported leaf to the host once and back once.
-
-Not ported yet: speculative ``propose``/``verify``.
+migration moves each exported leaf to the host once and back once.  A
+speculation round uploads its inputs once and reads back once: the drafts
+after a propose, the greedy tokens and accepted counts after a verify.
 
 Typical use::
 
@@ -90,6 +98,9 @@ class Request:
     max_new: int = 32
     eos_id: Optional[int] = None
     req_id: int = -1
+    # model name in a multi-model pool ("" = the pool's default model); a
+    # single-model scheduler ignores it
+    model: str = ""
     # --- filled by the scheduler ---
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     t_submit: float = 0.0
@@ -97,6 +108,8 @@ class Request:
     t_done: float = 0.0
     slot: int = -1
     done: bool = False
+    # verify rounds this request took part in (SpecPair only)
+    spec_rounds: int = 0
 
 
 @dataclasses.dataclass
@@ -148,7 +161,16 @@ class StepReport:
     host_ms: float = 0.0               # host time of the poll
     device_ms: float = 0.0             # time blocked in the token readback
     tokens_in_flight: int = 0          # in dispatched, unread windows
+    # speculative rounds (SpecPair): verify rounds, tokens they committed
+    # and draft tokens proposed
+    spec_rounds: int = 0
+    spec_committed: int = 0
+    spec_drafted: int = 0
     completed: List[Request] = dataclasses.field(default_factory=list)
+    # multi-model pools: the per-model sub-reports behind this aggregate
+    # (empty for a single-model scheduler)
+    per_model: Dict[str, "StepReport"] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def worked(self) -> bool:
@@ -189,6 +211,7 @@ class SlotSnapshot:
     page_skip: int = 0
     page_used: int = 0
     page_digests: List[Any] = dataclasses.field(default_factory=list)
+    model: str = ""                   # the exporting request's model name
 
 
 def _nbytes(t) -> int:
@@ -301,6 +324,12 @@ class ContinuousBatchScheduler:
         self._carry_valid = False
         self._window: Optional[DecodeWindow] = None
         self.peak_tokens_in_flight = 0
+        # speculation (ensure_spec): the window width, fixed per arena;
+        # verify-committed tokens count in the no-exit bucket on the host
+        self._spec_k = 0
+        self.spec_rounds = 0
+        self.spec_committed = 0
+        self._host_exit_extra = np.zeros(self._n_exits + 1, np.int64)
 
         dev = self.device
         self._counters = torch.zeros(self._n_exits + 1, dtype=torch.int32,
@@ -401,16 +430,18 @@ class ContinuousBatchScheduler:
         """One admission/prefill/decode round; False = idle."""
         return self.poll().worked
 
-    def poll(self) -> StepReport:
+    def poll(self, prefill_budget: Optional[int] = None) -> StepReport:
         """One scheduler round: begin an admission if slots are free,
         advance at most ``max_prefill_chunks_per_step`` prefill chunks, then
-        run one pool decode step.  With ``async_decode`` the decode half is
-        the window pipeline (``_poll_async``)."""
+        run one pool decode step.  ``prefill_budget`` overrides that cap for
+        this poll (0 runs no chunk; a multi-model pool shares one budget
+        across its arenas this way).  With ``async_decode`` the decode half
+        is the window pipeline (``_poll_async``)."""
         if self.cfg.async_decode:
-            return self._poll_async()
+            return self._poll_async(prefill_budget)
         t_poll = time.perf_counter()
         self._dev_s = 0.0
-        rep = self.prefill_poll()
+        rep = self.prefill_poll(prefill_budget)
         self.prefill_ms_total += (time.perf_counter() - t_poll) * 1e3
         done_before = len(self.completed)
         rep.decode_stepped = self.step()
@@ -426,14 +457,20 @@ class ContinuousBatchScheduler:
         self.device_ms_total += rep.device_ms
         return rep
 
-    def prefill_poll(self) -> StepReport:
-        """Admission + chunked prefill only — no decode step."""
+    def prefill_poll(self, prefill_budget: Optional[int] = None
+                     ) -> StepReport:
+        """Admission + chunked prefill only, no decode step (SpecPair
+        drives its arenas' admissions through this).  ``prefill_budget``
+        as in ``poll``."""
         rep = StepReport()
         done_before = len(self.completed)
         if self._pending is None:
             rep.admitted = self._begin_admit()
-        if self._pending is not None:
-            self._advance_prefill(self.cfg.max_prefill_chunks_per_step, rep)
+        if self._pending is not None and (prefill_budget is None
+                                          or prefill_budget > 0):
+            cap = self.cfg.max_prefill_chunks_per_step \
+                if prefill_budget is None else prefill_budget
+            self._advance_prefill(cap, rep)
         rep.completed = self.completed[done_before:]
         return rep
 
@@ -762,7 +799,8 @@ class ContinuousBatchScheduler:
     # ------------------------------------------------------------------
     # async decode (cfg.async_decode): the double-buffered window pipeline
     # ------------------------------------------------------------------
-    def _poll_async(self) -> StepReport:
+    def _poll_async(self, prefill_budget: Optional[int] = None
+                    ) -> StepReport:
         """One overlapped round: admission and prefill as usual, then, if
         a window is in flight, dispatch window N+1 from the device carry
         before blocking on window N's ring (the card computes N+1 while
@@ -770,7 +808,7 @@ class ContinuousBatchScheduler:
         One ring readback per committed window."""
         t_poll = time.perf_counter()
         self._dev_s = 0.0
-        rep = self.prefill_poll()
+        rep = self.prefill_poll(prefill_budget)
         self.prefill_ms_total += (time.perf_counter() - t_poll) * 1e3
         done_before = len(self.completed)
         if self._win_q:
@@ -917,6 +955,162 @@ class ContinuousBatchScheduler:
         self._carry_valid = False
         return self.completed[n0:]
 
+    # ------------------------------------------------------------------
+    # speculative decoding stages (serving/multipool.py: SpecPair): a draft
+    # arena proposes a k-token window, a target arena verifies it.  Both
+    # are k monolithic decode_step calls whose cache writes are gated by
+    # ``act`` inside the step, so positions that end up rejected are never
+    # written: no rollback pass, valid for paged and contiguous arenas.
+    # ------------------------------------------------------------------
+    def ensure_spec(self, k: int):
+        """Fix the speculation window width ``k`` (a shape: tokens are
+        [B, k]) for this arena."""
+        if self.cfg.async_decode:
+            raise ValueError("speculative pairs run propose/verify in "
+                             "lockstep: async decode windows cannot overlap "
+                             "them (SpecPair rejects async_decode)")
+        if k < 2:
+            raise ValueError(f"spec window k must be >= 2, got {k}")
+        if self._spec_k == 0:
+            self._spec_k = k
+        if self._spec_k != k:
+            raise ValueError(f"spec window is fixed per arena (have k="
+                             f"{self._spec_k}, asked {k})")
+
+    def _spec_step(self, tokens, positions, act):
+        """One speculative position: the monolithic ``decode_step`` that
+        target-only greedy runs, its cache writes gated by ``act`` (the
+        paged write mask, or the contiguous rows' ``write_mask``).  Returns
+        the greedy tokens [B]."""
+        if self.page_alloc is not None:
+            logits, _, self.cache = self.model.decode_step(
+                self.params, self.cache, tokens, positions,
+                paged=PagedKV(self._tbl_dev(), act))
+        else:
+            logits, _, self.cache = self.model.decode_step(
+                self.params, self.cache, tokens, positions, write_mask=act)
+        return torch.argmax(logits, dim=-1)
+
+    def _spec_readback(self, t) -> np.ndarray:
+        """A speculation stage's one readback; the wait counts as device
+        time (``device_ms_total``), as a decode step's readback does."""
+        t0 = time.perf_counter()
+        out = t.cpu().numpy()
+        self.device_ms_total += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def spec_window_lens(self) -> np.ndarray:
+        """Per-slot verify window ``min(k, max_new - steps_taken)`` (0 for
+        idle slots): positions never pass ``prompt + max_new - 1``, so
+        every speculated write stays inside the slot's admission-reserved
+        pages."""
+        win = np.zeros(self.cfg.n_slots, np.int32)
+        for slot in np.nonzero(self.active)[0]:
+            r = self.slot_req[slot]
+            win[slot] = min(self._spec_k,
+                            int(r.max_new - self.steps_taken[slot]))
+        return win
+
+    def spec_propose(self, win_len: np.ndarray) -> np.ndarray:
+        """Draft side of a round: step j feeds the running token at
+        ``pos + j`` while ``active & (j < win_len)`` and emits the next
+        greedy draft; the k-th step feeds the last draft so its KV row is
+        written (after a full accept the resynced draft would otherwise
+        attend to a hole).  Positions and commit state stay untouched (the
+        driver resyncs this arena from the target).  Returns [B, k]
+        drafts: column j is the draft for window position j + 1."""
+        if not self._spec_k:
+            raise RuntimeError("ensure_spec(k) first")
+        run = self.active & (win_len > 0)
+        dev = self._upload(np.stack([
+            self.current_tok.astype(np.int64), self.positions,
+            run.astype(np.int64), win_len.astype(np.int64)]))
+        cur = dev[0][:, None]
+        pos0 = dev[1].to(torch.int32)
+        active_d = dev[2].bool()
+        drafts = []
+        for j in range(self._spec_k):
+            act = active_d & (j < dev[3])
+            greedy = self._spec_step(cur, pos0 + j, act)
+            cur = torch.where(act[:, None], greedy[:, None], cur)
+            drafts.append(greedy)
+        return self._spec_readback(torch.stack(drafts, 1))
+
+    def spec_verify(self, drafts: np.ndarray,
+                    win_len: np.ndarray) -> np.ndarray:
+        """Target side of a round: verify each slot's window
+        ``[current_tok, d_1 .. d_{win-1}]`` and commit the longest accepted
+        prefix plus one corrected (or bonus) token, with ``step()``'s
+        commit rules (max_new discards the trailing sample; eos finishes).
+        Step i runs while every earlier draft matched, ``act = active & ok
+        & (i < win_len)``, all on the device; one readback brings the
+        greedy tokens and each slot's count of steps that ran.  ``drafts``
+        is [B, >= k-1].  Returns the per-slot committed counts.
+
+        Committed tokens are full-depth greedy, so they equal target-only
+        greedy decode; they count in the no-exit bucket on the host."""
+        if not self._spec_k:
+            raise RuntimeError("ensure_spec(k) first")
+        k, b = self._spec_k, self.cfg.n_slots
+        run = self.active & (win_len > 0)
+        host = np.zeros((b, k + 3), np.int64)
+        host[:, 0] = self.current_tok
+        host[:, 1:k] = np.asarray(drafts)[:, :k - 1]
+        host[:, k] = self.positions
+        host[:, k + 1] = run
+        host[:, k + 2] = win_len
+        dev = self._upload(host)
+        tokens = dev[:, :k]
+        pos0 = dev[:, k].to(torch.int32)
+        active_d = dev[:, k + 1].bool()
+        ok = torch.ones_like(active_d)
+        gs, acts = [], []
+        for i in range(k):
+            act = active_d & ok & (i < dev[:, k + 2])
+            greedy = self._spec_step(tokens[:, i:i + 1], pos0 + i, act)
+            ok = ok & (greedy == tokens[:, min(i + 1, k - 1)])
+            gs.append(greedy)
+            acts.append(act)
+        out = self._spec_readback(torch.cat(
+            [torch.stack(gs, 1), torch.stack(acts, 1).sum(1, keepdim=True)],
+            1))
+        committed = np.zeros(b, np.int64)
+        for slot in np.nonzero(run)[0]:
+            r = self.slot_req[slot]
+            for j in range(int(out[slot, k])):
+                tok = int(out[slot, j])
+                self.steps_taken[slot] += 1
+                self.positions[slot] += 1
+                committed[slot] += 1
+                self.tokens_served += 1
+                self.depth_weighted_tokens += 1.0
+                self._host_exit_extra[self._n_exits] += 1
+                if self.steps_taken[slot] >= r.max_new:
+                    self._finish(slot)  # trailing sample discarded, as in
+                    break               # step(); later verified ones too
+                r.out_tokens.append(tok)
+                self.current_tok[slot] = tok
+                if r.eos_id is not None and tok == r.eos_id:
+                    self._finish(slot)
+                    break
+        self._last_segments_run = len(self._segments)
+        self._last_depth_frac = 1.0     # verify always runs full depth
+        self.spec_rounds += 1
+        self.spec_committed += int(committed.sum())
+        self._step_idx += 1
+        self._maybe_flush()
+        return committed
+
+    def spec_resync_from(self, slot: int, src, src_slot: int):
+        """Align this (draft) arena's slot with the target's commit state
+        after a verify: position, pending token and step count copy over.
+        Stale draft rows past the accept point are overwritten before any
+        read reaches them (reads are masked by position), which is why
+        SpecPair takes only position-indexed caches as drafts."""
+        self.positions[slot] = src.positions[src_slot]
+        self.current_tok[slot] = src.current_tok[src_slot]
+        self.steps_taken[slot] = src.steps_taken[src_slot]
+
     def _release_slot_pages(self, slot: int):
         """Drop the slot's block-table references; pages the prefix tree
         also holds stay resident for later prefix hits."""
@@ -1019,14 +1213,15 @@ class ContinuousBatchScheduler:
             axes.append(ax)
         return [(tuple(a.shape), a.dtype) for a in flat], axes
 
-    def prefix_keys(self) -> FrozenSet[bytes]:
+    def prefix_keys(self, model: str = "") -> FrozenSet[bytes]:
         """Digest keys of every prefix page the radix tree holds: a
         migration source skips shipping the pages whose digests are here."""
         if self.prefix_cache is None:
             return frozenset()
         return self.prefix_cache.keys()
 
-    def export_slot(self, slot: int, *, compress: bool = False,
+    def export_slot(self, slot: int, *, model: str = "",
+                    compress: bool = False,
                     skip_keys: FrozenSet[bytes] = frozenset()
                     ) -> SlotSnapshot:
         """Snapshot one active slot out of the arena.
@@ -1083,9 +1278,9 @@ class ContinuousBatchScheduler:
             payload=payload, scales=scales, payload_bytes=int(nbytes),
             paged=paged,
             page_skip=page_skip, page_used=page_used,
-            page_digests=page_digests)
+            page_digests=page_digests, model=r.model)
 
-    def slot_payload_bytes(self, slot: int) -> int:
+    def slot_payload_bytes(self, slot: int, *, model: str = "") -> int:
         """Size of the raw payload ``export_slot(slot)`` would ship, from
         the row layout and the slot's position alone (no device work): what
         a driver feeds ``compression_decision`` before exporting.  Equals
@@ -1190,17 +1385,17 @@ class ContinuousBatchScheduler:
         self._carry_valid = False      # a new live slot: fresh dispatch next
         return slot
 
-    def free_slots(self) -> List[int]:
+    def free_slots(self, model: str = "") -> List[int]:
         """Slots with no request bound (staged admissions count as bound)."""
         return [i for i in range(self.cfg.n_slots)
                 if self.slot_req[i] is None]
 
     def active_requests(self) -> List[tuple]:
-        """``[(slot, request)]`` for every in-flight decode slot."""
-        return [(i, r) for i, r in enumerate(self.slot_req)
+        """``[(model, slot, request)]`` for every in-flight decode slot."""
+        return [(r.model, i, r) for i, r in enumerate(self.slot_req)
                 if r is not None and self.active[i]]
 
-    def release_slot(self, slot: int) -> Request:
+    def release_slot(self, slot: int, *, model: str = "") -> Request:
         """Evict a slot without completing its request (the migration
         path: the request continues elsewhere from its snapshot).  The
         cache rows are left stale; an admission or ``import_slot``
@@ -1248,8 +1443,10 @@ class ContinuousBatchScheduler:
             self.flush_counters()
 
     def flush_counters(self) -> np.ndarray:
-        """Read the cumulative device exit histogram back to the host."""
-        self.exit_counts = self._counters.cpu().numpy().astype(np.int64)
+        """Read the cumulative device exit histogram back to the host, plus
+        the host-side histogram of verify-committed tokens."""
+        self.exit_counts = (self._counters.cpu().numpy().astype(np.int64)
+                            + self._host_exit_extra)
         return self.exit_counts
 
     def reset_stats(self):
@@ -1260,8 +1457,11 @@ class ContinuousBatchScheduler:
         self.sync()
         self._counters.zero_()
         self.exit_counts = np.zeros(self._n_exits + 1, np.int64)
+        self._host_exit_extra = np.zeros(self._n_exits + 1, np.int64)
         self.tokens_served = 0
         self.depth_weighted_tokens = 0.0
+        self.spec_rounds = 0
+        self.spec_committed = 0
         for name in self.stage_calls:
             self.stage_calls[name] = 0
         self.host_ms_total = 0.0
@@ -1283,10 +1483,15 @@ class ContinuousBatchScheduler:
         return st
 
     def jit_cache_sizes(self) -> Dict[str, int]:
-        """Builds of the compiled decode stages: the async window's CUDA
-        graph captures (its eager builds on the CPU), which must stay 1
-        per scheduler.  Eager stages have no entry."""
-        if not self.cfg.async_decode:
-            return {}
-        return {"decode_window": 0 if self._window is None
-                else self._window.captures}
+        """Builds of the fixed-shape decode stages, each of which must stay
+        at most 1 per scheduler: the async window's CUDA graph captures
+        (its eager builds on the CPU), and the speculative ``propose`` and
+        ``verify`` stages, fixed at one k by ``ensure_spec``.  Other eager
+        stages have no entry."""
+        sizes: Dict[str, int] = {}
+        if self.cfg.async_decode:
+            sizes["decode_window"] = (0 if self._window is None
+                                      else self._window.captures)
+        if self._spec_k:
+            sizes["propose"] = sizes["verify"] = 1
+        return sizes

@@ -23,8 +23,9 @@ without taking the trailing token (``max_new`` discards it, as the sync
 ``step()`` does); otherwise the token feeds back as ``cur`` and a token
 equal to the row's eos freezes the row.  Frozen rows keep computing
 garbage like inactive slots under the sync monolithic step (private rows
-in contiguous arenas, write-masked pages in paged ones), so greedy tokens
-stay bit-identical to the sync path's.
+in contiguous arenas; in paged ones no page write and an all-sentinel
+table, as a released slot has), so greedy tokens stay bit-identical to
+the sync path's, also where MoE capacity couples the rows.
 
 A window on the card is R graph replays, a ``non_blocking`` copy of the
 ring into a pinned host buffer of its own, and an event; the host waits
@@ -145,8 +146,13 @@ class DecodeWindow:
         s = self.sched
         st = self.state
         act = st[ALIVE] != 0
-        paged = (PagedKV(s._tbl_buf, act) if s.page_alloc is not None
-                 else None)
+        paged = None
+        if s.page_alloc is not None:
+            # a row frozen mid-window reads an all-sentinel table, as a
+            # slot the sync step has finished (and released) does: its
+            # garbage must match, because MoE capacity couples rows
+            paged = PagedKV(torch.where(act[:, None], s._tbl_buf,
+                                        s.page_alloc.n_pages), act)
         logits, ee, _ = s.model.decode_step(
             s.params, s.cache, st[CUR][:, None], st[POS].to(torch.int32),
             paged=paged)

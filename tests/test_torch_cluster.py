@@ -239,8 +239,9 @@ def test_cluster_run_matches_reference(models, ref_runs, run):
 
 def test_unported_cluster_options_are_rejected(models):
     _, _, tm, tp = models
-    with pytest.raises(ValueError):
-        ClusterConfig(spec_draft="draft")
+    # spec_draft is ported, for ModelGroup clusters only
+    with pytest.raises(ValueError, match="ModelGroup"):
+        TieredServingCluster(tm, tp, cfg=ClusterConfig(spec_draft="draft"))
     assert ClusterConfig(async_decode=True).async_decode   # ported
     with pytest.raises(ValueError, match="readback_interval"):
         TieredServingCluster(tm, tp, cfg=ClusterConfig(async_decode=True,

@@ -489,3 +489,78 @@ def test_decode_window_capture_failure_raises(cuda, monkeypatch):
         sched.poll()
     assert sched._window.graph is None and sched._window.replays == 0
     assert not sched._win_q
+
+
+def _spec_models(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    model = Model(get_config("granite-3-2b-smoke"), device=dev)
+    return model, model.init(0), model.init(7)
+
+
+@pytest.mark.parametrize("draft_seed", [0, 7], ids=["agreeable", "rejecting"])
+def test_spec_pair_matches_target_only_on_card(cuda, draft_seed):
+    """A SpecPair at granite-3-2b-smoke on the card (paged GQA through the
+    kernel) against the port's target-only monolithic greedy pool on the
+    card: the same streams, bit for bit; every page back in the pool or
+    held by the prefix cache alone."""
+    import numpy as np
+    from repro_torch.serving import (ContinuousBatchScheduler, ModelGroup,
+                                     Request, SchedulerConfig, SpecPair)
+    model, params, other = _spec_models(cuda)
+    draft = params if draft_seed == 0 else other
+    cfg = SchedulerConfig(n_slots=4, max_len=48, prefill_chunk=8,
+                          exit_threshold=0.0, segmented=False, paged=True)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 1024, int(n)) for n in (5, 12, 9, 16, 7)]
+    outs = []
+    for sched in (ContinuousBatchScheduler(model, params, cfg, device=cuda),
+                  SpecPair(ModelGroup([("d", model, draft),
+                                       ("t", model, params)]), cfg, k=4)):
+        reqs = [Request(tokens=p, max_new=12, req_id=i)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            sched.submit(r)
+        n0 = ops.LAUNCHES["paged_gqa_attention"]
+        sched.run()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["paged_gqa_attention"] > n0
+        outs.append([list(r.out_tokens) for r in reqs])
+    assert outs[0] == outs[1]
+    st = sched.spec_stats()
+    assert (st["acceptance_len"] >= 3.0) == (draft_seed == 0)
+    for pool in sched.pools.values():
+        assert pool.page_alloc.free_count + len(pool.prefix_cache) \
+            == pool.page_alloc.n_pages
+
+
+def test_spec_verify_round_on_card(cuda):
+    """One verify round on the card: a window whose second draft is
+    wrong commits two tokens (the accepted draft and the correction),
+    equal to target-only greedy, and the round runs k steps of the paged
+    kernel (one launch a layer a step)."""
+    import numpy as np
+    from repro_torch.serving import (ContinuousBatchScheduler, Request,
+                                     SchedulerConfig)
+    model, params, _ = _spec_models(cuda)
+    cfg = SchedulerConfig(n_slots=1, max_len=32, prefill_chunk=8,
+                          exit_threshold=0.0, segmented=False, paged=True)
+    prompt = np.random.RandomState(4).randint(0, 1024, 8)
+    ref = ContinuousBatchScheduler(model, params, cfg, device=cuda)
+    want = Request(tokens=prompt, max_new=8)
+    ref.submit(want)
+    ref.run()
+    s = ContinuousBatchScheduler(model, params, cfg, device=cuda)
+    s.ensure_spec(4)
+    r = Request(tokens=prompt.copy(), max_new=8)
+    s.submit(r)
+    s.prefill_poll()
+    drafts = np.asarray([[want.out_tokens[1],
+                          (want.out_tokens[2] + 1) % 1024, 0]], np.int32)
+    n0 = ops.LAUNCHES["paged_gqa_attention"]
+    committed = s.spec_verify(drafts, s.spec_window_lens())
+    torch.cuda.synchronize()
+    assert int(committed[0]) == 2
+    assert r.out_tokens == want.out_tokens[:3]
+    assert ops.LAUNCHES["paged_gqa_attention"] - n0 \
+        == 4 * model.cfg.num_layers

@@ -18,6 +18,9 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.core.partition", "repro_torch.core.hierarchy",
         "repro_torch.core.offload", "repro_torch.core.resilience",
         "repro_torch.serving.cluster", "repro_torch.serving.router",
+        "repro_torch.serving.multipool", "repro_torch.configs.yi_6b",
+        "repro_torch.configs.starcoder2_3b",
+        "repro_torch.configs.mistral_nemo_12b",
         "repro_torch.kernels.feature_compress",
         "repro_torch.kernels.flash_attention"}}
 assert want <= set(names), sorted(want - set(names))
@@ -38,7 +41,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 34      # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 38      # every submodule walked
 
 
 def test_entry_points_default_to_cuda():
@@ -46,7 +49,9 @@ def test_entry_points_default_to_cuda():
     instead of falling back to the CPU."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve_poisson, serve_tiered_poisson
+    from repro_torch.launch.serve import (serve_multi_poisson,
+                                          serve_multi_tiered_poisson,
+                                          serve_poisson, serve_tiered_poisson)
     from repro_torch.models import Model
     from repro_torch.serving import ContinuousBatchScheduler
     if torch.cuda.is_available():
@@ -61,6 +66,10 @@ def test_entry_points_default_to_cuda():
         serve_poisson("granite-3-2b-smoke", n_requests=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_tiered_poisson("granite-3-2b-smoke", n_requests=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_multi_poisson(["granite-3-2b-smoke"], n_requests=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_multi_tiered_poisson(["granite-3-2b-smoke"], n_requests=1)
 
 
 def test_no_import_line_names_jax_or_reference():

@@ -362,3 +362,31 @@ def test_cluster_async_matches_reference(run):
                                    rtol=1e-9, atol=1e-12)
         _assert_greedy_equal(rm, rp, np.asarray(cr.req.tokens, np.int32),
                              cr.req.out_tokens, rc.req.out_tokens)
+
+
+def test_async_frozen_rows_route_as_sync_inactive_rows():
+    """deepseek-v3-671b-smoke, paged, 16 slots closed loop with max_new
+    from 4 to 12: rows finish mid-window, and at 16 slots the MoE drops
+    assignments past an expert's capacity, so a frozen row's garbage
+    competes with live rows.  A frozen row reads an all-sentinel block
+    table, as a slot the sync step has released does, so the async tokens
+    equal the sync monolithic poll's bit for bit."""
+    _, _, tm, tp = _models(DEEPSEEK)
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, tm.cfg.vocab_size, int(rs.randint(4, 17)))
+               for _ in range(16)]
+    max_news = [4 + j // 2 for j in range(16)]
+    outs = []
+    for async_decode in (False, True):
+        s = ContinuousBatchScheduler(tm, tp, SchedulerConfig(
+            n_slots=16, max_len=32, prefill_chunk=16, exit_threshold=0.0,
+            segmented=False, paged=True, async_decode=async_decode,
+            readback_interval=4), device="cpu")
+        reqs = [Request(tokens=p, max_new=n, req_id=j)
+                for j, (p, n) in enumerate(zip(prompts, max_news))]
+        for r in reqs:
+            s.submit(r)
+        s.run()
+        outs.append([list(r.out_tokens) for r in reqs])
+    assert outs[0] == outs[1]
+    assert [len(o) for o in outs[1]] == max_news
