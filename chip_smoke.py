@@ -8,14 +8,18 @@ Phases, each fatal on failure:
      CUDA kernel of the port with nvcc from the sources in this checkout;
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, with its time, its plain version's time, one library call's
-     time and its bound (CUDA events); then at the dense configs' shapes:
+     time and its bound (CUDA events); then at the other configs' shapes:
      paged GQA at yi-6b's and mistral-nemo-12b's heads (32 of 128 over 4
-     and 8 kv heads), the exit head at their vocab widths, flash attention
-     at starcoder2-3b's (8192 tokens, 24 / 2 heads of 128, window 4096);
+     and 8 kv heads) and zamba2-1.2b's (16 slots, 32 of 64 over 32, G 1),
+     the exit head at their vocab widths (zamba2's 32,000 on 16 rows),
+     flash attention at starcoder2-3b's (8192 tokens, 24 / 2 heads of
+     128, window 4096) and zamba2-1.2b's (2 x 2048 tokens, 32 / 32 heads
+     of 64, causal);
   3. small-input references: granite-3-2b-smoke, deepseek-v3-671b-smoke,
-     yi-6b-smoke and mistral-nemo-12b-smoke paged decode, and
-     starcoder2-3b-smoke on its contiguous ring past the window, on the
-     card (kernels) against the same weights on the CPU (plain versions);
+     yi-6b-smoke, mistral-nemo-12b-smoke and zamba2-1.2b-smoke paged
+     decode, and starcoder2-3b-smoke on its contiguous ring past the
+     window, on the card (kernels) against the same weights on the CPU
+     (plain versions);
   4. the main path at full width: granite-3-2b (40 layers, random seeded
      weights) serving a Poisson trace through ``serve_poisson`` with the
      paged KV arena and depth-segmented decode; both kernels' launch counts
@@ -31,7 +35,7 @@ Phases, each fatal on failure:
      poll under ``torch.cuda.set_sync_debug_mode("error")`` (the ring wait
      is an event wait); (c) sampled decode at T 0.7: two runs from the
      same generator seed give the same in-vocabulary tokens; (d) a Poisson
-     run of 32 requests at 16 req/s (prompts 16-64, max_new 128) through
+     run of 32 requests at 16 req/s (prompts 16-64, max_new 64) through
      ``serve_poisson``, sync segmented and then async, with tok/s, p50/p95
      and host and readback ms per decode step; then ``profile_decode``
      splits a decode step into host and device time, sync and windowed;
@@ -63,7 +67,7 @@ Phases, each fatal on failure:
      that check and a planted fault (P in fp8 before P V) must fail it;
   8. multi-model pools and speculative pairs at full width: (a) one
      ``MultiModelScheduler`` serving granite-3-2b, yi-6b and
-     mistral-nemo-12b (seeds 0, 1, 2) through ``serve_multi_poisson``, 12
+     mistral-nemo-12b (seeds 0, 1, 2) through ``serve_multi_poisson``, 6
      Poisson requests round-robin, paged and segmented, 8 slots a model;
      each model's streams must equal a dedicated scheduler's bit for bit
      and both kernels must launch for every model; (b) a ``SpecPair`` at k
@@ -72,7 +76,23 @@ Phases, each fatal on failure:
      greedy pool, acceptance at least 2.5 with shared params; (c) the
      tiered cluster over a ``ModelGroup`` with ``spec_draft``, where every
      request must route speculative, match target-only greedy, and feed
-     its measured acceptance (at least 4 at k 6) back to the router.
+     its measured acceptance (at least 4 at k 6) back to the router;
+  9. the hybrid family and the engine at full width: zamba2-1.2b (38
+     Mamba2 layers, one shared attention block at 6 sites, random seeded
+     weights).  (a) ``serve_poisson``, paged and segmented, 16 slots, 24
+     requests at 8 req/s, prompts 32-128 (a quarter sharing a prefix that
+     must never hit: the arena has no prefix cache), 16 new: the paged-GQA
+     (G 1) and exit-head (V 32,000) counts must rise and each kernel is
+     held against its plain version on a live input; ``profile_decode``
+     and the Mamba layers' share of a step's device time.  (b) a closed
+     loop of 24 requests on 8 slots (slots reused, state rows reset; rows
+     finishing mid-window), sync monolithic then windows of 8: tokens
+     equal (a top-2 tie under 1e-2 the only excuse), one capture.  (c) one
+     ``Model.forward`` over 2 x 2048 tokens (6 flash launches) and its
+     argmax against the decode replay on 2 x 256.  (d) ``ServingEngine``:
+     ``generate`` on 8 x 64 prompts equal to the scheduler bit for bit,
+     the tiered engine equal to the single pool, and an adaptive async
+     engine whose threshold moves up with one capture.
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
@@ -636,7 +656,7 @@ def main(argv=None):
     check_smoke_vs_cpu(torch, "granite-3-2b-smoke")
     check_smoke_vs_cpu(torch, "deepseek-v3-671b-smoke")
     for arch in ("yi-6b-smoke", "starcoder2-3b-smoke",
-                 "mistral-nemo-12b-smoke"):
+                 "mistral-nemo-12b-smoke", "zamba2-1.2b-smoke"):
         check_smoke_vs_cpu(torch, arch)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=True)
@@ -663,7 +683,7 @@ def main(argv=None):
     ops.paged_gqa_attention = capturing("paged_gqa_attention", 997)
     ops.exit_head_entropy = capturing("exit_head_entropy", 53)
     print("main path: granite-3-2b, 40 layers, random weights (seed 0), "
-          "paged + segmented, 16 slots, 32 requests")
+          "paged + segmented, 16 slots, 32 requests, prompts 32-128 tokens")
     print("  random weights give near-flat logits (normalized entropy ~1), "
           "so exits at threshold 0.5 will rarely fire; both probes still "
           "run on every decode step")
@@ -671,8 +691,8 @@ def main(argv=None):
     t0 = time.time()
     stats = serve_poisson(
         "granite-3-2b", rate=16.0, n_requests=32, slots=16,
-        prompt_len=256, max_new=32, threshold=0.5, paged=True,
-        page_size=16, segmented=True, prefix_share=0.25, prefix_len=128,
+        prompt_len=128, max_new=32, threshold=0.5, paged=True,
+        page_size=16, segmented=True, prefix_share=0.25, prefix_len=64,
         seed=0, device="cuda", quiet=True)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
@@ -755,6 +775,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     multi, multi_launches = run_multi(torch, ops)
 
+    # ---- phase 9: the hybrid zamba2 family and the engine -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    z2, z2_launches = run_zamba2(torch, ops, ref, results)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -803,6 +828,8 @@ def main(argv=None):
             kernels[-1]["shapes"] = r["shapes"]
         kernels[-1]["phase8_launches"] = {
             part: n[kname] for part, n in multi_launches.items()}
+        kernels[-1]["phase9_launches"] = {
+            part: n[kname] for part, n in z2_launches.items()}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -810,7 +837,7 @@ def main(argv=None):
             json.dump({"card": card_line, "kernels": kernels,
                        "serve": stats, "async_decode": windows,
                        "tiered": tiered, "deepseek": ds, "forward": fwd,
-                       "multi": multi},
+                       "multi": multi, "zamba2": z2},
                       f, indent=1)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
@@ -820,22 +847,26 @@ def main(argv=None):
 
 
 def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
-    """Phase 2 at the shapes the dense configs give the kernels (yi-6b,
-    mistral-nemo-12b and starcoder2-3b at their published widths): each
-    kernel against its plain version, then timed three times interleaved
-    with its library call.  Adds a sub-row per shape under
+    """Phase 2 at the shapes the other configs give the kernels (yi-6b,
+    mistral-nemo-12b, starcoder2-3b and zamba2-1.2b at their published
+    widths): each kernel against its plain version, then timed three times
+    interleaved with its library call.  Adds a sub-row per shape under
     ``results[kernel]["shapes"]``."""
     from repro_torch.kernels import exit_head, paged_attention, paged_mla
     prep, sdpa = ab.sdpa_gathered()
-    # paged GQA, 8 slots, 32 query heads of 128, pages of 16, pos < 2048
-    for label, nkv in (("yi-6b", 4), ("mistral-nemo-12b", 8)):
-        sets = ab.paged_inputs(gen, 8, 32, nkv, 128, 16, 128, 2048, 4)
+    # paged GQA, 32 query heads, pages of 16, pos < 2048: 8 slots of 128
+    # heads over 4 and 8 kv heads, and zamba2's shared attention (row 1c):
+    # 16 slots of 64 over 32 kv heads (G 1)
+    for label, b, nkv, hd in (("yi-6b", 8, 4, 128),
+                              ("mistral-nemo-12b", 8, 8, 128),
+                              ("zamba2-1.2b", 16, 32, 64)):
+        sets = ab.paged_inputs(gen, b, 32, nkv, hd, 16, 128, 2048, 4)
         a = sets[0]
         got = ops.paged_gqa_attention(*a)
         want = ref.paged_gqa_attention_ref(*a)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        plan = paged_attention.plan(8, nkv, 128, paged_mla.sm_count("cuda"))
+        plan = paged_attention.plan(b, nkv, 128, paged_mla.sm_count("cuda"))
         print(f"paged_gqa_attention {label} q {tuple(a[0].shape)} Nkv {nkv}:"
               f" max_abs_err {err:.3e} (tol {PAGED_TOL}); plan {plan}")
         if not math.isfinite(err) or err > PAGED_TOL:
@@ -857,20 +888,22 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
             results["paged_gqa_attention"]["max_abs_err"], err)
         print(f"  {json.dumps(row)}")
         del sets, lib_args
-    # the exit head's aligned instance at yi-6b's and mistral-nemo-12b's
-    # vocab widths, 8 rows
+    # the exit head's aligned instance at the vocab widths of yi-6b and
+    # mistral-nemo-12b (8 rows), and of zamba2-1.2b's probes (16 rows,
+    # row 2c)
     lib = entropy_library(torch)
-    for label, d, v in (("yi-6b", 4096, 64000),
-                        ("mistral-nemo-12b", 5120, 131072)):
-        x = torch.randn(8, d, generator=gen, device="cuda").bfloat16()
+    for label, t, d, v in (("yi-6b", 8, 4096, 64000),
+                           ("mistral-nemo-12b", 8, 5120, 131072),
+                           ("zamba2-1.2b", 16, 2048, 32000)):
+        x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(d, v, generator=gen, device="cuda")
              / math.sqrt(d)).bfloat16()
         got = ops.exit_head_entropy(x, w)
         want = ref.exit_head_entropy_ref(x, w)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        inst = exit_head.plan(8, d, v, w.data_ptr())["instance"]
-        print(f"exit_head_entropy {label} [8, {d}] x [{d}, {v}]: max_abs_err "
+        inst = exit_head.plan(t, d, v, w.data_ptr())["instance"]
+        print(f"exit_head_entropy {label} [{t}, {d}] x [{d}, {v}]: max_abs_err "
               f"{err:.3e} (tol {ENT_TOL}), instance {inst}")
         if not math.isfinite(err) or err > ENT_TOL:
             fail(f"exit_head_entropy disagrees with its plain version at "
@@ -927,11 +960,36 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
     print(f"  sdpa (boolean mask) agrees to {lib_err:.3e}; "
           f"{json.dumps(row)}")
     del sets, mask
+    # flash at zamba2-1.2b's shared attention (row 6b): 32 query heads
+    # over 32 kv heads of 64 (G 1), 2 x 2048 tokens, causal
+    sets = flash_inputs(torch, gen, 2, 2048, 32, 32, 64, sets=2)
+    err = check_flash(torch, ops, ref, sets[0], True, 0, "zamba2-1.2b")
+    lib = sdpa_flash(F)
+
+    def flash_causal(q, k, v):
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def flash_causal_plain(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=True)
+    spread = interleaved_ms(torch, flash_causal, lib, sets, iters=10)
+    print_spread("flash_attention zamba2-1.2b", spread)
+    bound_ms, by = flash_bound(make_mask, sets[0][0], sets[0][1], True, 0)
+    row = {"q": list(sets[0][0].shape), "kv": list(sets[0][1].shape),
+           "window": 0, "max_abs_err": err,
+           "ms": spread["kernel"]["median"],
+           "plain_ms": device_ms(torch, flash_causal_plain, sets, iters=2),
+           "library_ms": spread["library"]["median"],
+           "bound_ms": bound_ms, "bound_by": by}
+    results["flash_attention"]["shapes"]["zamba2-1.2b"] = row
+    results["flash_attention"]["max_abs_err"] = max(
+        results["flash_attention"]["max_abs_err"], err)
+    print(f"  {json.dumps(row)}")
+    del sets
 
 
 ASYNC_R = 8            # decode steps a window (phase 4b)
 ASYNC_SLOTS = 16
-ASYNC_MAX_NEW = 64     # closed loop; the Poisson run takes 128
+ASYNC_MAX_NEW = 64     # closed loop; the Poisson run takes 64 too
 
 
 def tie_gap(torch, model, params, prompt, got, want):
@@ -1108,12 +1166,14 @@ def run_async(torch, ops):
                       ("async", dict(async_decode=True,
                                      readback_interval=ASYNC_R))):
         st = serve_poisson("granite-3-2b", rate=16.0, n_requests=32,
-                           slots=ASYNC_SLOTS, prompt_len=64, max_new=128,
+                           slots=ASYNC_SLOTS, prompt_len=64,
+                           max_new=ASYNC_MAX_NEW,
                            threshold=0.5, paged=True, seed=0, params=params,
                            device="cuda", quiet=True, **kw)
         outs = st.pop("outputs")
-        if len(outs) != 32 or any(len(o) != 128 for o in outs):
-            fail(f"(d) {label}: not every request produced 128 tokens")
+        if len(outs) != 32 or any(len(o) != ASYNC_MAX_NEW for o in outs):
+            fail(f"(d) {label}: not every request produced "
+                 f"{ASYNC_MAX_NEW} tokens")
         n = max(1, st["decode_steps"])
         st["host_ms_per_decode_step"] = (st["host_ms"]
                                          - st["prefill_ms"]) / n
@@ -1695,11 +1755,11 @@ def run_deepseek(torch, ops, ref, results, exit_ds):
 
 
 MULTI_ARCHS = ("granite-3-2b", "yi-6b", "mistral-nemo-12b")
-MULTI_TRACE = dict(rate=8.0, n_requests=12, slots=8, prompt_len=96,
+MULTI_TRACE = dict(rate=8.0, n_requests=6, slots=8, prompt_len=96,
                    max_new=16, threshold=0.5, prefill_chunk=16,
                    max_prefill_chunks=2, paged=True, page_size=16,
                    segmented=True, seed=0)
-SPEC_TRACE = dict(slots=8, requests=8, prompt=(32, 64), max_new=32, k=4)
+SPEC_TRACE = dict(slots=8, requests=8, prompt=(32, 64), max_new=16, k=4)
 BRIDGE_TRACE = dict(requests=4, prompt=(6, 12), max_new=16, k=6)
 
 
@@ -2034,6 +2094,422 @@ def run_deepseek_async(torch, ops, model, params):
           f"replays, one capture; launches a replay "
           f"{out['async']['per_replay']})")
     return out
+
+
+Z2_TRACE = dict(rate=8.0, n_requests=24, slots=16, prompt_len=128,
+                max_new=16, threshold=0.5, paged=True, page_size=16,
+                segmented=True, prefix_share=0.25, prefix_len=64, seed=0)
+Z2_LOOP = dict(requests=24, slots=8, readback_interval=8)
+Z2_FWD = (2, 2048)         # phase 9 (c)'s forward; its replay readings take
+Z2_REPLAY = 128            # the first 128 tokens of each row, the SSD check
+Z2_SSD = 512               # the first 512
+SSD_TOL = 2e-2     # of max(1, |ref|): bf16 mixer outputs of two orders of
+                   # fp32 arithmetic (the chunked dual and the recurrence),
+                   # rounded once each; as tests/test_torch_hybrid.py
+SSD_STATE_TOL = 5e-3   # of max(1, |ref|): fp32 final states summed from
+                       # bf16 conv outputs (x, B) that the two paths round
+                       # from taps added in another order, so some sit one
+                       # bf16 ulp (2^-8 relative) apart (6.6e-4 at full
+                       # width on the CPU)
+
+
+def run_zamba2(torch, ops, ref, results):
+    """Phase 9 (see the module docstring).  Returns a summary and the
+    launch counts of each part."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import Scenario
+    from repro_torch.launch.profile_decode import profile_decode
+    from repro_torch.launch.serve import serve_poisson
+    from repro_torch.models import Model
+    from repro_torch.models import blocks as B
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serving import (ContinuousBatchScheduler, Request,
+                                     SchedulerConfig, ServeConfig,
+                                     ServingEngine)
+    t_phase = time.time()
+    cfg = get_config("zamba2-1.2b")
+    tr = Z2_TRACE
+    model = Model(cfg, device="cuda")
+    params = model.init(tr["seed"])
+    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    slot_state = sum(t[:, 0].numel() * t.element_size() for t in tree_leaves(
+        model.init_decode_cache_paged(1, 1, 16)["blocks"]))
+    print(f"hybrid path: zamba2-1.2b (arXiv:2411.15242) at its published "
+          f"widths: {cfg.num_layers} Mamba2 layers, d_model {cfg.d_model}, "
+          f"state {cfg.ssm.state_size}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"shared-attention heads of {cfg.resolved_head_dim} at "
+          f"{len(B.shared_attn_sites(cfg))} sites, vocab {cfg.vocab_size}, "
+          f"exits after layers {cfg.exits.exit_layers}; random weights "
+          f"(seed 0, {pbytes / 1e9:.2f} GB), state rows "
+          f"{slot_state / 1e6:.1f} MB a slot")
+    out = {"param_bytes": pbytes, "state_bytes_per_slot": slot_state}
+    launches = {}
+
+    # (a) serve_poisson, paged and segmented; live kernel inputs captured
+    captured = {}
+    orig = {"paged_gqa_attention": ops.paged_gqa_attention,
+            "exit_head_entropy": ops.exit_head_entropy}
+    calls = dict.fromkeys(orig, 0)
+
+    def capturing(kname, every):
+        def wrapper(*a):
+            calls[kname] += 1
+            if calls[kname] % every == 0:
+                captured[kname] = tuple(
+                    t.clone() if t.numel() * t.element_size() < 2 ** 26
+                    else t for t in a)
+            return orig[kname](*a)
+        setattr(ops, kname, wrapper)
+    capturing("paged_gqa_attention", 211)
+    capturing("exit_head_entropy", 13)
+    ops.reset_launches()
+    t0 = time.time()
+    st = serve_poisson(cfg, params=params, device="cuda", quiet=True,
+                       n_requests=tr["n_requests"], rate=tr["rate"],
+                       slots=tr["slots"], prompt_len=tr["prompt_len"],
+                       max_new=tr["max_new"], threshold=tr["threshold"],
+                       paged=tr["paged"], page_size=tr["page_size"],
+                       segmented=tr["segmented"],
+                       prefix_share=tr["prefix_share"],
+                       prefix_len=tr["prefix_len"], seed=tr["seed"])
+    torch.cuda.synchronize()
+    launches["serve"] = dict(ops.LAUNCHES)
+    wall = time.time() - t0
+    for kname, fn in orig.items():
+        setattr(ops, kname, fn)
+    outs = st.pop("outputs")
+    print(f"  (a) served {tr['n_requests']} requests at {tr['rate']} req/s, "
+          f"prompts {tr['prompt_len'] // 4}-{tr['prompt_len']} tokens "
+          f"({tr['prefix_share']:.2f} sharing a {tr['prefix_len']}-token "
+          f"prefix), {tr['max_new']} new, {tr['slots']} slots, paged + "
+          f"segmented, threshold {tr['threshold']}: {wall:.1f}s with "
+          f"warm-up; {st['sustained_tok_s']:.2f} tok/s, p50 "
+          f"{st['p50_latency_s'] * 1e3:.0f} ms, p95 "
+          f"{st['p95_latency_s'] * 1e3:.0f} ms, makespan "
+          f"{st['makespan_s']:.2f} s, prefix_hit_tokens "
+          f"{st['prefix_hit_tokens']}; launches {launches['serve']}")
+    if len(outs) != tr["n_requests"] or any(
+            len(o) != tr["max_new"] or not all(0 <= t < cfg.vocab_size
+                                               for t in o) for o in outs):
+        fail("phase 9 (a): a stream is short or out of the vocabulary")
+    if st["prefix_hit_tokens"] or st["prefill_chunks_skipped"]:
+        fail("phase 9 (a): a hybrid arena skipped prefill through a prefix")
+    for kname in orig:
+        if launches["serve"][kname] <= 0:
+            fail(f"phase 9 (a): {kname} was not launched")
+        if kname not in captured:
+            fail(f"phase 9 (a): no live call of {kname} was captured")
+    for kname, tol, plain in (
+            ("paged_gqa_attention", PAGED_TOL, ref.paged_gqa_attention_ref),
+            ("exit_head_entropy", ENT_TOL, ref.exit_head_entropy_ref)):
+        a = captured[kname]
+        got = orig[kname](*a).float()
+        err = (got - plain(*a).float()).abs().max().item()
+        print(f"  live {kname} {[tuple(t.shape) for t in a]}: max_abs_err "
+              f"{err:.3e} (tol {tol})")
+        if not torch.isfinite(got).all() or err > tol:
+            fail(f"phase 9 (a): {kname} disagrees with its plain version "
+                 f"on live zamba2 inputs")
+        results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"],
+                                            err)
+    del captured
+    out["serve"] = st
+    prof = profile_decode(cfg, slots=tr["slots"], prompt_len=128, steps=4,
+                          seed=tr["seed"], params=params)
+    # the Mamba layers' share of a step's device time: one mamba decode
+    # layer at 16 slots under the same profiler (kernel time summed, as
+    # profile_decode sums a step's), times the layer count; and the
+    # layer's time between CUDA events, gaps between its kernels included
+    lp = tree_map(lambda t: t[0], params["blocks"][0])
+    cache = B.init_layer_cache(cfg, "mamba", tr["slots"], 0, "cuda")
+    x = torch.randn(tr["slots"], 1, cfg.d_model, device="cuda").bfloat16()
+    keep = torch.ones(tr["slots"], dtype=torch.bool, device="cuda")
+
+    def layer(x, cache):
+        return B.decode_layer(cfg, "mamba", lp, x, cache, 0, 0,
+                              write_mask=keep)
+    event_ms = device_ms(torch, layer, [(x, cache)], iters=20)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as lprof:
+        for _ in range(10):
+            layer(x, cache)
+        torch.cuda.synchronize()
+    kern = [e for e in lprof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    layer_ms = sum(e.self_device_time_total for e in kern) / 1e3 / 10
+    layer_kernels = sum(e.count for e in kern) / 10
+    mamba_ms = layer_ms * cfg.num_layers
+    share = mamba_ms / prof["device_ms_per_step"]
+    print(f"  profile_decode (16 slots, 128-token prompts, 4 steps): host "
+          f"wall {prof['wall_ms_per_step']:.2f} ms/step, device "
+          f"{prof['device_ms_per_step']:.3f} ms/step, busy "
+          f"{prof['device_busy_share'] * 100:.1f} %, "
+          f"{prof['cuda_kernels_per_step']:.0f} CUDA kernels/step; one "
+          f"mamba decode layer {layer_ms:.4f} ms of kernels "
+          f"({layer_kernels:.0f} kernels; {event_ms:.4f} ms between CUDA "
+          f"events) x {cfg.num_layers} = {mamba_ms:.3f} ms, "
+          f"{share * 100:.1f} % of the step's device time; the port's "
+          f"kernels a step "
+          f"{[(k['name'][:40], round(k['ms_per_step'], 4), k['calls_per_step']) for k in prof['port_kernels']]}")
+    out["profile_decode"] = prof
+    out["mamba_layer"] = {"kernel_ms": layer_ms, "event_ms": event_ms,
+                          "kernels": layer_kernels}
+    out["mamba_share"] = share
+    del cache, x
+
+    # (b) closed loop on 8 slots: slots reused (state rows reset), rows
+    # finishing mid-window; the sync monolithic poll, then windows of 8
+    lo = Z2_LOOP
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(16, 65)))
+               for _ in range(lo["requests"])]
+    max_news = [int(rs.randint(8, 25)) for _ in range(lo["requests"])]
+    streams = {}
+    for label, async_decode in (("sync", False), ("async", True)):
+        sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
+            n_slots=lo["slots"], max_len=96, prefill_chunk=16,
+            exit_threshold=0.5, segmented=False, paged=True,
+            async_decode=async_decode,
+            readback_interval=lo["readback_interval"]), device="cuda")
+        if sched.prefix_cache is not None:
+            fail("phase 9 (b): a hybrid arena holds a prefix cache")
+        reqs = [Request(tokens=p, max_new=n, req_id=j)
+                for j, (p, n) in enumerate(zip(prompts, max_news))]
+        for r in reqs:
+            sched.submit(r)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        while sched.has_work:
+            sched.poll()
+        torch.cuda.synchronize()
+        streams[label] = [list(r.out_tokens) for r in reqs]
+        out[f"loop_{label}"] = {"wall_s": time.perf_counter() - t0,
+                                "committed_steps": sched._step_idx,
+                                "admitted": sched.n_admitted,
+                                "launches": dict(ops.LAUNCHES),
+                                "builds": sched.jit_cache_sizes()}
+        if async_decode:
+            w = sched._window
+            out["loop_async"].update(replays=w.replays, captures=w.captures,
+                                     per_replay=w.per_replay)
+        del sched
+    launches["loop"] = out["loop_async"]["launches"]
+    ties = []
+    for j, (got, want) in enumerate(zip(streams["async"], streams["sync"])):
+        if len(got) != max_news[j]:
+            fail(f"phase 9 (b) request {j}: {len(got)} tokens")
+        if got == want:
+            continue
+        # a first difference must sit at a top-2 tie of a batch-1 replay,
+        # either way round
+        k, gap = tie_gap(torch, model, params, prompts[j], got, want)
+        print(f"  (b) request {j} differs at token {k}: fp32 top-2 gap "
+              f"{gap:.3e}")
+        if not abs(gap) < LOGIT_TIE:
+            fail(f"phase 9 (b) request {j}: tokens differ (no tie)")
+        ties.append({"req": j, "token": k, "gap": gap})
+    out["loop_ties"] = ties
+    if out["loop_async"]["captures"] != 1:
+        fail(f"phase 9 (b): {out['loop_async']['captures']} captures")
+    if out["loop_async"]["launches"]["paged_gqa_attention"] <= 0:
+        fail("phase 9 (b): no paged-attention launch in the windows")
+    print(f"  (b) closed loop of {lo['requests']} requests on {lo['slots']} "
+          f"slots (prompts 16-64, max_new 8-24): "
+          f"{lo['requests'] - len(ties)} streams bit-identical to the sync "
+          f"monolithic poll, {len(ties)} ties; one capture; "
+          f"{out['loop_sync']['wall_s']:.2f} s sync against "
+          f"{out['loop_async']['wall_s']:.2f} s with windows of "
+          f"{lo['readback_interval']} ({out['loop_async']['replays']} "
+          f"replays, launches a replay {out['loop_async']['per_replay']})")
+
+    # (c) one Model.forward over 2 x 2048 tokens, then its argmax against
+    # the decode replay on the first 256 tokens of each row
+    b, s = Z2_FWD
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    model.forward(params, {"tokens": toks})           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    ops.reset_launches()
+    e0.record()
+    fwd = model.forward(params, {"tokens": toks})
+    e1.record()
+    torch.cuda.synchronize()
+    launches["forward"] = dict(ops.LAUNCHES)
+    dev_ms = e0.elapsed_time(e1)
+    finite = bool(torch.isfinite(fwd.logits).all()) and all(
+        bool(torch.isfinite(e).all()) for e in fwd.exit_logits)
+    n_sites = len(B.shared_attn_sites(cfg))
+    print(f"  (c) Model.forward {b} x {s} tokens: {dev_ms:.1f} ms device "
+          f"(CUDA events), {b * s / dev_ms * 1e3:.0f} tokens/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, finite "
+          f"{finite}; launches {launches['forward']}")
+    if not finite:
+        fail("phase 9 (c): the forward's logits are not finite")
+    if launches["forward"]["flash_attention"] != n_sites:
+        fail(f"phase 9 (c): {launches['forward']['flash_attention']} flash "
+             f"launches, not one a shared-attention site ({n_sites})")
+    del fwd
+    # the chunked SSD against the O(1) recurrence at full width: layer 0's
+    # mixer on real normed embeddings, 2 x 512 tokens (two chunks, so the
+    # scan across chunks is read); a planted fault, the second chunk run
+    # without its carried state, must fail the same check
+    from repro_torch.models import ssm
+    from repro_torch.models.common import apply_norm
+    lp0 = tree_map(lambda t: t[0], params["blocks"][0])
+    xs = apply_norm(cfg.norm, model.embed_decode_tokens(
+        params, toks[:, :Z2_SSD]), lp0["ln"])
+    y_fwd, st_fwd = ssm.mamba2_forward(cfg, lp0["mamba"], xs)
+    st, cv = ssm.init_mamba2_state(cfg, b, "cuda")
+    ys = []
+    for t in range(Z2_SSD):
+        y, st, cv = ssm.mamba2_decode(cfg, lp0["mamba"], xs[:, t:t + 1], st,
+                                      cv)
+        ys.append(y)
+    y_dec = torch.cat(ys, dim=1).float()
+
+    def rel(a, w):
+        return ((a.float() - w).abs() / w.abs().clamp(min=1)).max().item()
+    half = Z2_SSD // 2
+    y_cut, _ = ssm.mamba2_forward(cfg, lp0["mamba"], xs[:, half:])
+    ssd = {"y_err": rel(y_fwd, y_dec), "state_err": rel(st_fwd, st),
+           "control_err": rel(y_cut, y_dec[:, half:])}
+    print(f"  (c) Mamba2 layer 0, chunked SSD vs the recurrence ({b} x "
+          f"{Z2_SSD} tokens, chunks of {cfg.ssm.chunk_size}): outputs "
+          f"{ssd['y_err']:.3e} of max(1, |ref|) (tol {SSD_TOL}), final state "
+          f"{ssd['state_err']:.3e} (tol {SSD_STATE_TOL}); control (second "
+          f"chunk without its carried state) {ssd['control_err']:.3e}, must "
+          f"exceed {SSD_TOL}")
+    if not (ssd["y_err"] <= SSD_TOL and ssd["state_err"] <= SSD_STATE_TOL):
+        fail("phase 9 (c): the chunked SSD disagrees with the recurrence")
+    if not ssd["control_err"] > SSD_TOL:
+        fail("phase 9 (c): the SSD check passes a planted fault")
+    del xs, y_fwd, y_dec, y_cut, ys
+    # the forward against the decode replay, measured on an fp32 forward:
+    # reported, not gated (at 38 random-weight Mamba2 layers every bf16
+    # path sits far from the fp32 forward, and a planted attention fault
+    # reads the same; PERF.md, PR 20)
+    small = {"tokens": toks[:, :Z2_REPLAY]}
+    got = model.forward(params, small).logits
+    replay, _ = model.prefill(params, small)
+    kernel = ops.flash_attention
+    ops.flash_attention = (lambda q, k, v, causal=True, window=0:
+                           ref.flash_attention_ref(q, k, v, causal=causal,
+                                                   window=window))
+    exact = model.forward(tree_map(lambda t: t.float(), params),
+                          small).logits
+    ops.flash_attention = kernel
+    a_f, a_r = got.argmax(-1), replay.argmax(-1)
+    gap = (exact.gather(-1, a_f[..., None])
+           - exact.gather(-1, a_r[..., None])).abs()[..., 0]
+    flips = int((a_f != a_r).sum())
+    hard = int((gap >= REPLAY_TIE).sum())
+    max_diff = (got - replay).abs().max().item()
+    dev_f = (got - exact).abs().mean().item()
+    dev_r = (replay - exact).abs().mean().item()
+    print(f"  (c) forward vs decode replay ({b} x {Z2_REPLAY} tokens): "
+          f"logits max abs diff {max_diff:.3e}; argmax differs at {flips} "
+          f"of {a_f.numel()} positions, {hard} at fp32 gaps >= "
+          f"{REPLAY_TIE}; mean deviation from the fp32 forward {dev_f:.4f} "
+          f"(forward) and {dev_r:.4f} (replay), ratio {dev_f / dev_r:.3f}")
+    if not (math.isfinite(max_diff) and torch.isfinite(exact).all()):
+        fail("phase 9 (c): the replay or the fp32 forward is not finite")
+    out["forward"] = {"tokens": b * s, "device_ms": dev_ms, "ssd": ssd,
+                      "replay_max_diff": max_diff, "flips": flips,
+                      "hard_flips": hard, "dev_forward": dev_f,
+                      "dev_replay": dev_r}
+    del got, replay, exact
+
+    # (d) the engine: generate == a scheduler run, tiered == single pool,
+    # and an adaptive async engine keeps one capture
+    prompts = np.random.RandomState(3).randint(0, cfg.vocab_size, (8, 64))
+    eng = ServingEngine(model, params, ServeConfig(exit_threshold=0.5))
+    ops.reset_launches()
+    gen = eng.generate(prompts, max_new=16)
+    launches["engine"] = dict(ops.LAUNCHES)
+    sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
+        n_slots=8, max_len=80, exit_threshold=0.5), device="cuda")
+    reqs = [Request(tokens=p, max_new=16) for p in prompts]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    if gen.tolist() != [r.out_tokens for r in reqs]:
+        fail("phase 9 (d): ServingEngine.generate differs from the "
+             "scheduler on the same prompts")
+    del sched
+    # the tiered engine: each row is served whole by one tier's pool (the
+    # raw handoff keeps a migrated row's bits), so it must equal, bit for
+    # bit, a dedicated scheduler of that pool's shape fed the same rows.
+    # Against the single pool (8 slots of 80) it is compared too: pools of
+    # other shapes take other cuBLAS kernels, whose sums differ in the
+    # last bit, and 38 bf16 Mamba2 layers amplify that (PERF.md, PR 20)
+    tiered = ServingEngine(model, params, ServeConfig(exit_threshold=0.5),
+                           scenario=Scenario.default())
+    cl = tiered._ensure_cluster(64 + 16)
+    served = []
+    clear = cl.clear_completed
+
+    def recording_clear():
+        served.extend(cr for cr in cl.requests if cr.done)
+        clear()
+    cl.clear_completed = recording_clear
+    got = tiered.generate(prompts, max_new=16)      # served: row order
+    if len(served) != 8 or any(cr.req.out_tokens != g for cr, g in
+                               zip(served, got.tolist())):
+        fail("phase 9 (d): the tiered engine did not serve every row")
+    same_single = sum(a == b for a, b in zip(got.tolist(), gen.tolist()))
+    per_tier = {}
+    for cr in served:
+        if cr.migrations or cr.final_tier != cr.decision.tier:
+            fail("phase 9 (d): a row migrated; its pool shape is not one")
+        per_tier.setdefault(cr.final_tier, []).append(cr)
+    for tier, crs in per_tier.items():
+        ded = ContinuousBatchScheduler(model, params, cl.tiers[tier].sched.cfg,
+                                       device="cuda")
+        reqs = [Request(tokens=np.asarray(cr.req.tokens), max_new=16)
+                for cr in crs]
+        for r in reqs:
+            ded.submit(r)
+        ded.run()
+        if [r.out_tokens for r in reqs] != [cr.req.out_tokens for cr in crs]:
+            fail(f"phase 9 (d): the tiered engine's {tier} rows differ from "
+                 f"a dedicated pool of that tier's shape")
+        del ded
+    shapes = {t: (cl.tiers[t].sched.cfg.n_slots, cl.cfg.max_len)
+              for t in per_tier}
+    ada = ServingEngine(model, params, ServeConfig(
+        exit_threshold=0.5, async_decode=True, readback_interval=8))
+    ada.enable_adaptive(0.01, update_every=4)
+    got_a = ada.generate(prompts, max_new=16)
+    builds = next(iter(ada._scheds.values())).jit_cache_sizes()
+    thr = ada.controller.threshold
+    print(f"  (d) ServingEngine.generate 8 x 64 prompts, 16 new: equal to "
+          f"the scheduler bit for bit; tiered (Scenario.default, raw "
+          f"handoff, routes {tiered.route_counts}, pools (slots, max_len) "
+          f"{shapes}): every row equal to a dedicated pool of its tier's "
+          f"shape, {same_single} of 8 rows equal to the single pool; "
+          f"adaptive async engine: threshold 0.5 -> {thr:.4f}, builds "
+          f"{builds}, tokens equal to the segmented engine's: "
+          f"{got_a.tolist() == gen.tolist()}; exit stats "
+          f"{ada.exit_stats()}")
+    if not thr > 0.5 or builds != {"decode_window": 1}:
+        fail("phase 9 (d): the adaptive threshold did not move up with one "
+             "capture")
+    out["engine"] = {"routes": tiered.route_counts, "tier_shapes": shapes,
+                     "tiered_rows_equal_single_pool": same_single,
+                     "threshold": thr,
+                     "builds": builds,
+                     "async_equals_sync": got_a.tolist() == gen.tolist()}
+    del eng, tiered, cl, ada, model, params
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 9 wall time {out['wall_s']:.1f}s")
+    return out, launches
 
 
 FWD_BATCH = (8, 2048)      # phase 7's forward

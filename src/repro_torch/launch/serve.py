@@ -1,21 +1,30 @@
-"""Open-loop Poisson serving through the port: one continuous-batching
-pool, or the tiered cloud/edge/device cluster.
+"""Serving through the port: one batch through ``ServingEngine``, or
+open-loop Poisson serving through one continuous-batching pool or the
+tiered cloud/edge/device cluster.
 
-    python -m repro_torch.launch.serve --arch granite-3-2b --paged \\
-        --requests 32 --slots 16 --prompt-len 256 --max-new 32
     python -m repro_torch.launch.serve --arch granite-3-2b-smoke \\
-        --device cpu --tiered --scenario tier-outage --requests 8 \\
-        --slots 2 --prompt-len 12 --max-new 8
-    python -m repro_torch.launch.serve --arch granite-3-2b --paged \\
-        --async-decode --readback-interval 8 --requests 32 --slots 16
-    python -m repro_torch.launch.serve --device cpu --paged \\
+        --device cpu --batch 4 --prompt-len 16 --max-new 32
+    python -m repro_torch.launch.serve --mode poisson --arch granite-3-2b \\
+        --paged --requests 32 --slots 16 --prompt-len 256 --max-new 32
+    python -m repro_torch.launch.serve --mode poisson \\
+        --arch granite-3-2b-smoke --device cpu --tiered \\
+        --scenario tier-outage --requests 8 --slots 2 --prompt-len 12 \\
+        --max-new 8
+    python -m repro_torch.launch.serve --mode poisson --arch granite-3-2b \\
+        --paged --async-decode --readback-interval 8 --requests 32 \\
+        --slots 16
+    python -m repro_torch.launch.serve --mode poisson --device cpu --paged \\
         --models granite-3-2b-smoke,yi-6b-smoke --requests 8 --slots 2
-    python -m repro_torch.launch.serve --device cpu --tiered \\
+    python -m repro_torch.launch.serve --mode poisson --device cpu --tiered \\
         --scenario high-rtt-access --models granite-3-2b-smoke,yi-6b-smoke \\
         --spec-draft granite-3-2b-smoke --spec-k 4 --threshold 0 \\
         --requests 4 --prompt-len 12 --max-new 8
 
-Requests arrive at Poisson times (seeded), prompts are uniform in
+``--mode batch`` (the default) generates ``--max-new`` tokens for
+``--batch`` prompts of ``--prompt-len`` tokens (seeded) through
+``ServingEngine`` and prints tok/s (host clock) and the exit statistics.
+
+``--mode poisson``: requests arrive at Poisson times (seeded), prompts are uniform in
 ``[prompt_len // 4, prompt_len]`` tokens.  Single pool: ``prefix_share``
 of them begin with one common ``prefix_len``-token prefix (so the paged
 arena's prefix cache can hit); reports p50/p95 request latency and
@@ -47,25 +56,17 @@ from repro_torch.configs import get_config, resolve_config
 from repro_torch.core import Scenario
 from repro_torch.models.model import Model
 from repro_torch.serving.cluster import ClusterConfig, TieredServingCluster
+from repro_torch.serving.engine import ServeConfig, ServingEngine
 from repro_torch.serving.multipool import ModelGroup, MultiModelScheduler
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
                                            SchedulerConfig)
+from repro_torch.serving.traces import poisson_trace
 
 SCENARIOS = {"default": Scenario.default,
              "degraded-wan": Scenario.degraded_wan,
              "neurosurgeon-era": Scenario.neurosurgeon_era,
              "high-rtt-access": Scenario.high_rtt_access,
              "tier-outage": Scenario.tier_outage}
-
-
-def poisson_trace(rs: np.random.RandomState, rate: float, n_requests: int,
-                  prompt_len: int):
-    """Homogeneous Poisson arrivals and uniform prompt lengths in
-    ``[max(1, prompt_len // 4), prompt_len]`` (the reference's draw order:
-    all gaps first, then all lengths)."""
-    arrivals = np.cumsum(rs.exponential(1.0 / rate, n_requests))
-    lengths = rs.randint(max(1, prompt_len // 4), prompt_len + 1, n_requests)
-    return arrivals, lengths
 
 
 def _drive_open_loop(sched, reqs, arrivals):
@@ -89,6 +90,35 @@ def _drive_open_loop(sched, reqs, arrivals):
 def _pctl(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q)) if len(xs) \
         else float("nan")
+
+
+def serve(arch, batch: int, prompt_len: int, max_new: int, *,
+          threshold: float = 0.5, async_decode: bool = False,
+          readback_interval: int = 8, seed: int = 0, params=None,
+          device="cuda", quiet: bool = False):
+    """One closed batch through ``ServingEngine`` (the quickstart path):
+    ``batch`` prompts of ``prompt_len`` tokens drawn from a seeded numpy
+    ``RandomState``, ``max_new`` tokens each.  Returns (tokens [batch,
+    max_new] int32, the engine's exit statistics)."""
+    cfg = resolve_config(arch)
+    model = Model(cfg, device=device)
+    if params is None:
+        params = model.init(seed)
+    eng = ServingEngine(model, params,
+                        ServeConfig(exit_threshold=threshold,
+                                    async_decode=async_decode,
+                                    readback_interval=readback_interval))
+    prompts = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    t0 = time.time()
+    out = eng.generate(prompts, max_new=max_new)
+    dt = time.time() - t0
+    stats = eng.exit_stats()
+    if not quiet:
+        print(f"arch={cfg.name} generated {tuple(out.shape)} in {dt:.2f}s "
+              f"({batch * max_new / dt:.1f} tok/s) device={model.device}")
+        print("exit stats:", {k: round(v, 3) for k, v in stats.items()})
+    return out, stats
 
 
 def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
@@ -483,6 +513,9 @@ def serve_multi_tiered_poisson(archs, *, rate: float = 4.0,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="granite-3-2b-smoke")
+    ap.add_argument("--mode", default="batch", choices=["batch", "poisson"])
+    ap.add_argument("--batch", type=int, default=4,
+                    help="[batch] prompts in the batch")
     ap.add_argument("--rate", type=float, default=4.0)
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--slots", type=int, default=8)
@@ -517,6 +550,14 @@ def main(argv=None):
     ap.add_argument("--spec-k", type=int, default=4,
                     help="[--spec-draft] draft tokens a round")
     args = ap.parse_args(argv)
+    if args.mode == "batch":
+        if args.models or args.tiered:
+            ap.error("--models and --tiered need --mode poisson")
+        serve(args.arch, args.batch, args.prompt_len, args.max_new,
+              threshold=args.threshold, async_decode=args.async_decode,
+              readback_interval=args.readback_interval, seed=args.seed,
+              device=args.device)
+        return
     if args.spec_draft and not (args.tiered and args.models):
         ap.error("--spec-draft needs --tiered and --models")
     if args.models:

@@ -9,8 +9,10 @@ Every architecture compiles to a PLAN, an ordered list of steps
 exactly as in the reference.  Stacked blocks keep their leading layer axis
 ([n_units, ...]); the full-sequence forward (``run_scan_block``) and
 decode (``decode_scan_block``) walk it in a Python loop.  The ``dense``
-and ``moe`` kinds are ported, with GQA or MLA attention; ``pair``
-(llama4's grouped dense/MoE unit) and the state kinds are not yet.
+and ``moe`` kinds are ported, with GQA or MLA attention, and ``mamba``
+(zamba2's Mamba2 layers, with its weight-shared attention block);
+``pair`` (llama4's grouped dense/MoE unit) and the xLSTM kinds are not
+yet.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, init_norm, materialize,
                                        scaled_init, tree_leaves, tree_map)
 
@@ -92,7 +95,7 @@ def build_plan(cfg) -> List[Tuple]:
 # Init
 # ---------------------------------------------------------------------------
 
-PORTED_KINDS = frozenset({"dense", "moe"})
+PORTED_KINDS = frozenset({"dense", "moe", "mamba"})
 
 
 def _require_ported(kind: str):
@@ -119,7 +122,13 @@ def _init_moe_layer(cfg):
     }
 
 
-_INIT = {"dense": _init_dense_layer, "moe": _init_moe_layer}
+def _init_mamba_layer(cfg):
+    return {"ln": init_norm(cfg.norm, cfg.d_model),
+            "mamba": ssm_mod.init_mamba2(cfg)}
+
+
+_INIT = {"dense": _init_dense_layer, "moe": _init_moe_layer,
+         "mamba": _init_mamba_layer}
 
 
 def init_scan_block(gen, cfg, kind: str, n_units: int, device="cpu"):
@@ -127,6 +136,17 @@ def init_scan_block(gen, cfg, kind: str, n_units: int, device="cpu"):
     place leaf by leaf (``common.materialize``)."""
     _require_ported(kind)
     return materialize(gen, _INIT[kind](cfg), device, n_units)
+
+
+def init_shared_attn(cfg):
+    """Leaf specs of zamba2's shared block: attention + FFN with their own
+    norms, ONE set of weights for every site."""
+    return {
+        "ln1": init_norm(cfg.norm, cfg.d_model),
+        "attn": attn.init_gqa(cfg),
+        "ln2": init_norm(cfg.norm, cfg.d_model),
+        "ffn": ffn_mod.init_ffn(cfg.d_model, cfg.d_ff, cfg.act),
+    }
 
 
 def init_exit_head(cfg):
@@ -171,8 +191,12 @@ def _ffn_residual(cfg, kind: str, lp, x):
 
 
 def forward_layer(cfg, kind: str, lp, x, positions, window):
-    """One ``dense`` or ``moe`` layer over the full sequence (the
-    reference's ``_dense_fwd`` / ``_moe_fwd``).  Returns (x, aux)."""
+    """One layer over the full sequence (the reference's ``_dense_fwd`` /
+    ``_moe_fwd`` / ``_mamba_fwd``).  Returns (x, aux)."""
+    if kind == "mamba":
+        h = apply_norm(cfg.norm, x, lp["ln"])
+        y, _ = ssm_mod.mamba2_forward(cfg, lp["mamba"], h)
+        return x + y, 0.0
     h = apply_norm(cfg.norm, x, lp["ln1"])
     fwd = attn.mla_forward if cfg.attention == "mla" else attn.gqa_forward
     y, _ = fwd(cfg, lp["attn"], h, positions, window=window)
@@ -193,11 +217,21 @@ def run_scan_block(cfg, kind: str, bparams, x, positions, window):
     return x, auxs[0] if n == 1 else sum(auxs[1:], auxs[0])
 
 
+def run_shared_attn(cfg, sp, x, positions, window):
+    """zamba2's shared attention + FFN block over the full sequence."""
+    h = apply_norm(cfg.norm, x, sp["ln1"])
+    y, _ = attn.gqa_forward(cfg, sp["attn"], h, positions, window=window)
+    x = x + y
+    h = apply_norm(cfg.norm, x, sp["ln2"])
+    return x + ffn_mod.ffn_forward(sp["ffn"], h, cfg.act)
+
+
 # ---------------------------------------------------------------------------
 # Decode caches
 # ---------------------------------------------------------------------------
 
 # Scan kinds whose decode cache is attention KV (paged-arena eligible).
+# State kinds (mamba) keep fixed per-slot rows in paged arenas too.
 PAGED_KINDS = frozenset({"dense", "moe", "pair", "enc"})
 
 
@@ -214,8 +248,11 @@ def _attn_cache_shapes(cfg, lead):
 def init_layer_cache(cfg, kind: str, batch: int, cache_len: int,
                      device="cpu"):
     """Contiguous decode cache for ONE layer, bf16: (k, v)
-    [B, S, Nkv, H], or MLA's (c_kv, k_rope) [B, S, R] / [B, S, Hr]."""
+    [B, S, Nkv, H], or MLA's (c_kv, k_rope) [B, S, R] / [B, S, Hr]; a
+    mamba layer's (state [B, H, P, N] fp32, conv window [B, K-1, C])."""
     _require_ported(kind)
+    if kind == "mamba":
+        return ssm_mod.init_mamba2_state(cfg, batch, device)
     return tuple(torch.zeros(sh, dtype=torch.bfloat16, device=device)
                  for sh in _attn_cache_shapes(cfg, (batch, cache_len)))
 
@@ -223,8 +260,11 @@ def init_layer_cache(cfg, kind: str, batch: int, cache_len: int,
 def init_layer_cache_paged(cfg, kind: str, batch: int, n_pages: int,
                            page_size: int, device="cpu"):
     """Paged decode cache for ONE layer: global bf16 pools [n_pages, P,
-    ...] of the same leaves, indexed through the slot block table."""
+    ...] of the same leaves, indexed through the slot block table; state
+    kinds keep their per-slot rows unchanged."""
     _require_ported(kind)
+    if kind not in PAGED_KINDS:
+        return init_layer_cache(cfg, kind, batch, 0, device)
     return tuple(torch.zeros(sh, dtype=torch.bfloat16, device=device)
                  for sh in _attn_cache_shapes(cfg, (n_pages, page_size)))
 
@@ -246,14 +286,33 @@ def _attn_decode_dispatch(cfg, lp_attn, h, cache, position, window,
                   window=window, write_mask=write_mask)
 
 
+def _store_rows(dst, new, mask):
+    """dst[b] = new[b] in place for rows where ``mask`` [B] (every row if
+    None): a row that must not write keeps its value."""
+    if mask is not None:
+        new = torch.where(mask.reshape(-1, *([1] * (new.ndim - 1))), new,
+                          dst)
+    dst.copy_(new)
+
+
 def decode_layer(cfg, kind: str, lp, x, cache, position, window,
                  paged=None, write_mask=None):
     """One-token decode through one layer; the layer's cache is updated in
     place.  Returns (x, cache, aux): ``aux`` is the MoE load-balance loss
     (0 for dense layers), which decode callers drop.  ``paged`` (an
     ``attn.PagedKV``) selects the paged pools; ``write_mask`` gates
-    contiguous-row writes."""
+    contiguous-row writes.  A mamba layer's state rows are per slot in
+    both arenas: they store under ``paged.write_mask`` or ``write_mask``
+    (the reference merges them row-wise on the same mask)."""
     _require_ported(kind)
+    if kind == "mamba":
+        h = apply_norm(cfg.norm, x, lp["ln"])
+        y, st, cv = ssm_mod.mamba2_decode(cfg, lp["mamba"], h, cache[0],
+                                          cache[1])
+        mask = paged.write_mask if paged is not None else write_mask
+        _store_rows(cache[0], st, mask)
+        _store_rows(cache[1], cv, mask)
+        return x + y, cache, 0.0
     h = apply_norm(cfg.norm, x, lp["ln1"])
     y, new = _attn_decode_dispatch(cfg, lp["attn"], h, cache, position,
                                    window, paged, write_mask)
@@ -273,3 +332,20 @@ def decode_scan_block(cfg, kind: str, bparams, x, caches, position, window,
         x, _, _ = decode_layer(cfg, kind, lp, x, cc, position, window, paged,
                                write_mask)
     return x, caches
+
+
+def run_shared_attn_decode(cfg, sp, x, cache, position, window, paged=None,
+                           write_mask=None):
+    """zamba2's shared block at one token: GQA decode against this site's
+    own cache (paged pools through ``attn.gqa_decode_paged``, hence the
+    paged GQA kernel at G 1), then the FFN."""
+    h = apply_norm(cfg.norm, x, sp["ln1"])
+    if paged is not None:
+        y, _ = attn.gqa_decode_paged(cfg, sp["attn"], h, cache[0], cache[1],
+                                     position, paged)
+    else:
+        y, _ = attn.gqa_decode(cfg, sp["attn"], h, cache[0], cache[1],
+                               position, window=window, write_mask=write_mask)
+    x = x + y
+    h = apply_norm(cfg.norm, x, sp["ln2"])
+    return x + ffn_mod.ffn_forward(sp["ffn"], h, cfg.act), cache

@@ -1,5 +1,5 @@
-"""The Model: plan-driven decoder with early exits (dense and MoE families,
-GQA or MLA attention).
+"""The Model: plan-driven decoder with early exits (dense, MoE and hybrid
+Mamba2 families, GQA or MLA attention).
 
 Public surface, as in the reference:
 
@@ -22,8 +22,9 @@ segments each token still needs:
     logits     = m.finalize_decode(params, x)
 
 ``alive`` [B] gates per-slot work: an exited slot's hidden state is frozen
-(passthrough) and its KV rows are not written; every slot's token comes
-from ``finalize_decode`` over its possibly early-frozen hidden state.
+(passthrough) and its KV and state rows are not written; every slot's
+token comes from ``finalize_decode`` over its possibly early-frozen hidden
+state.
 
 Decode caches are updated in place (the reference donates them); the
 functions still return them so call sites read like the reference's.
@@ -96,7 +97,7 @@ class Model:
         its final dtype (``common.materialize``)."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
-        if cfg.shared_attn_period or cfg.family == "encdec":
+        if cfg.family == "encdec":
             raise NotImplementedError(
                 f"repro_torch: {cfg.name} needs blocks not ported yet")
         top = {"embed": normal_init((cfg.vocab_size, cfg.d_model), 0.02),
@@ -107,6 +108,9 @@ class Model:
         params["blocks"] = [
             B.init_scan_block(gen, cfg, kind, n, dev)
             for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]
+        if cfg.shared_attn_period:
+            params["shared_attn"] = materialize(
+                gen, B.init_shared_attn(cfg), dev)
         if self.n_exits:
             params["exit_heads"] = [
                 materialize(gen, B.init_exit_head(cfg), dev)
@@ -171,8 +175,9 @@ class Model:
         """The plan's blocks and exit heads over the full sequence x
         [B, S, D].  ``alive`` [n_blocks] (bool or float; None = all
         alive) makes a failed block an identity bypass, x = a * y +
-        (1 - a) * x, as ``core.resilience.resilient_forward`` asks.
-        Returns (x, aux loss, exit logits)."""
+        (1 - a) * x, as ``core.resilience.resilient_forward`` asks; a
+        shared-attention site follows the block before it.  Returns (x,
+        aux loss, exit logits)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         exit_logits: List[torch.Tensor] = []
@@ -188,12 +193,17 @@ class Model:
                     x = keep * y + (1.0 - keep) * x
                 aux = aux + a
                 bi += 1
-            elif step[0] == "exit":
+            elif step[0] == "shared_attn":
+                y = B.run_shared_attn(cfg, params["shared_attn"], x,
+                                      positions, window)
+                if alive is None or bi == 0:
+                    x = y
+                else:
+                    keep = alive[bi - 1].to(y.dtype)
+                    x = keep * y + (1.0 - keep) * x
+            else:
                 exit_logits.append(B.exit_head_logits(
                     cfg, params["exit_heads"][step[1]], x))
-            else:
-                raise NotImplementedError(
-                    f"repro_torch: plan step {step[0]!r} is not ported yet")
         return x, aux, exit_logits
 
     def _mtp_forward(self, params, h, batch, positions, window):
@@ -231,45 +241,75 @@ class Model:
     def _stack(self, per):
         return tree_map(lambda *xs: torch.stack(xs), *per)
 
+    def _shared_attn_cache(self, lead, dev):
+        """One (k, v) pair a shared-attention site, [*lead, Nkv, H] bf16
+        (the sites are unstacked)."""
+        cfg = self.cfg
+        shape = (*lead, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return [tuple(torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+                      for _ in range(2))
+                for _ in B.shared_attn_sites(cfg)]
+
     def init_decode_cache(self, batch_size: int, seq_len: int, *,
                           long_mode: bool = False, device=None):
-        """Contiguous cache: per block, (k, v) [n_layers, B, S, Nkv, H], on
-        the model's device unless ``device`` names another (the scheduler
-        probes slot-row shapes on ``"meta"``)."""
+        """Contiguous cache: per block, (k, v) [n_layers, B, S, Nkv, H] (a
+        mamba block's state rows [n_layers, B, ...]), plus (k, v)
+        [B, S, Nkv, H] per shared-attention site, on the model's device
+        unless ``device`` names another (the scheduler probes slot-row
+        shapes on ``"meta"``)."""
         clen = self.cache_len_for(seq_len, long_mode)
         dev = self.device if device is None else device
-        return {"blocks": [
+        cache = {"blocks": [
             self._stack([B.init_layer_cache(self.cfg, kind, batch_size, clen,
                                             dev) for _ in range(n)])
             for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]}
+        if self.cfg.shared_attn_period:
+            cache["shared_attn"] = self._shared_attn_cache(
+                (batch_size, clen), dev)
+        return cache
+
+    def scan_block_kinds(self) -> List[str]:
+        """Kind of each stacked block, in ``cache["blocks"]`` order."""
+        return [s[1] for s in self.plan if s[0] == "scan"]
 
     def all_cache_paged(self) -> bool:
         """True iff every decode-cache leaf is pool-backed in paged mode
         (no sequential SSM/xLSTM state rows): a position-indexed cache
-        whose rows past a rejected speculation are simply overwritten."""
-        return all(s[1] in B.PAGED_KINDS for s in self.plan
-                   if s[0] == "scan")
+        whose rows past a rejected speculation are simply overwritten, and
+        the only kind whose shared prefix pages determine a skipped
+        replay."""
+        return all(k in B.PAGED_KINDS for k in self.scan_block_kinds())
 
     def init_decode_cache_paged(self, batch_size: int, n_pages: int,
                                 page_size: int, *, device=None):
         """Paged cache: per block, (k, v) pools
         [n_layers, n_pages, P, Nkv, H]; slots address them through the
-        scheduler's block table, not a batch axis."""
+        scheduler's block table, not a batch axis.  Mamba blocks keep
+        their per-slot state rows [n_layers, B, ...]; shared-attention
+        sites get unstacked pools [n_pages, P, Nkv, H]."""
         dev = self.device if device is None else device
-        return {"blocks": [
+        cache = {"blocks": [
             self._stack([B.init_layer_cache_paged(
                 self.cfg, kind, batch_size, n_pages, page_size, dev)
                 for _ in range(n)])
             for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]}
+        if self.cfg.shared_attn_period:
+            cache["shared_attn"] = self._shared_attn_cache(
+                (n_pages, page_size), dev)
+        return cache
 
     def merge_decode_cache(self, take_new, new_cache, old_cache):
         """Row-wise merge of contiguous caches: slot b takes ``new_cache``
-        where take_new[b].  Caches are stacked [n_layers, B, ...] (batch
-        axis 1); ``old_cache`` is overwritten in place.  (Paged pools need
-        no merge: their writes are gated per row inside the attention
-        step.)"""
+        where take_new[b].  Block caches are stacked [n_layers, B, ...]
+        (batch axis 1), shared-attention caches are [B, ...] (batch axis
+        0); ``old_cache`` is overwritten in place.  (Paged arenas need no
+        merge: pool and state writes are gated per row inside the step.)"""
         for new, old in zip(new_cache["blocks"], old_cache["blocks"]):
             tree_map(lambda n, o: o.copy_(_row_where(take_new, 1)(n, o)),
+                     new, old)
+        for new, old in zip(new_cache.get("shared_attn", []),
+                            old_cache.get("shared_attn", [])):
+            tree_map(lambda n, o: o.copy_(_row_where(take_new, 0)(n, o)),
                      new, old)
         return old_cache
 
@@ -281,9 +321,10 @@ class Model:
         """tokens [B,1] int; position [] or [B] int (per-slot positions).
 
         ``paged`` (an ``attention.PagedKV``): attention caches are paged
-        pools addressed through its block table, writes gated by its
-        write_mask.  ``write_mask`` [B] gates contiguous-row writes (None =
-        every row writes, as in the reference step).
+        pools addressed through its block table, writes (and the state
+        rows' stores) gated by its write_mask.  ``write_mask`` [B] gates
+        contiguous-row writes (None = every row writes, as in the
+        reference step).
 
         Returns (logits [B,V] fp32, exit_entropies [n_exits,B] fp32, cache).
         """
@@ -298,6 +339,11 @@ class Model:
                     cfg, step[1], params["blocks"][bi], x,
                     cache["blocks"][bi], position, window, paged, write_mask)
                 bi += 1
+            elif step[0] == "shared_attn":
+                x, _ = B.run_shared_attn_decode(
+                    cfg, params["shared_attn"], x,
+                    cache["shared_attn"][step[1]], position, window, paged,
+                    write_mask)
             elif step[0] == "exit":
                 lg = B.exit_head_logits(cfg, params["exit_heads"][step[1]],
                                         x)[:, 0]
@@ -344,24 +390,27 @@ class Model:
         """One-token decode through one depth segment.
 
         ``alive`` [B] bool gates cache writes (contiguous rows here; paged
-        pools through ``paged.write_mask``, which the caller sets).
-        ``passthrough`` (default ``alive``) selects which rows take the
-        segment's hidden output; the others keep ``x``.  With ``alive``
-        all-true this is exactly the matching slice of ``decode_step``.
+        pools and state rows through ``paged.write_mask``, which the
+        caller sets).  ``passthrough`` (default ``alive``) selects which
+        rows take the segment's hidden output; the others keep ``x``.
+        With ``alive`` all-true this is exactly the matching slice of
+        ``decode_step``.
         """
         window = self._window(long_mode)
         x_in = x
         if passthrough is None:
             passthrough = alive
+        wm = None if paged is not None else alive
         for st in seg.steps:
-            if st[0] != "scan":
-                raise NotImplementedError(
-                    "repro_torch: shared attention is not ported yet")
-            _, kind, bi = st
-            x, _ = B.decode_scan_block(
-                self.cfg, kind, params["blocks"][bi], x, cache["blocks"][bi],
-                position, window, paged,
-                None if paged is not None else alive)
+            if st[0] == "scan":
+                _, kind, bi = st
+                x, _ = B.decode_scan_block(
+                    self.cfg, kind, params["blocks"][bi], x,
+                    cache["blocks"][bi], position, window, paged, wm)
+            else:
+                x, _ = B.run_shared_attn_decode(
+                    self.cfg, params["shared_attn"], x,
+                    cache["shared_attn"][st[1]], position, window, paged, wm)
         x = torch.where(passthrough[:, None, None], x, x_in)
         return x, cache
 

@@ -20,6 +20,11 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
   the host stops dispatching segments once no active slot is alive.
   ``segmented=False`` runs the monolithic ``decode_step`` instead.
 * **Device exit counters**, flushed to the host every ``flush_every`` steps.
+  An optional ``controller`` (``serving/adaptive.py``) steers the exit
+  threshold from the measured depth every ``adaptive_every`` served tokens.
+* **State rows** (hybrid Mamba2 models): per-slot SSM and conv rows beside
+  the paged pools, zeroed at admission, written only by live rows, and
+  shipped whole by a migration; such arenas run without the prefix cache.
 * **Sampled decode** (``temperature > 0`` and an rng from ``set_rng`` or
   ``run(rng=)``; greedy otherwise): Gumbel-max draws from a counter-based
   hash of (key, tick, slot, token) (``serving/sampling.py``).
@@ -80,6 +85,7 @@ import torch
 from repro_torch.core.early_exit import exit_stats_dict, first_exit_index
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import PagedKV
+from repro_torch.models.blocks import PAGED_KINDS
 from repro_torch.models.common import resolve_device, tree_leaves, tree_map
 from repro_torch.serving import sampling
 from repro_torch.serving.paged import (PageAllocator, RadixPrefixCache,
@@ -248,11 +254,13 @@ class ContinuousBatchScheduler:
     """Slot-based continuous batching over ``Model.decode_step``.
 
     Runs on the model's device (``device`` must match it; CUDA by default).
-    The KV caches and the exit counters are updated in place.
+    The KV caches and the exit counters are updated in place.  An optional
+    ``controller`` (``AdaptiveExitController``) is driven from the flushed
+    counters every ``adaptive_every`` served tokens.
     """
 
     def __init__(self, model, params, cfg: SchedulerConfig = None,
-                 device="cuda"):
+                 device="cuda", controller=None):
         cfg = SchedulerConfig() if cfg is None else cfg
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -261,6 +269,8 @@ class ContinuousBatchScheduler:
         self.model = model
         self.params = params
         self.cfg = cfg
+        self.controller = controller
+        self.adaptive_every = 64
         b = cfg.n_slots
         mcfg = model.cfg
         self._vocab = mcfg.vocab_size
@@ -279,9 +289,11 @@ class ContinuousBatchScheduler:
             self._pps = cfg.max_len // cfg.page_size
             n_pages = b * self._pps
             self.page_alloc = PageAllocator(n_pages, cfg.page_size)
-            # every cache leaf of the ported kinds is pool-backed, so the
-            # shared pages fully determine the replay a prefix hit skips
-            self.prefix_cache = RadixPrefixCache(self.page_alloc)
+            # a prefix hit skips replaying the shared pages: sound only if
+            # they fully determine the skipped positions, i.e. every cache
+            # leaf is pool-backed (no SSM state rows to prime)
+            if model.all_cache_paged():
+                self.prefix_cache = RadixPrefixCache(self.page_alloc)
             # host block table, sentinel = n_pages; written into one
             # persistent device buffer when dirty (a decode window's graph
             # keeps its pointer)
@@ -301,6 +313,9 @@ class ContinuousBatchScheduler:
         self.tokens_served = 0
         self.exit_counts = np.zeros(self._n_exits + 1, np.int64)
         self.depth_weighted_tokens = 0.0
+        # served tokens and their depth since the controller last moved
+        self._tokens_since_adapt = 0
+        self._depth_since_adapt = 0.0
         self._last_segments_run = 0
         self._last_depth_frac = 0.0
         self._last_step_active = 0
@@ -368,6 +383,13 @@ class ContinuousBatchScheduler:
                 names.append(f"probe{seg.exit_index}")
         names.append("finalize")
         return names
+
+    def _threshold(self) -> float:
+        """The exit threshold of the next step: the controller's, if one
+        is set."""
+        if self.controller is not None:
+            return self.controller.threshold
+        return self.cfg.exit_threshold
 
     def _upload(self, arr: np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -553,7 +575,11 @@ class ContinuousBatchScheduler:
             start[slot] = starts.get(slot, 0)
             r.slot, r.t_admit = slot, now
             self.slot_req[slot] = r
-        fresh = None if self.page_alloc is not None else self._init_cache()
+        if self.page_alloc is not None:
+            fresh = None               # paged prefill writes the pool itself
+            self._reset_states(take)
+        else:
+            fresh = self._init_cache()
         self._pending = _PendingPrefill(
             reqs=reqs, slots=take, tokens=tokens, lengths=lengths,
             lengths_d=self._upload(lengths), admit=admit, cache=fresh,
@@ -561,6 +587,20 @@ class ContinuousBatchScheduler:
                              device=self.device),
             n_chunks=n_chunks, start=start, start_d=self._upload(start))
         return reqs
+
+    def _reset_states(self, slots: List[int]):
+        """Zero the state rows (batch axis 1 of a stacked block) of the
+        admitted ``slots``, in place: a paged arena prefills in place,
+        and a slot's rows would otherwise carry its previous occupant's
+        final state (every state initializer is zeros).  Pool leaves are
+        fresh pages and need nothing."""
+        kinds = self.model.scan_block_kinds()
+        if all(k in PAGED_KINDS for k in kinds):
+            return
+        idx = self._upload(np.asarray(slots, np.int64))
+        for kind, c in zip(kinds, self.cache["blocks"]):
+            if kind not in PAGED_KINDS:
+                tree_map(lambda a: a.index_fill_(1, idx, 0), c)
 
     def _prefill_chunk(self, p: _PendingPrefill, lo: int, hi: int):
         """Replay prompt tokens [lo, hi) of every row: a row writes its
@@ -762,7 +802,7 @@ class ContinuousBatchScheduler:
         self._last_step_active = int(self.active.sum())
         if not self.active.any():
             return False
-        thr = self.cfg.exit_threshold
+        thr = self._threshold()
         tick = self._step_tick()
         host = np.stack([self.current_tok.astype(np.int64), self.positions,
                          self.active.astype(np.int64)])
@@ -780,7 +820,9 @@ class ContinuousBatchScheduler:
         self._rng_tick += 1
         n_active = int(self.active.sum())
         self.tokens_served += n_active
+        self._tokens_since_adapt += n_active
         self.depth_weighted_tokens += self._last_depth_frac * n_active
+        self._depth_since_adapt += self._last_depth_frac * n_active
         for slot in np.nonzero(self.active)[0]:
             r = self.slot_req[slot]
             self.steps_taken[slot] += 1
@@ -866,7 +908,7 @@ class ContinuousBatchScheduler:
         w = self._window
         if w is None:
             w = self._window = DecodeWindow(self)
-        thr = self.cfg.exit_threshold
+        w.set_threshold(self._threshold())
         if self.page_alloc is not None:
             self._tbl_dev()
         if from_carry:
@@ -880,9 +922,9 @@ class ContinuousBatchScheduler:
                                 - self.steps_taken[slot])
             host = (self.current_tok, self.positions, self.active, budget,
                     self._eos_host(), self._rng_tick, self._rng is not None)
-            if w.needs_build(thr):
+            if w.needs_build():
                 w.load(*host)
-                w.prepare(thr)
+                w.prepare()
             w.load(*host)
             part = self.active.copy()
         ring = w.run()
@@ -910,7 +952,9 @@ class ContinuousBatchScheduler:
                 break
             n_active = int(mask.sum())
             self.tokens_served += n_active
+            self._tokens_since_adapt += n_active
             self.depth_weighted_tokens += 1.0 * n_active
+            self._depth_since_adapt += 1.0 * n_active
             rep.n_active = n_active
             for slot in np.nonzero(mask)[0]:
                 r = self.slot_req[slot]
@@ -1083,7 +1127,9 @@ class ContinuousBatchScheduler:
                 self.positions[slot] += 1
                 committed[slot] += 1
                 self.tokens_served += 1
+                self._tokens_since_adapt += 1
                 self.depth_weighted_tokens += 1.0
+                self._depth_since_adapt += 1.0
                 self._host_exit_extra[self._n_exits] += 1
                 if self.steps_taken[slot] >= r.max_new:
                     self._finish(slot)  # trailing sample discarded, as in
@@ -1137,10 +1183,15 @@ class ContinuousBatchScheduler:
     # ------------------------------------------------------------------
     @staticmethod
     def _gather_slot(cache, slot: int):
-        """Slot ``slot``'s row of every cache leaf, as views: leaves are
-        stacked [n_layers, B, ...], so the batch axis is 1."""
-        return {"blocks": [tree_map(lambda a: a[:, slot], c)
-                           for c in cache["blocks"]]}
+        """Slot ``slot``'s row of every cache leaf, as views: block leaves
+        are stacked [n_layers, B, ...] (batch axis 1), shared-attention
+        leaves are [B, ...] (batch axis 0)."""
+        out = {"blocks": [tree_map(lambda a: a[:, slot], c)
+                          for c in cache["blocks"]]}
+        if "shared_attn" in cache:
+            out["shared_attn"] = [tree_map(lambda a: a[slot], c)
+                                  for c in cache["shared_attn"]]
+        return out
 
     @staticmethod
     def _scatter_slot(cache, rows, slot: int):
@@ -1148,37 +1199,57 @@ class ContinuousBatchScheduler:
         time axis, is written into slot ``slot`` zero-padded back to the
         arena's shape (unwritten rows are zero in an unmigrated arena too,
         and reads are masked by position)."""
-        def put(a, r):
-            dst = a[:, slot]
+        def put(dst, r):
             if tuple(r.shape) != tuple(dst.shape):
                 dst.zero_()
                 dst = dst[tuple(slice(0, n) for n in r.shape)]
             dst.copy_(r)
         for c, r in zip(cache["blocks"], rows["blocks"]):
-            tree_map(put, c, r)
+            tree_map(lambda a, rr: put(a[:, slot], rr), c, r)
+        for c, r in zip(cache.get("shared_attn", []),
+                        rows.get("shared_attn", [])):
+            tree_map(lambda a, rr: put(a[slot], rr), c, r)
         return cache
 
-    @staticmethod
-    def _gather_slot_paged(cache, pages):
+    def _gather_slot_paged(self, cache, pages, slot: int):
         """Paged analogue of ``_gather_slot``: pool leaves [n_layers,
         n_pages, P, ...] gather the physical ``pages`` (a device index
-        vector) into [n_layers, len(pages), P, ...] copies."""
-        return {"blocks": [tree_map(lambda a: a.index_select(1, pages), c)
-                           for c in cache["blocks"]]}
+        vector) into [n_layers, len(pages), P, ...] copies, shared-attention
+        pools [n_pages, P, ...] into [len(pages), P, ...]; state leaves
+        take the batch row ``slot`` (a view)."""
+        out = {"blocks": [
+            tree_map(lambda a: a.index_select(1, pages), c)
+            if kind in PAGED_KINDS else tree_map(lambda a: a[:, slot], c)
+            for kind, c in zip(self.model.scan_block_kinds(),
+                               cache["blocks"])]}
+        if "shared_attn" in cache:
+            out["shared_attn"] = [tree_map(lambda a: a.index_select(0, pages),
+                                           c) for c in cache["shared_attn"]]
+        return out
 
-    def _scatter_slot_paged(self, cache, rows, idxvec: np.ndarray):
+    def _scatter_slot_paged(self, cache, rows, idxvec: np.ndarray,
+                            slot: int):
         """Inverse of ``_gather_slot_paged``, in place: payload page row j
-        lands on physical page ``idxvec[j]``.  Sentinel (``n_pages``)
-        entries, the borrowed prefix pages and the unshipped tail, are
-        dropped on the host before the copy, so no other page of the pool
-        is written (the reference drops them inside its scatter)."""
+        lands on physical page ``idxvec[j]``, and state rows on batch row
+        ``slot``.  Sentinel (``n_pages``) entries, the borrowed prefix
+        pages and the unshipped tail, are dropped on the host before the
+        copy, so no other page of the pool is written (the reference drops
+        them inside its scatter)."""
         keep = idxvec[idxvec != self.page_alloc.n_pages]
-        if keep.size == 0:
-            return cache
         idx = self._upload(keep.astype(np.int64))
-        for c, r in zip(cache["blocks"], rows["blocks"]):
-            tree_map(lambda a, rr: a.index_copy_(
-                1, idx, rr[:, :keep.size].to(a.dtype)), c, r)
+        n = keep.size
+        for kind, c, r in zip(self.model.scan_block_kinds(),
+                              cache["blocks"], rows["blocks"]):
+            if kind not in PAGED_KINDS:
+                tree_map(lambda a, rr: a[:, slot].copy_(rr), c, r)
+            elif n:
+                tree_map(lambda a, rr: a.index_copy_(
+                    1, idx, rr[:, :n].to(a.dtype)), c, r)
+        if n:
+            for c, r in zip(cache.get("shared_attn", []),
+                            rows.get("shared_attn", [])):
+                tree_map(lambda a, rr: a.index_copy_(
+                    0, idx, rr[:n].to(a.dtype)), c, r)
         return cache
 
     def _detect_row_layout(self):
@@ -1195,7 +1266,7 @@ class ContinuousBatchScheduler:
                     b, self.page_alloc.n_pages, self.cfg.page_size,
                     device=meta)
                 return tree_leaves(self._gather_slot_paged(
-                    cache, torch.zeros(n, dtype=torch.long, device=meta)))
+                    cache, torch.zeros(n, dtype=torch.long, device=meta), 0))
             flat, flat2 = rows(self._pps), rows(self._pps + 1)
         else:
             def rows(n):
@@ -1254,7 +1325,8 @@ class ContinuousBatchScheduler:
                    and page_digests[page_skip] in skip_keys):
                 page_skip += 1
             pages = self._tbl[slot, page_skip:page_used].astype(np.int64)
-            rows = self._gather_slot_paged(self.cache, self._upload(pages))
+            rows = self._gather_slot_paged(self.cache, self._upload(pages),
+                                           slot)
         else:
             rows = self._gather_slot(self.cache, slot)
         payload: List[Any] = []
@@ -1266,7 +1338,10 @@ class ContinuousBatchScheduler:
             s = None
             if compress and a.is_floating_point():
                 a, s = kops.compress_rows(a.contiguous())
-            ah = a.cpu()                    # the migration's intended d2h
+            # the migration's intended d2h; a copy even on the CPU, where
+            # the row is a view of the arena (a state row is reused by the
+            # slot's next occupant)
+            ah = a.to("cpu", copy=True)
             sh = None if s is None else s.cpu()
             payload.append(ah)
             scales.append(sh)
@@ -1363,10 +1438,9 @@ class ContinuousBatchScheduler:
                 a = kops.decompress_rows(a, sh.to(self.device), dtype=dtype)
             leaves.append(a)
         it = iter(leaves)
-        rows = {"blocks": [tree_map(lambda _: next(it), c)
-                           for c in self.cache["blocks"]]}
+        rows = tree_map(lambda _: next(it), self.cache)
         if paged:
-            self._scatter_slot_paged(self.cache, rows, idxvec)
+            self._scatter_slot_paged(self.cache, rows, idxvec, slot)
             if self.prefix_cache is not None and snap.page_digests:
                 # publish the imported prompt pages for later admissions
                 n_full = len(snap.page_digests)
@@ -1436,10 +1510,21 @@ class ContinuousBatchScheduler:
     # exit statistics
     # ------------------------------------------------------------------
     def _maybe_flush(self, steps: int = 1):
-        """Flush the counters iff ``_step_idx`` crossed a multiple of
-        ``flush_every`` within the last ``steps`` decode steps (a window
+        """Periodic counter flush, or the controller's update.  With a
+        controller and at least ``adaptive_every`` tokens served since its
+        last update, it steers from the measured depth fraction of those
+        tokens (monolithic steps report 1.0: they never truncate).
+        Otherwise the counters flush iff ``_step_idx`` crossed a multiple
+        of ``flush_every`` within the last ``steps`` decode steps (a window
         commit lands R at once; ``steps=1`` is the per-step check)."""
-        if (self._step_idx % self.cfg.flush_every) < steps:
+        if (self.controller is not None
+                and self._tokens_since_adapt >= self.adaptive_every):
+            self.flush_counters()
+            self.controller.update_measured(
+                self._depth_since_adapt / max(1, self._tokens_since_adapt))
+            self._tokens_since_adapt = 0
+            self._depth_since_adapt = 0.0
+        elif (self._step_idx % self.cfg.flush_every) < steps:
             self.flush_counters()
 
     def flush_counters(self) -> np.ndarray:
@@ -1459,7 +1544,9 @@ class ContinuousBatchScheduler:
         self.exit_counts = np.zeros(self._n_exits + 1, np.int64)
         self._host_exit_extra = np.zeros(self._n_exits + 1, np.int64)
         self.tokens_served = 0
+        self._tokens_since_adapt = 0
         self.depth_weighted_tokens = 0.0
+        self._depth_since_adapt = 0.0
         self.spec_rounds = 0
         self.spec_committed = 0
         for name in self.stage_calls:

@@ -13,6 +13,8 @@ pointers stay valid from window to window:
   (``max_new - steps_taken``) and each slot's ``eos`` (-1 = none);
 * ``scal`` [3] int64: the sampling tick, the ring column ``j`` and the
   greedy-or-sampled flag;
+* ``thr`` [1] fp32: the exit threshold, rewritten before a dispatch only
+  when it moved (an adaptive controller moves it without a recapture);
 * ``ring`` [B, R] int64: token j of each slot;
 * the scheduler's cache, block table (paged arenas), exit counters and
   sampling key.
@@ -23,9 +25,10 @@ without taking the trailing token (``max_new`` discards it, as the sync
 ``step()`` does); otherwise the token feeds back as ``cur`` and a token
 equal to the row's eos freezes the row.  Frozen rows keep computing
 garbage like inactive slots under the sync monolithic step (private rows
-in contiguous arenas; in paged ones no page write and an all-sentinel
-table, as a released slot has), so greedy tokens stay bit-identical to
-the sync path's, also where MoE capacity couples the rows.
+in contiguous arenas; in paged ones no page write, no state-row store and
+an all-sentinel table, as a released slot has), so greedy tokens stay
+bit-identical to the sync path's, also where MoE capacity couples the
+rows.
 
 A window on the card is R graph replays, a ``non_blocking`` copy of the
 ring into a pinned host buffer of its own, and an event; the host waits
@@ -68,8 +71,7 @@ class RingHandle:
 class DecodeWindow:
     """The decode window of one ``ContinuousBatchScheduler``
     (``async_decode``): ``load`` host state into the carry, ``prepare``
-    the step (one capture per exit threshold and R), then ``run`` one
-    window."""
+    the step (one capture), ``set_threshold``, then ``run`` one window."""
 
     def __init__(self, sched):
         self.sched = sched
@@ -79,12 +81,13 @@ class DecodeWindow:
         self.state = torch.zeros((5, b), dtype=torch.int64, device=dev)
         self.scal = torch.zeros(3, dtype=torch.int64, device=dev)
         self.ring = torch.zeros((b, self.R), dtype=torch.int64, device=dev)
+        self.thr = torch.zeros(1, dtype=torch.float32, device=dev)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self._key = None                   # (threshold, R) of the capture
-        self.threshold = 0.0
+        self.threshold: Optional[float] = None   # host copy of ``thr``
         self.captures = 0                  # graph captures (CPU: builds)
         self.replays = 0                   # graph replays (CPU: eager steps)
         self.warmup_steps = 0              # side-stream steps run to capture
+        self._warming = False              # a warm-up step writes no row
         self.per_replay: Dict[str, int] = {}   # launches one step makes
 
     @property
@@ -105,20 +108,23 @@ class DecodeWindow:
         self.sched._put(self.scal, np.asarray([tick, 0, int(use_sampled)],
                                               np.int64))
 
-    def needs_build(self, threshold: float) -> bool:
-        return self._key != (threshold, self.R)
+    def set_threshold(self, threshold: float):
+        """Write the exit threshold the step reads, if it moved; the
+        stream orders the write after every window already enqueued."""
+        if threshold != self.threshold:
+            self.sched._put(self.thr, np.asarray([threshold], np.float32))
+            self.threshold = threshold
 
-    def prepare(self, threshold: float):
-        """Capture the step for this threshold (on the card), once.  Call
-        after ``load``: the warm-up steps run with every row frozen (no
-        page writes, no counts), and contiguous arenas write each row's
-        K/V at its own next position, which the first real step rewrites
-        with the same values.  The caller loads the carry again after.  A
+    def needs_build(self) -> bool:
+        return self.captures == 0
+
+    def prepare(self):
+        """Capture the step (on the card), once.  Call after ``load``: the
+        warm-up steps run with every row frozen, so they write no cache row
+        and count nothing.  The caller loads the carry again after.  A
         failed capture raises: there is no eager fallback on the card."""
-        self.threshold = threshold
         if self.on_card:
             self._capture()
-        self._key = (threshold, self.R)
         self.captures += 1
 
     def _capture(self):
@@ -127,9 +133,13 @@ class DecodeWindow:
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self._step()
+        self._warming = True
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    self._step()
+        finally:
+            self._warming = False
         main.wait_stream(side)
         self.warmup_steps += WARMUP_STEPS
         before = dict(kops.LAUNCHES)
@@ -142,11 +152,15 @@ class DecodeWindow:
         self.graph = graph
 
     def _step(self):
-        """One monolithic decode step and its on-device commit."""
+        """One monolithic decode step and its on-device commit.  A warm-up
+        step (every row frozen) writes no row of a contiguous arena either:
+        a state row, unlike a K/V row, would not be rewritten with the
+        same values by the next real step."""
         s = self.sched
         st = self.state
         act = st[ALIVE] != 0
         paged = None
+        write_mask = act if self._warming else None
         if s.page_alloc is not None:
             # a row frozen mid-window reads an all-sentinel table, as a
             # slot the sync step has finished (and released) does: its
@@ -155,9 +169,9 @@ class DecodeWindow:
                                         s.page_alloc.n_pages), act)
         logits, ee, _ = s.model.decode_step(
             s.params, s.cache, st[CUR][:, None], st[POS].to(torch.int32),
-            paged=paged)
+            paged=paged, write_mask=write_mask)
         if s._n_exits:
-            idx = first_exit_index(ee, self.threshold, s._vocab)
+            idx = first_exit_index(ee, self.thr, s._vocab)
         else:
             idx = torch.zeros(act.shape[0], dtype=torch.int64,
                               device=act.device)

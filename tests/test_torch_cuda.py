@@ -79,7 +79,8 @@ def test_paged_gqa_kernel_matches_plain(cuda, group, hd):
     (16, 8, 4, 64, 128),       # granite-3-2b, positions up to 2047
     (16, 8, 4, 64, 18),        # ... at serving's table length
     (3, 12, 4, 128, 37),       # two kv-head groups, the second part-full
-    (1, 8, 5, 128, 128)])      # one sequence spread over many splits
+    (1, 8, 5, 128, 128),       # one sequence spread over many splits
+    (16, 32, 1, 64, 128)])     # zamba2-1.2b's shared attention (G 1)
 def test_paged_gqa_kernel_long_tables(cuda, b, nkv, group, hd, pps):
     """Tables long enough for several splits (merged by the combine
     launch), with a one-token sequence (pos 0) in the first row."""
@@ -174,7 +175,8 @@ def _check_exit(x, w, instance):
     (16, 7168, 129280),
     (40, 2048, 49155),        # odd pitch, three 16-row groups
     (17, 512, 8192),          # aligned, one row past a 16-row group
-    (16, 1000, 4099)])        # D no multiple of the 64-row stage
+    (16, 1000, 4099),         # D no multiple of the 64-row stage
+    (16, 2048, 32000)])       # zamba2-1.2b's exit probes
 def test_exit_head_kernel_matches_plain(cuda, t, d, v):
     x, w = _exit_inputs(cuda, t, d, v)
     _check_exit(x, w, "aligned" if v % 8 == 0 else "odd_pitch")
@@ -348,7 +350,8 @@ def _qkv(dev, b, sq, skv, nq, nkv, hd, seed=0):
     (2, 128, 8, 2, 64, True, 0),        # exactly one 128-row query tile
     (2, 129, 8, 2, 64, True, 0),        # one row past it
     (2, 128, 4, 4, 128, True, 0),
-    (2, 129, 8, 2, 128, False, 0)])
+    (2, 129, 8, 2, 128, False, 0),
+    (2, 2048, 32, 32, 64, True, 0)])    # zamba2-1.2b's shared attention
 def test_flash_kernel_matches_plain(cuda, b, s, nq, nkv, hd, causal, window):
     """bf16 output of unit-normal inputs, held to 1e-2 of max(1, |plain|):
     both accumulate in fp32 and round once, so they may sit one bf16 ulp
@@ -410,15 +413,16 @@ def test_smoke_forward_card_matches_cpu(cuda, long_mode):
         assert (e_got.cpu() - e_want).abs().max().item() <= 6e-2
 
 
-def _smoke_pool(dev, async_decode, slots=4, max_new=9, R=4, paged=True):
-    """granite-3-2b-smoke paged monolithic pool on the card, six requests
-    through four slots (two re-admissions)."""
+def _smoke_pool(dev, async_decode, slots=4, max_new=9, R=4, paged=True,
+                arch="granite-3-2b-smoke"):
+    """A smoke-width paged monolithic pool on the card (granite-3-2b by
+    default), six requests through four slots (two re-admissions)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import (ContinuousBatchScheduler, Request,
                                      SchedulerConfig)
-    model = Model(get_config("granite-3-2b-smoke"), device=dev)
+    model = Model(get_config(arch), device=dev)
     params = model.init(0)
     max_len = 16 + max_new
     max_len += (-max_len) % 16
@@ -449,6 +453,41 @@ def test_decode_window_graph_matches_eager_sync(cuda, paged):
     assert s_win.jit_cache_sizes() == {"decode_window": 1}
     assert s_win._window.graph is not None
     assert s_win.tokens_served == s_sync.tokens_served
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contig"])
+def test_hybrid_window_graph_matches_eager_sync(cuda, paged):
+    """zamba2-1.2b-smoke through the window's CUDA graph against the eager
+    sync monolithic step: slots are reused, so state rows are reset
+    (paged) or merged (contiguous) between occupants, and frozen rows must
+    not advance a live slot's state; the same greedy tokens, one capture,
+    and the shared-attention sites' paged kernel in every replay."""
+    arch = "zamba2-1.2b-smoke"
+    s_sync, r_sync = _smoke_pool(cuda, False, paged=paged, arch=arch)
+    s_sync.run()
+    s_win, r_win = _smoke_pool(cuda, True, paged=paged, arch=arch)
+    s_win.run()
+    torch.cuda.synchronize()
+    assert [r.out_tokens for r in r_win] == [r.out_tokens for r in r_sync]
+    assert s_win.jit_cache_sizes() == {"decode_window": 1}
+    if paged:
+        assert s_win._window.per_replay["paged_gqa_attention"] == 2
+
+
+def test_window_threshold_moves_without_recapture(cuda):
+    """An adaptive controller moves the exit threshold every 4 tokens: the
+    window writes its device threshold before the next dispatch and
+    replays the one graph; the counters see the new threshold."""
+    from repro_torch.serving import AdaptiveExitController
+    sched, _ = _smoke_pool(cuda, True, max_new=17)
+    sched.controller = AdaptiveExitController(0.01, threshold=0.3)
+    sched.adaptive_every = 4
+    sched.run()
+    torch.cuda.synchronize()
+    w = sched._window
+    assert sched.controller.threshold > 0.3 and w.captures == 1
+    assert 0.3 < w.threshold <= sched.controller.threshold
+    assert float(w.thr.item()) == pytest.approx(w.threshold, rel=1e-6)
 
 
 def test_decode_window_counts_replayed_launches(cuda):

@@ -22,7 +22,10 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.configs.starcoder2_3b",
         "repro_torch.configs.mistral_nemo_12b",
         "repro_torch.kernels.feature_compress",
-        "repro_torch.kernels.flash_attention"}}
+        "repro_torch.kernels.flash_attention",
+        "repro_torch.serving.engine", "repro_torch.serving.adaptive",
+        "repro_torch.serving.traces", "repro_torch.models.ssm",
+        "repro_torch.configs.zamba2_1p2b"}}
 assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
@@ -41,7 +44,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 38      # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 43      # every submodule walked
 
 
 def test_entry_points_default_to_cuda():
@@ -49,7 +52,7 @@ def test_entry_points_default_to_cuda():
     instead of falling back to the CPU."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import (serve_multi_poisson,
+    from repro_torch.launch.serve import (serve, serve_multi_poisson,
                                           serve_multi_tiered_poisson,
                                           serve_poisson, serve_tiered_poisson)
     from repro_torch.models import Model
@@ -64,6 +67,8 @@ def test_entry_points_default_to_cuda():
         ContinuousBatchScheduler(cpu_model, cpu_model.init(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_poisson("granite-3-2b-smoke", n_requests=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("granite-3-2b-smoke", 1, 4, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_tiered_poisson("granite-3-2b-smoke", n_requests=1)
     with pytest.raises(RuntimeError, match="CUDA"):
