@@ -14,12 +14,13 @@ Phases, each fatal on failure:
      the exit head at their vocab widths (zamba2's 32,000 on 16 rows),
      flash attention at starcoder2-3b's (8192 tokens, 24 / 2 heads of
      128, window 4096) and zamba2-1.2b's (2 x 2048 tokens, 32 / 32 heads
-     of 64, causal);
+     of 64, causal); the exit head at xlstm-350m's [16, 1024] x [1024,
+     50,304] and the int8 pair on its fp32 mLSTM memory [10,240, 512];
   3. small-input references: granite-3-2b-smoke, deepseek-v3-671b-smoke,
-     yi-6b-smoke, mistral-nemo-12b-smoke and zamba2-1.2b-smoke paged
-     decode, and starcoder2-3b-smoke on its contiguous ring past the
-     window, on the card (kernels) against the same weights on the CPU
-     (plain versions);
+     yi-6b-smoke, mistral-nemo-12b-smoke, zamba2-1.2b-smoke and
+     xlstm-350m-smoke paged decode, and starcoder2-3b-smoke on its
+     contiguous ring past the window, on the card (kernels) against the
+     same weights on the CPU (plain versions);
   4. the main path at full width: granite-3-2b (40 layers, random seeded
      weights) serving a Poisson trace through ``serve_poisson`` with the
      paged KV arena and depth-segmented decode; both kernels' launch counts
@@ -92,7 +93,25 @@ Phases, each fatal on failure:
      argmax against the decode replay on 2 x 256.  (d) ``ServingEngine``:
      ``generate`` on 8 x 64 prompts equal to the scheduler bit for bit,
      the tiered engine equal to the single pool, and an adaptive async
-     engine whose threshold moves up with one capture.
+     engine whose threshold moves up with one capture;
+ 10. the xLSTM family at full width: xlstm-350m (20 mLSTM and 4 sLSTM
+     layers, random seeded weights; 80 MiB of fp32 state rows a slot and
+     no pool at all).  (a) ``serve_poisson``, paged and segmented, 16
+     slots, 16 requests at 8 req/s, prompts 24-96 (a quarter sharing a
+     prefix that must never hit), 16 new: both exit probes (V 50,304)
+     launch and each is held against its plain version on a live input;
+     ``profile_decode`` and the mLSTM and sLSTM layers' shares of a
+     step's device time.  (b) a closed loop of 16 requests on 8 slots,
+     sync monolithic then windows of 8: tokens equal (a top-2 tie under
+     1e-2 the only excuse), one capture, and each slot's last occupant's
+     state rows equal the sync poll's bit for bit.  (c) one
+     ``Model.forward`` over 2 x 2048 tokens, and layer 0's chunked mLSTM
+     against its recurrence on 2 x 512 tokens, with a planted control (the
+     second chunk without its carried state) that must fail.  (d) a live
+     slot exported from a 16-slot paged arena and imported into another,
+     raw (the stream continues bit for bit) and int8 (every leaf and scale
+     equal to the plain quantizer's on the live leaf, dequantized bit for
+     bit, the stream complete).
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
@@ -614,6 +633,7 @@ def main(argv=None):
                 results[kname][label] = r
             print(f"  {kname} {label} {json.dumps(r)}")
         del qs
+    int8_xlstm_rows(torch, ops, ref, gen, results)
     print("  library_ms: none (no single PyTorch call computes either "
           "function)")
     del leaves, ckvs, hid, buf, offset
@@ -656,11 +676,13 @@ def main(argv=None):
     check_smoke_vs_cpu(torch, "granite-3-2b-smoke")
     check_smoke_vs_cpu(torch, "deepseek-v3-671b-smoke")
     for arch in ("yi-6b-smoke", "starcoder2-3b-smoke",
-                 "mistral-nemo-12b-smoke", "zamba2-1.2b-smoke"):
+                 "mistral-nemo-12b-smoke", "zamba2-1.2b-smoke",
+                 "xlstm-350m-smoke"):
         check_smoke_vs_cpu(torch, arch)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=True)
     check_forward_vs_cpu(torch, "deepseek-v3-671b-smoke", long_mode=False)
+    check_forward_vs_cpu(torch, "xlstm-350m-smoke", long_mode=False)
 
     # ---- phase 4: the main path at full width -------------------------
     captured = {}
@@ -780,6 +802,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     z2, z2_launches = run_zamba2(torch, ops, ref, results)
 
+    # ---- phase 10: the xLSTM family -----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    xl, xl_launches = run_xlstm(torch, ops, ref, results)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -822,7 +849,8 @@ def main(argv=None):
             kernels[-1]["instance"] = r["instance"]
             kernels[-1]["deepseek"] = exit_ds
         if kname in ("quantize_rows", "dequantize_rows"):
-            for key in ("instance", "spread", "deepseek_c_kv", "live"):
+            for key in ("instance", "spread", "deepseek_c_kv", "live",
+                        "xlstm_c"):
                 kernels[-1][key] = r[key]
         if "shapes" in r:
             kernels[-1]["shapes"] = r["shapes"]
@@ -830,6 +858,8 @@ def main(argv=None):
             part: n[kname] for part, n in multi_launches.items()}
         kernels[-1]["phase9_launches"] = {
             part: n[kname] for part, n in z2_launches.items()}
+        kernels[-1]["phase10_launches"] = {
+            part: n[kname] for part, n in xl_launches.items()}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -837,13 +867,49 @@ def main(argv=None):
             json.dump({"card": card_line, "kernels": kernels,
                        "serve": stats, "async_decode": windows,
                        "tiered": tiered, "deepseek": ds, "forward": fwd,
-                       "multi": multi, "zamba2": z2},
+                       "multi": multi, "zamba2": z2, "xlstm": xl},
                       f, indent=1)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def int8_xlstm_rows(torch, ops, ref, gen, results):
+    """Rows 4a / 5a: both int8 kernels on the mLSTM matrix memory of
+    xlstm-350m's largest block (5 layers x 4 heads x 512 rows of 512,
+    fp32), back to fp32: bit-exact against their plain versions, then
+    timed three times each on two copies."""
+    mems = [torch.randn(5 * 4 * 512, 512, generator=gen, device="cuda")
+            * 0.05 for _ in range(2)]
+    err = check_quant_pair(torch, ops, ref, mems[0], torch.float32,
+                           "xlstm mLSTM C")
+    qs = [ops.compress_rows(x) for x in mems]
+    inst = int8_instances(mems[0], 4)
+
+    def dequant32(q, s):
+        return ops.decompress_rows(q, s, dtype=torch.float32)
+
+    def dequant32_plain(q, s):
+        return ref.dequantize_rows_ref(q, s, torch.float32)
+    for kname, fn, plain, call_args, bnd in (
+            ("quantize_rows", ops.compress_rows, ref.quantize_rows_ref,
+             [(x,) for x in mems], quant_bound(mems[0])),
+            ("dequantize_rows", dequant32, dequant32_plain, qs,
+             dequant_bound(qs[0][0], 4))):
+        spread = interleaved_ms(torch, fn, None, call_args)
+        print_spread(f"{kname} xlstm_c {tuple(mems[0].shape)}", spread)
+        r = {"shape": list(mems[0].shape), "dtype": "float32",
+             "max_abs_err": err, "ms": spread["kernel"]["median"],
+             "plain_ms": device_ms(torch, plain, call_args[:1], iters=5),
+             "bound_ms": bnd[0], "bound_by": bnd[1],
+             "spread": spread["kernel"],
+             "instance": inst[kname.split("_")[0]]}
+        results[kname]["xlstm_c"] = r
+        results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"],
+                                            err)
+        print(f"  {kname} xlstm_c {json.dumps(r)}")
 
 
 def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
@@ -889,12 +955,13 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
         print(f"  {json.dumps(row)}")
         del sets, lib_args
     # the exit head's aligned instance at the vocab widths of yi-6b and
-    # mistral-nemo-12b (8 rows), and of zamba2-1.2b's probes (16 rows,
-    # row 2c)
+    # mistral-nemo-12b (8 rows), and of zamba2-1.2b's and xlstm-350m's
+    # probes (16 rows, rows 2c and 2d)
     lib = entropy_library(torch)
     for label, t, d, v in (("yi-6b", 8, 4096, 64000),
                            ("mistral-nemo-12b", 8, 5120, 131072),
-                           ("zamba2-1.2b", 16, 2048, 32000)):
+                           ("zamba2-1.2b", 16, 2048, 32000),
+                           ("xlstm-350m", 16, 1024, 50304)):
         x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(d, v, generator=gen, device="cuda")
              / math.sqrt(d)).bfloat16()
@@ -2113,6 +2180,105 @@ SSD_STATE_TOL = 5e-3   # of max(1, |ref|): fp32 final states summed from
                        # width on the CPU)
 
 
+def layer_kernels(torch, cfg, kind, lp, slots):
+    """One decode layer of ``kind`` at ``slots`` rows: its kernel time
+    under ``torch.profiler`` (summed, as ``profile_decode`` sums a step's),
+    its kernel count, its time between CUDA events (gaps between its
+    kernels included) and its four longest kernels."""
+    from repro_torch.models import blocks as B
+    cache = B.init_layer_cache(cfg, kind, slots, 0, "cuda")
+    x = torch.randn(slots, 1, cfg.d_model, device="cuda").bfloat16()
+    keep = torch.ones(slots, dtype=torch.bool, device="cuda")
+
+    def layer(x, cache):
+        return B.decode_layer(cfg, kind, lp, x, cache, 0, 0,
+                              write_mask=keep)
+    event_ms = device_ms(torch, layer, [(x, cache)], iters=20)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(10):
+            layer(x, cache)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
+    return {"kernel_ms": sum(e.self_device_time_total for e in kern) / 1e4,
+            "kernels": sum(e.count for e in kern) / 10, "event_ms": event_ms,
+            "top": [(e.key[:40], round(e.self_device_time_total / 1e4, 4))
+                    for e in top]}
+
+
+def sync_vs_windows(torch, ops, model, params, loop, phase):
+    """A closed loop of ``loop["requests"]`` requests (prompts 16-64,
+    max_new 8-24, seed 2) on ``loop["slots"]`` paged slots, so slots are
+    reused and rows finish mid-window: the sync monolithic poll, then
+    windows of ``loop["readback_interval"]``.  Fails unless every stream
+    is full length and equal to the sync one (a first difference excused
+    only at a top-2 tie of a batch-1 replay) with one capture.  Returns
+    the summary and, per run, each slot's last occupant and a copy of the
+    arena's leaves."""
+    import numpy as np
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import (ContinuousBatchScheduler, Request,
+                                     SchedulerConfig)
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, model.cfg.vocab_size, int(rs.randint(16, 65)))
+               for _ in range(loop["requests"])]
+    max_news = [int(rs.randint(8, 25)) for _ in range(loop["requests"])]
+    out, streams, last, arenas = {}, {}, {}, {}
+    for label, async_decode in (("sync", False), ("async", True)):
+        sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
+            n_slots=loop["slots"], max_len=96, prefill_chunk=16,
+            exit_threshold=0.5, segmented=False, paged=True,
+            async_decode=async_decode,
+            readback_interval=loop["readback_interval"]), device="cuda")
+        if sched.prefix_cache is not None:
+            fail(f"phase {phase} (b): an arena with state rows holds a "
+                 f"prefix cache")
+        reqs = [Request(tokens=p, max_new=n, req_id=j)
+                for j, (p, n) in enumerate(zip(prompts, max_news))]
+        for r in reqs:
+            sched.submit(r)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        while sched.has_work:
+            sched.poll()
+        torch.cuda.synchronize()
+        streams[label] = [list(r.out_tokens) for r in reqs]
+        last[label] = {r.slot: r.req_id for r in reqs}   # admission: FIFO
+        arenas[label] = [t.clone() for t in tree_leaves(sched.cache)]
+        out[f"loop_{label}"] = {"wall_s": time.perf_counter() - t0,
+                                "committed_steps": sched._step_idx,
+                                "admitted": sched.n_admitted,
+                                "launches": dict(ops.LAUNCHES),
+                                "builds": sched.jit_cache_sizes()}
+        if async_decode:
+            w = sched._window
+            out["loop_async"].update(replays=w.replays, captures=w.captures,
+                                     per_replay=w.per_replay)
+        del sched
+    ties = []
+    for j, (got, want) in enumerate(zip(streams["async"], streams["sync"])):
+        if len(got) != max_news[j]:
+            fail(f"phase {phase} (b) request {j}: {len(got)} tokens")
+        if got == want:
+            continue
+        # a first difference must sit at a top-2 tie of a batch-1 replay,
+        # either way round
+        k, gap = tie_gap(torch, model, params, prompts[j], got, want)
+        print(f"  (b) request {j} differs at token {k}: fp32 top-2 gap "
+              f"{gap:.3e}")
+        if not abs(gap) < LOGIT_TIE:
+            fail(f"phase {phase} (b) request {j}: tokens differ (no tie)")
+        ties.append({"req": j, "token": k, "gap": gap})
+    out["loop_ties"] = ties
+    if out["loop_async"]["captures"] != 1:
+        fail(f"phase {phase} (b): {out['loop_async']['captures']} captures")
+    return out, last, arenas
+
+
 def run_zamba2(torch, ops, ref, results):
     """Phase 9 (see the module docstring).  Returns a summary and the
     launch counts of each part."""
@@ -2221,25 +2387,10 @@ def run_zamba2(torch, ops, ref, results):
     # layer at 16 slots under the same profiler (kernel time summed, as
     # profile_decode sums a step's), times the layer count; and the
     # layer's time between CUDA events, gaps between its kernels included
-    lp = tree_map(lambda t: t[0], params["blocks"][0])
-    cache = B.init_layer_cache(cfg, "mamba", tr["slots"], 0, "cuda")
-    x = torch.randn(tr["slots"], 1, cfg.d_model, device="cuda").bfloat16()
-    keep = torch.ones(tr["slots"], dtype=torch.bool, device="cuda")
-
-    def layer(x, cache):
-        return B.decode_layer(cfg, "mamba", lp, x, cache, 0, 0,
-                              write_mask=keep)
-    event_ms = device_ms(torch, layer, [(x, cache)], iters=20)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as lprof:
-        for _ in range(10):
-            layer(x, cache)
-        torch.cuda.synchronize()
-    kern = [e for e in lprof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    layer_ms = sum(e.self_device_time_total for e in kern) / 1e3 / 10
-    layer_kernels = sum(e.count for e in kern) / 10
+    cell = layer_kernels(torch, cfg, "mamba",
+                         tree_map(lambda t: t[0], params["blocks"][0]),
+                         tr["slots"])
+    layer_ms, event_ms = cell["kernel_ms"], cell["event_ms"]
     mamba_ms = layer_ms * cfg.num_layers
     share = mamba_ms / prof["device_ms_per_step"]
     print(f"  profile_decode (16 slots, 128-token prompts, 4 steps): host "
@@ -2248,72 +2399,22 @@ def run_zamba2(torch, ops, ref, results):
           f"{prof['device_busy_share'] * 100:.1f} %, "
           f"{prof['cuda_kernels_per_step']:.0f} CUDA kernels/step; one "
           f"mamba decode layer {layer_ms:.4f} ms of kernels "
-          f"({layer_kernels:.0f} kernels; {event_ms:.4f} ms between CUDA "
+          f"({cell['kernels']:.0f} kernels; {event_ms:.4f} ms between CUDA "
           f"events) x {cfg.num_layers} = {mamba_ms:.3f} ms, "
           f"{share * 100:.1f} % of the step's device time; the port's "
           f"kernels a step "
           f"{[(k['name'][:40], round(k['ms_per_step'], 4), k['calls_per_step']) for k in prof['port_kernels']]}")
     out["profile_decode"] = prof
-    out["mamba_layer"] = {"kernel_ms": layer_ms, "event_ms": event_ms,
-                          "kernels": layer_kernels}
+    out["mamba_layer"] = cell
     out["mamba_share"] = share
-    del cache, x
 
     # (b) closed loop on 8 slots: slots reused (state rows reset), rows
     # finishing mid-window; the sync monolithic poll, then windows of 8
     lo = Z2_LOOP
-    rs = np.random.RandomState(2)
-    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(16, 65)))
-               for _ in range(lo["requests"])]
-    max_news = [int(rs.randint(8, 25)) for _ in range(lo["requests"])]
-    streams = {}
-    for label, async_decode in (("sync", False), ("async", True)):
-        sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
-            n_slots=lo["slots"], max_len=96, prefill_chunk=16,
-            exit_threshold=0.5, segmented=False, paged=True,
-            async_decode=async_decode,
-            readback_interval=lo["readback_interval"]), device="cuda")
-        if sched.prefix_cache is not None:
-            fail("phase 9 (b): a hybrid arena holds a prefix cache")
-        reqs = [Request(tokens=p, max_new=n, req_id=j)
-                for j, (p, n) in enumerate(zip(prompts, max_news))]
-        for r in reqs:
-            sched.submit(r)
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        while sched.has_work:
-            sched.poll()
-        torch.cuda.synchronize()
-        streams[label] = [list(r.out_tokens) for r in reqs]
-        out[f"loop_{label}"] = {"wall_s": time.perf_counter() - t0,
-                                "committed_steps": sched._step_idx,
-                                "admitted": sched.n_admitted,
-                                "launches": dict(ops.LAUNCHES),
-                                "builds": sched.jit_cache_sizes()}
-        if async_decode:
-            w = sched._window
-            out["loop_async"].update(replays=w.replays, captures=w.captures,
-                                     per_replay=w.per_replay)
-        del sched
+    loop, _, _ = sync_vs_windows(torch, ops, model, params, lo, 9)
+    out.update(loop)
+    ties = loop["loop_ties"]
     launches["loop"] = out["loop_async"]["launches"]
-    ties = []
-    for j, (got, want) in enumerate(zip(streams["async"], streams["sync"])):
-        if len(got) != max_news[j]:
-            fail(f"phase 9 (b) request {j}: {len(got)} tokens")
-        if got == want:
-            continue
-        # a first difference must sit at a top-2 tie of a batch-1 replay,
-        # either way round
-        k, gap = tie_gap(torch, model, params, prompts[j], got, want)
-        print(f"  (b) request {j} differs at token {k}: fp32 top-2 gap "
-              f"{gap:.3e}")
-        if not abs(gap) < LOGIT_TIE:
-            fail(f"phase 9 (b) request {j}: tokens differ (no tie)")
-        ties.append({"req": j, "token": k, "gap": gap})
-    out["loop_ties"] = ties
-    if out["loop_async"]["captures"] != 1:
-        fail(f"phase 9 (b): {out['loop_async']['captures']} captures")
     if out["loop_async"]["launches"]["paged_gqa_attention"] <= 0:
         fail("phase 9 (b): no paged-attention launch in the windows")
     print(f"  (b) closed loop of {lo['requests']} requests on {lo['slots']} "
@@ -2509,6 +2610,364 @@ def run_zamba2(torch, ops, ref, results):
     del eng, tiered, cl, ada, model, params
     out["wall_s"] = time.time() - t_phase
     print(f"phase 9 wall time {out['wall_s']:.1f}s")
+    return out, launches
+
+
+XL_TRACE = dict(rate=8.0, n_requests=16, slots=16, prompt_len=96,
+                max_new=16, threshold=0.5, paged=True, page_size=16,
+                segmented=True, prefix_share=0.25, prefix_len=32, seed=0)
+XL_LOOP = dict(requests=16, slots=8, readback_interval=8)
+XL_FWD = (2, 2048)         # phase 10 (c)'s forward (8 chunks of 256)
+XL_GATE = 512              # the mLSTM gate's tokens a row (two chunks)
+MLSTM_TOL = 2e-2   # of max(1, |ref|): bf16 cell outputs of the chunked
+                   # dual and of the recurrence, rounded once each; the
+                   # reference's own test (tests/test_model_units.py)
+MLSTM_STATE_TOL = 5e-3   # of max(1, |ref|): the final fp32 C and n, summed
+                         # from bf16 k and v that the two paths' GEMMs (M
+                         # 1024 and M 2) round one ulp apart here and there
+                         # (5.1e-4 / 1.8e-4 at full width on the CPU)
+XL_MIGRATE = dict(requests=4, slots=16, max_len=128, max_new=24, polls=10)
+
+
+def run_xlstm(torch, ops, ref, results):
+    """Phase 10 (see the module docstring).  Returns a summary and the
+    launch counts of each part."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_decode import profile_decode
+    from repro_torch.launch.serve import serve_poisson
+    from repro_torch.models import Model, xlstm
+    from repro_torch.models.common import apply_norm, tree_leaves, tree_map
+    from repro_torch.serving import (ContinuousBatchScheduler, Request,
+                                     SchedulerConfig)
+    t_phase = time.time()
+    cfg = get_config("xlstm-350m")
+    tr = XL_TRACE
+    model = Model(cfg, device="cuda")
+    params = model.init(tr["seed"])
+    kinds = model.scan_block_kinds()
+    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    slot_state = sum(t[:, 0].numel() * t.element_size() for t in tree_leaves(
+        model.init_decode_cache_paged(1, 1, 16)["blocks"]))
+    _, d_in, heads, p = xlstm._dims(cfg)
+    n_m = sum(s[2] for s in model.plan if s[0] == "scan" and s[1] == "mlstm")
+    print(f"xLSTM path: xlstm-350m (arXiv:2405.04517) at its published "
+          f"widths: {cfg.num_layers} layers ({n_m} mLSTM, sLSTM at "
+          f"{cfg.ssm.slstm_layers}), d_model {cfg.d_model}, {heads} heads "
+          f"of {p} (d_in {d_in}), vocab {cfg.vocab_size}, exits after "
+          f"layers {cfg.exits.exit_layers}; random weights (seed 0, "
+          f"{pbytes / 1e9:.2f} GB), state rows {slot_state / 2 ** 20:.1f} "
+          f"MiB a slot, no attention and no pool")
+    out = {"param_bytes": pbytes, "state_bytes_per_slot": slot_state}
+    launches = {}
+
+    # (a) serve_poisson, paged and segmented; live exit-head inputs
+    captured = {}
+    weights = set()
+    kernel = ops.exit_head_entropy
+    calls = [0]
+
+    def capturing(x, w):
+        calls[0] += 1
+        weights.add(w.data_ptr())
+        if calls[0] % 13 == 0:
+            captured[w.data_ptr()] = (x.clone(), w)
+        return kernel(x, w)
+    ops.exit_head_entropy = capturing
+    ops.reset_launches()
+    t0 = time.time()
+    st = serve_poisson(cfg, params=params, device="cuda", quiet=True,
+                       n_requests=tr["n_requests"], rate=tr["rate"],
+                       slots=tr["slots"], prompt_len=tr["prompt_len"],
+                       max_new=tr["max_new"], threshold=tr["threshold"],
+                       paged=tr["paged"], page_size=tr["page_size"],
+                       segmented=tr["segmented"],
+                       prefix_share=tr["prefix_share"],
+                       prefix_len=tr["prefix_len"], seed=tr["seed"])
+    torch.cuda.synchronize()
+    launches["serve"] = dict(ops.LAUNCHES)
+    wall = time.time() - t0
+    ops.exit_head_entropy = kernel
+    outs = st.pop("outputs")
+    print(f"  (a) served {tr['n_requests']} requests at {tr['rate']} req/s, "
+          f"prompts {tr['prompt_len'] // 4}-{tr['prompt_len']} tokens "
+          f"({tr['prefix_share']:.2f} sharing a {tr['prefix_len']}-token "
+          f"prefix), {tr['max_new']} new, {tr['slots']} slots, paged + "
+          f"segmented, threshold {tr['threshold']}: {wall:.1f}s with "
+          f"warm-up; {st['sustained_tok_s']:.2f} tok/s, p50 "
+          f"{st['p50_latency_s'] * 1e3:.0f} ms, p95 "
+          f"{st['p95_latency_s'] * 1e3:.0f} ms, makespan "
+          f"{st['makespan_s']:.2f} s, prefix_hit_tokens "
+          f"{st['prefix_hit_tokens']}; launches {launches['serve']}")
+    if len(outs) != tr["n_requests"] or any(
+            len(o) != tr["max_new"] or not all(0 <= t < cfg.vocab_size
+                                               for t in o) for o in outs):
+        fail("phase 10 (a): a stream is short or out of the vocabulary")
+    if st["prefix_hit_tokens"] or st["prefill_chunks_skipped"]:
+        fail("phase 10 (a): an xLSTM arena skipped prefill through a prefix")
+    if launches["serve"]["exit_head_entropy"] <= 0 \
+            or len(weights) != model.n_exits:
+        fail(f"phase 10 (a): {launches['serve']['exit_head_entropy']} "
+             f"exit-head launches over {len(weights)} heads, not both")
+    if len(captured) != model.n_exits:
+        fail("phase 10 (a): no live call of each exit probe was captured")
+    for x, w in captured.values():
+        got = kernel(x, w).float()
+        err = (got - ref.exit_head_entropy_ref(x, w).float()).abs().max() \
+            .item()
+        print(f"  live exit_head_entropy [{tuple(x.shape)}, "
+              f"{tuple(w.shape)}]: max_abs_err {err:.3e} (tol {ENT_TOL})")
+        if not torch.isfinite(got).all() or err > ENT_TOL:
+            fail("phase 10 (a): exit_head_entropy disagrees with its plain "
+                 "version on live xLSTM inputs")
+        results["exit_head_entropy"]["max_abs_err"] = max(
+            results["exit_head_entropy"]["max_abs_err"], err)
+    del captured
+    out["serve"] = st
+    prof = profile_decode(cfg, slots=tr["slots"], prompt_len=64, steps=4,
+                          seed=tr["seed"], params=params)
+    # each cell kind's share of a step's device time: one decode layer of
+    # it at 16 slots, times its layer count
+    cells = {}
+    for kind in ("mlstm", "slstm"):
+        lp = tree_map(lambda t: t[0], params["blocks"][kinds.index(kind)])
+        cells[kind] = layer_kernels(torch, cfg, kind, lp, tr["slots"])
+        cells[kind]["layers"] = sum(s[2] for s in model.plan
+                                    if s[0] == "scan" and s[1] == kind)
+        cells[kind]["share"] = (cells[kind]["kernel_ms"]
+                                * cells[kind]["layers"]
+                                / prof["device_ms_per_step"])
+    print(f"  profile_decode (16 slots, 64-token prompts, 4 steps): host "
+          f"wall {prof['wall_ms_per_step']:.2f} ms/step, device "
+          f"{prof['device_ms_per_step']:.3f} ms/step, busy "
+          f"{prof['device_busy_share'] * 100:.1f} %, "
+          f"{prof['cuda_kernels_per_step']:.0f} CUDA kernels/step; the "
+          f"port's kernels a step "
+          f"{[(k['name'][:40], round(k['ms_per_step'], 4), k['calls_per_step']) for k in prof['port_kernels']]}")
+    for kind, c in cells.items():
+        print(f"  one {kind} decode layer at 16 slots: {c['kernel_ms']:.4f} "
+              f"ms of kernels ({c['kernels']:.0f} kernels; "
+              f"{c['event_ms']:.4f} ms between CUDA events) x "
+              f"{c['layers']} = {c['kernel_ms'] * c['layers']:.3f} ms, "
+              f"{c['share'] * 100:.1f} % of the step's device time; top "
+              f"{c['top']}")
+    out["profile_decode"] = prof
+    out["cells"] = cells
+
+    # (b) closed loop on 8 slots: slots reused (state rows zeroed), rows
+    # finishing mid-window; the sync monolithic poll, then windows of 8
+    lo = XL_LOOP
+    loop, last, arenas = sync_vs_windows(torch, ops, model, params, lo, 10)
+    out.update(loop)
+    ties = loop["loop_ties"]
+    launches["loop"] = out["loop_async"]["launches"]
+    # the graph stores the state rows: with equal streams, a request that
+    # is its slot's last occupant in both runs ends with the same state
+    # rows bit for bit (the windows free slots at other polls, so the
+    # same request may sit in another slot)
+    slot_of = {lab: {j: sl for sl, j in m.items()} for lab, m in last.items()}
+    finals = sorted(set(slot_of["sync"]) & set(slot_of["async"]))
+    same_state = bool(finals) and all(
+        bits_equal(torch, a[:, slot_of["sync"][j]], b[:, slot_of["async"][j]])
+        for j in finals for a, b in zip(arenas["sync"], arenas["async"]))
+    if not ties and not same_state:
+        fail("phase 10 (b): the windows' state rows differ from the sync "
+             "poll's")
+    out["loop_state_equal"] = same_state
+    del arenas
+    prof_w = profile_decode(cfg, slots=lo["slots"], prompt_len=64, steps=8,
+                            seed=tr["seed"], params=params,
+                            async_decode=True,
+                            readback_interval=lo["readback_interval"])
+    prof_s = profile_decode(cfg, slots=lo["slots"], prompt_len=64, steps=4,
+                            seed=tr["seed"], params=params)
+    out["profile_windows"] = {"sync": prof_s, "windows": prof_w}
+    print(f"  (b) closed loop of {lo['requests']} requests on {lo['slots']} "
+          f"slots (prompts 16-64, max_new 8-24): "
+          f"{lo['requests'] - len(ties)} streams bit-identical to the sync "
+          f"monolithic poll, {len(ties)} ties; one capture; the state rows "
+          f"of {len(finals)} last occupants equal the sync poll's: "
+          f"{same_state}; "
+          f"{out['loop_sync']['wall_s']:.2f} s sync against "
+          f"{out['loop_async']['wall_s']:.2f} s with windows of "
+          f"{lo['readback_interval']} ({out['loop_async']['replays']} "
+          f"replays, launches a replay {out['loop_async']['per_replay']}); "
+          f"profile_decode at {lo['slots']} slots: sync step "
+          f"{prof_s['wall_ms_per_step']:.2f} ms host, "
+          f"{prof_s['device_ms_per_step']:.3f} ms device "
+          f"({prof_s['device_busy_share'] * 100:.1f} % busy, "
+          f"{prof_s['cuda_kernels_per_step']:.0f} kernels), windowed step "
+          f"{prof_w['wall_ms_per_step']:.2f} ms host, "
+          f"{prof_w['device_ms_per_step']:.3f} ms device "
+          f"({prof_w['device_busy_share'] * 100:.1f} % busy)")
+
+    # (c) one Model.forward over 2 x 2048 tokens (8 chunks of 256; the
+    # sLSTM layers step 2048 times each)
+    b, s = XL_FWD
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    model.forward(params, {"tokens": toks[:, :512]})   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    e0.record()
+    fwd = model.forward(params, {"tokens": toks})
+    e1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches["forward"] = dict(ops.LAUNCHES)
+    dev_ms = e0.elapsed_time(e1)
+    finite = bool(torch.isfinite(fwd.logits).all()) and all(
+        bool(torch.isfinite(e).all()) for e in fwd.exit_logits)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  (c) Model.forward {b} x {s} tokens: {dev_ms:.1f} ms between "
+          f"CUDA events ({host_s:.2f} s host), "
+          f"{b * s / dev_ms * 1e3:.0f} tokens/s, peak {peak / 1e9:.2f} GB, "
+          f"logits {tuple(fwd.logits.shape)}, {len(fwd.exit_logits)} exit "
+          f"logits, finite {finite}; launches {launches['forward']}")
+    if not finite or tuple(fwd.logits.shape) != (b, s, cfg.vocab_size) \
+            or len(fwd.exit_logits) != model.n_exits:
+        fail("phase 10 (c): the forward's logits are not finite or "
+             "misshapen")
+    if any(launches["forward"].values()):
+        fail("phase 10 (c): the xLSTM forward launched a port kernel")
+    del fwd
+    # the chunked mLSTM against its recurrence at full width: layer 0's
+    # cell on real normed embeddings, 2 x 512 tokens (two chunks, so the
+    # loop across chunks is read); a planted fault, the second chunk run
+    # without its carried state, must fail the same check
+    lp0 = tree_map(lambda t: t[0], params["blocks"][0])
+    xs = apply_norm(cfg.norm, model.embed_decode_tokens(
+        params, toks[:, :XL_GATE]), lp0["ln"])
+    y_fwd, (c_fwd, n_fwd) = xlstm.mlstm_forward(cfg, lp0["mlstm"], xs)
+    state = xlstm.init_mlstm_state(cfg, b, "cuda")
+    ys = []
+    for t in range(XL_GATE):
+        y, state = xlstm.mlstm_decode(cfg, lp0["mlstm"], xs[:, t:t + 1],
+                                      state)
+        ys.append(y)
+    y_dec = torch.cat(ys, dim=1).float()
+
+    def rel(a, w):
+        return ((a.float() - w).abs() / w.abs().clamp(min=1)).max().item()
+    half = XL_GATE // 2
+    y_cut, _ = xlstm.mlstm_forward(cfg, lp0["mlstm"], xs[:, half:])
+    gate = {"y_err": rel(y_fwd, y_dec), "c_err": rel(c_fwd, state[0]),
+            "n_err": rel(n_fwd, state[1]),
+            "control_err": rel(y_cut, y_dec[:, half:])}
+    print(f"  (c) mLSTM layer 0, chunked dual vs the recurrence ({b} x "
+          f"{XL_GATE} tokens, chunks of {cfg.ssm.chunk_size}): outputs "
+          f"{gate['y_err']:.3e} of max(1, |ref|) (tol {MLSTM_TOL}), final C "
+          f"{gate['c_err']:.3e} and n {gate['n_err']:.3e} (tol "
+          f"{MLSTM_STATE_TOL}); control (second chunk without its carried "
+          f"state) {gate['control_err']:.3e}, must exceed {MLSTM_TOL}")
+    if not (gate["y_err"] <= MLSTM_TOL and gate["c_err"] <= MLSTM_STATE_TOL
+            and gate["n_err"] <= MLSTM_STATE_TOL):
+        fail("phase 10 (c): the chunked mLSTM disagrees with the recurrence")
+    if not gate["control_err"] > MLSTM_TOL:
+        fail("phase 10 (c): the mLSTM check passes a planted fault")
+    out["forward"] = {"tokens": b * s, "event_ms": dev_ms, "host_s": host_s,
+                      "peak_bytes": peak, "gate": gate}
+    del xs, y_fwd, y_dec, y_cut, ys, state, c_fwd, n_fwd
+
+    # (d) a live slot migrated between two 16-slot paged arenas, raw and
+    # int8: the raw stream continues bit for bit; every int8 leaf and
+    # scale equals the plain quantizer's on the same live leaf
+    mg = XL_MIGRATE
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(16, 49)))
+               for _ in range(mg["requests"])]
+
+    def arena():
+        return ContinuousBatchScheduler(model, params, SchedulerConfig(
+            n_slots=mg["slots"], max_len=mg["max_len"], prefill_chunk=16,
+            exit_threshold=0.5, paged=True), device="cuda")
+
+    def submit(sched):
+        reqs = [Request(tokens=p, max_new=mg["max_new"], req_id=j)
+                for j, p in enumerate(prompts)]
+        for r in reqs:
+            sched.submit(r)
+        return reqs
+    ded = arena()
+    submit(ded)
+    ded.run()
+    want = {r.req_id: list(r.out_tokens) for r in ded.completed}
+    del ded
+    mig = {}
+    ops.reset_launches()
+    for label in ("raw", "int8"):
+        src, dst = arena(), arena()
+        reqs = submit(src)
+        for _ in range(mg["polls"]):
+            src.poll()
+        r = reqs[0]
+        if r.done or not src.active[r.slot]:
+            fail(f"phase 10 (d): request 0 is not live after "
+                 f"{mg['polls']} polls")
+        snap = src.export_slot(r.slot, compress=label == "int8")
+        if label == "int8":
+            # the comparisons' launches are not the path's
+            counted = dict(ops.LAUNCHES)
+            raw = src.export_slot(r.slot)
+            leaves = 0
+            for q, sc, a in zip(snap.payload, snap.scales, raw.payload):
+                a = a.cuda()
+                qr, sr = ref.quantize_rows_ref(a.reshape(-1, a.shape[-1]))
+                if sc is None or not (
+                        bits_equal(torch, q.cuda().reshape(qr.shape), qr)
+                        and bits_equal(torch, sc.cuda().reshape(sr.shape),
+                                       sr)):
+                    fail("phase 10 (d): an int8 leaf or scale differs from "
+                         "the plain quantizer on the live leaf")
+                yk = ops.decompress_rows(q.cuda(), sc.cuda(), dtype=a.dtype)
+                yr = ref.dequantize_rows_ref(qr, sr, a.dtype)
+                if not bits_equal(torch, yk.reshape(yr.shape), yr):
+                    fail("phase 10 (d): dequantize_rows differs from its "
+                         "plain version on the live payload")
+                leaves += 1
+            mig["int8_leaves"] = leaves
+            mig["int8_shapes"] = [list(q.shape) for q in snap.payload]
+            ops.LAUNCHES.update(counted)
+            del raw
+        mig[f"{label}_bytes"] = snap.payload_bytes
+        src.release_slot(r.slot)
+        dst.import_slot(snap)
+        dst.run()
+        src.run()
+        if label == "raw" and r.out_tokens != want[0]:
+            fail("phase 10 (d): the raw migration's stream differs from the "
+                 "unmigrated run")
+        if len(r.out_tokens) != mg["max_new"] or not all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens):
+            fail(f"phase 10 (d): the {label} migration's stream is short or "
+                 f"out of the vocabulary")
+        mig[f"{label}_equal"] = r.out_tokens == want[0]
+        mig[f"{label}_others_equal"] = all(
+            list(x.out_tokens) == want[x.req_id] for x in reqs[1:])
+        del src, dst
+    torch.cuda.synchronize()
+    launches["migrate"] = dict(ops.LAUNCHES)
+    if launches["migrate"]["quantize_rows"] <= 0 \
+            or launches["migrate"]["dequantize_rows"] <= 0:
+        fail("phase 10 (d): the int8 kernels did not launch")
+    out["migrate"] = mig
+    print(f"  (d) migration of a live slot between 16-slot paged arenas: "
+          f"raw {mig['raw_bytes'] / 2 ** 20:.1f} MiB, stream bit-identical "
+          f"to the unmigrated run; int8 {mig['int8_bytes'] / 2 ** 20:.1f} "
+          f"MiB, {mig['int8_leaves']} leaves and scales bit-identical to "
+          f"the plain quantizer, dequantized bit-identically, stream "
+          f"complete (equal to the unmigrated one: {mig['int8_equal']}); "
+          f"the other streams of the source unchanged: "
+          f"{mig['raw_others_equal']} / {mig['int8_others_equal']}; "
+          f"launches {launches['migrate']}")
+    del model, params
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 10 wall time {out['wall_s']:.1f}s")
     return out, launches
 
 

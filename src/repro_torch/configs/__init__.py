@@ -10,11 +10,12 @@ from repro_torch.configs.deepseek_v3_671b import CONFIG as _dsv3
 from repro_torch.configs.granite_3_2b import CONFIG as _granite
 from repro_torch.configs.mistral_nemo_12b import CONFIG as _nemo
 from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2
+from repro_torch.configs.xlstm_350m import CONFIG as _xlstm
 from repro_torch.configs.yi_6b import CONFIG as _yi
 from repro_torch.configs.zamba2_1p2b import CONFIG as _zamba2
 
 ARCHS = {c.name: c for c in (_granite, _dsv3, _yi, _starcoder2, _nemo,
-                             _zamba2)}
+                             _zamba2, _xlstm)}
 
 
 def get_config(name: str) -> ModelConfig:

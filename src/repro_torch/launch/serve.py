@@ -20,6 +20,10 @@ tiered cloud/edge/device cluster.
         --spec-draft granite-3-2b-smoke --spec-k 4 --threshold 0 \\
         --requests 4 --prompt-len 12 --max-new 8
 
+``--long`` serves with ring-buffer KV caches at the model's
+``long_context_window`` (contiguous arenas only); ``--prefill-chunk`` is
+the prompt tokens a prefill round replays (Poisson modes).
+
 ``--mode batch`` (the default) generates ``--max-new`` tokens for
 ``--batch`` prompts of ``--prompt-len`` tokens (seeded) through
 ``ServingEngine`` and prints tok/s (host clock) and the exit statistics.
@@ -93,9 +97,9 @@ def _pctl(xs, q: float) -> float:
 
 
 def serve(arch, batch: int, prompt_len: int, max_new: int, *,
-          threshold: float = 0.5, async_decode: bool = False,
-          readback_interval: int = 8, seed: int = 0, params=None,
-          device="cuda", quiet: bool = False):
+          threshold: float = 0.5, long_mode: bool = False,
+          async_decode: bool = False, readback_interval: int = 8,
+          seed: int = 0, params=None, device="cuda", quiet: bool = False):
     """One closed batch through ``ServingEngine`` (the quickstart path):
     ``batch`` prompts of ``prompt_len`` tokens drawn from a seeded numpy
     ``RandomState``, ``max_new`` tokens each.  Returns (tokens [batch,
@@ -106,6 +110,7 @@ def serve(arch, batch: int, prompt_len: int, max_new: int, *,
         params = model.init(seed)
     eng = ServingEngine(model, params,
                         ServeConfig(exit_threshold=threshold,
+                                    long_mode=long_mode,
                                     async_decode=async_decode,
                                     readback_interval=readback_interval))
     prompts = np.random.RandomState(seed).randint(
@@ -124,7 +129,8 @@ def serve(arch, batch: int, prompt_len: int, max_new: int, *,
 def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
                   slots: int = 8, prompt_len: int = 16, max_new: int = 32,
                   threshold: float = 0.5, prefill_chunk: int = 16,
-                  paged: bool = False, page_size: int = 16,
+                  long_mode: bool = False, paged: bool = False,
+                  page_size: int = 16,
                   segmented: bool = True, prefix_share: float = 0.0,
                   prefix_len: int = 0, async_decode: bool = False,
                   readback_interval: int = 8, seed: int = 0, params=None,
@@ -146,8 +152,8 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
         model, params,
         SchedulerConfig(n_slots=slots, max_len=max_len,
                         prefill_chunk=min(prefill_chunk, max(1, prompt_len)),
-                        exit_threshold=threshold, paged=paged,
-                        page_size=page_size,
+                        exit_threshold=threshold, long_mode=long_mode,
+                        paged=paged, page_size=page_size,
                         segmented=segmented and not async_decode,
                         async_decode=async_decode,
                         readback_interval=readback_interval),
@@ -242,7 +248,8 @@ def serve_tiered_poisson(arch, *, rate: float = 4.0,
                          prompt_len: int = 16, max_new: int = 32,
                          threshold: float = 0.5, prefill_chunk: int = 16,
                          scenario: str = "default", plan_arch: str = "",
-                         deadline: float = 0.0, async_decode: bool = False,
+                         deadline: float = 0.0, long_mode: bool = False,
+                         async_decode: bool = False,
                          readback_interval: int = 8, seed: int = 0,
                          params=None, device="cuda", quiet: bool = False):
     """Poisson trace through the tiered cluster: the admission router sends
@@ -272,7 +279,7 @@ def serve_tiered_poisson(arch, *, rate: float = 4.0,
                           max_len=prompt_len + max_new,
                           prefill_chunk=min(prefill_chunk,
                                             max(1, prompt_len)),
-                          exit_threshold=threshold,
+                          exit_threshold=threshold, long_mode=long_mode,
                           async_decode=async_decode,
                           readback_interval=readback_interval))
     rs = np.random.RandomState(seed)
@@ -327,7 +334,7 @@ def _plan_name(arch: str) -> str:
 def serve_multi_poisson(archs, *, rate: float = 4.0, n_requests: int = 32,
                         slots: int = 4, prompt_len: int = 16,
                         max_new: int = 32, threshold: float = 0.5,
-                        prefill_chunk: int = 16,
+                        prefill_chunk: int = 16, long_mode: bool = False,
                         max_prefill_chunks: int = 0, paged: bool = False,
                         page_size: int = 16, segmented: bool = True,
                         async_decode: bool = False,
@@ -351,7 +358,7 @@ def serve_multi_poisson(archs, *, rate: float = 4.0, n_requests: int = 32,
     sched = MultiModelScheduler(group, SchedulerConfig(
         n_slots=slots, max_len=max_len,
         prefill_chunk=min(prefill_chunk, max(1, prompt_len)),
-        exit_threshold=threshold,
+        exit_threshold=threshold, long_mode=long_mode,
         max_prefill_chunks_per_step=max_prefill_chunks, paged=paged,
         page_size=page_size, segmented=segmented and not async_decode,
         async_decode=async_decode, readback_interval=readback_interval))
@@ -433,6 +440,7 @@ def serve_multi_tiered_poisson(archs, *, rate: float = 4.0,
                                prompt_len: int = 16, max_new: int = 32,
                                threshold: float = 0.5,
                                prefill_chunk: int = 16,
+                               long_mode: bool = False,
                                scenario: str = "default",
                                deadline: float = 0.0, spec_draft: str = "",
                                spec_k: int = 4, paged: bool = False,
@@ -461,8 +469,8 @@ def serve_multi_tiered_poisson(archs, *, rate: float = 4.0,
         cfg=ClusterConfig(base_slots=base_slots, max_len=max_len,
                           prefill_chunk=min(prefill_chunk,
                                             max(1, prompt_len)),
-                          exit_threshold=threshold, spec_draft=spec_draft,
-                          spec_k=spec_k, paged=paged,
+                          exit_threshold=threshold, long_mode=long_mode,
+                          spec_draft=spec_draft, spec_k=spec_k, paged=paged,
                           async_decode=async_decode,
                           readback_interval=readback_interval))
     rs = np.random.RandomState(seed)
@@ -522,6 +530,11 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--threshold", type=float, default=0.5)
+    ap.add_argument("--prefill-chunk", type=int, default=16,
+                    help="[poisson] prompt tokens a prefill round replays")
+    ap.add_argument("--long", action="store_true",
+                    help="ring-buffer KV caches at the model's "
+                         "long_context_window (contiguous arenas)")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--monolithic", action="store_true",
                     help="one decode_step per token instead of segments")
@@ -554,7 +567,8 @@ def main(argv=None):
         if args.models or args.tiered:
             ap.error("--models and --tiered need --mode poisson")
         serve(args.arch, args.batch, args.prompt_len, args.max_new,
-              threshold=args.threshold, async_decode=args.async_decode,
+              threshold=args.threshold, long_mode=args.long,
+              async_decode=args.async_decode,
               readback_interval=args.readback_interval, seed=args.seed,
               device=args.device)
         return
@@ -567,6 +581,7 @@ def main(argv=None):
         common = dict(rate=args.rate, n_requests=args.requests,
                       prompt_len=args.prompt_len, max_new=args.max_new,
                       threshold=args.threshold, paged=args.paged,
+                      prefill_chunk=args.prefill_chunk, long_mode=args.long,
                       async_decode=args.async_decode,
                       readback_interval=args.readback_interval,
                       seed=args.seed, device=args.device)
@@ -584,6 +599,7 @@ def main(argv=None):
             args.arch, rate=args.rate, n_requests=args.requests,
             base_slots=args.slots, prompt_len=args.prompt_len,
             max_new=args.max_new, threshold=args.threshold,
+            prefill_chunk=args.prefill_chunk, long_mode=args.long,
             scenario=args.scenario, plan_arch=args.plan_arch,
             deadline=args.deadline, async_decode=args.async_decode,
             readback_interval=args.readback_interval, seed=args.seed,
@@ -592,6 +608,7 @@ def main(argv=None):
     serve_poisson(args.arch, rate=args.rate, n_requests=args.requests,
                   slots=args.slots, prompt_len=args.prompt_len,
                   max_new=args.max_new, threshold=args.threshold,
+                  prefill_chunk=args.prefill_chunk, long_mode=args.long,
                   paged=args.paged, segmented=not args.monolithic,
                   prefix_share=args.prefix_share, prefix_len=args.prefix_len,
                   async_decode=args.async_decode,

@@ -9,10 +9,10 @@ Every architecture compiles to a PLAN, an ordered list of steps
 exactly as in the reference.  Stacked blocks keep their leading layer axis
 ([n_units, ...]); the full-sequence forward (``run_scan_block``) and
 decode (``decode_scan_block``) walk it in a Python loop.  The ``dense``
-and ``moe`` kinds are ported, with GQA or MLA attention, and ``mamba``
-(zamba2's Mamba2 layers, with its weight-shared attention block);
-``pair`` (llama4's grouped dense/MoE unit) and the xLSTM kinds are not
-yet.
+and ``moe`` kinds are ported, with GQA or MLA attention, ``mamba``
+(zamba2's Mamba2 layers, with its weight-shared attention block) and the
+xLSTM kinds ``mlstm`` and ``slstm``; ``pair`` (llama4's grouped dense/MoE
+unit) and the encoder-decoder kinds are not yet.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (apply_norm, init_norm, materialize,
                                        scaled_init, tree_leaves, tree_map)
 
@@ -95,7 +96,7 @@ def build_plan(cfg) -> List[Tuple]:
 # Init
 # ---------------------------------------------------------------------------
 
-PORTED_KINDS = frozenset({"dense", "moe", "mamba"})
+PORTED_KINDS = frozenset({"dense", "moe", "mamba", "mlstm", "slstm"})
 
 
 def _require_ported(kind: str):
@@ -127,8 +128,24 @@ def _init_mamba_layer(cfg):
             "mamba": ssm_mod.init_mamba2(cfg)}
 
 
+def _init_mlstm_layer(cfg):
+    return {"ln": init_norm(cfg.norm, cfg.d_model),
+            "mlstm": xlstm_mod.init_mlstm(cfg)}
+
+
+def _init_slstm_layer(cfg):
+    return {"ln": init_norm(cfg.norm, cfg.d_model),
+            "slstm": xlstm_mod.init_slstm(cfg)}
+
+
 _INIT = {"dense": _init_dense_layer, "moe": _init_moe_layer,
-         "mamba": _init_mamba_layer}
+         "mamba": _init_mamba_layer, "mlstm": _init_mlstm_layer,
+         "slstm": _init_slstm_layer}
+
+# the state kinds' full-sequence functions, by kind
+_STATE_FWD = {"mamba": ssm_mod.mamba2_forward,
+              "mlstm": xlstm_mod.mlstm_forward,
+              "slstm": xlstm_mod.slstm_forward}
 
 
 def init_scan_block(gen, cfg, kind: str, n_units: int, device="cpu"):
@@ -192,10 +209,11 @@ def _ffn_residual(cfg, kind: str, lp, x):
 
 def forward_layer(cfg, kind: str, lp, x, positions, window):
     """One layer over the full sequence (the reference's ``_dense_fwd`` /
-    ``_moe_fwd`` / ``_mamba_fwd``).  Returns (x, aux)."""
-    if kind == "mamba":
+    ``_moe_fwd`` / ``_mamba_fwd`` / ``_mlstm_fwd`` / ``_slstm_fwd``).
+    Returns (x, aux)."""
+    if kind in _STATE_FWD:
         h = apply_norm(cfg.norm, x, lp["ln"])
-        y, _ = ssm_mod.mamba2_forward(cfg, lp["mamba"], h)
+        y, _ = _STATE_FWD[kind](cfg, lp[kind], h)
         return x + y, 0.0
     h = apply_norm(cfg.norm, x, lp["ln1"])
     fwd = attn.mla_forward if cfg.attention == "mla" else attn.gqa_forward
@@ -231,7 +249,8 @@ def run_shared_attn(cfg, sp, x, positions, window):
 # ---------------------------------------------------------------------------
 
 # Scan kinds whose decode cache is attention KV (paged-arena eligible).
-# State kinds (mamba) keep fixed per-slot rows in paged arenas too.
+# State kinds (mamba, mlstm, slstm) keep fixed per-slot rows in paged
+# arenas too.
 PAGED_KINDS = frozenset({"dense", "moe", "pair", "enc"})
 
 
@@ -249,10 +268,16 @@ def init_layer_cache(cfg, kind: str, batch: int, cache_len: int,
                      device="cpu"):
     """Contiguous decode cache for ONE layer, bf16: (k, v)
     [B, S, Nkv, H], or MLA's (c_kv, k_rope) [B, S, R] / [B, S, Hr]; a
-    mamba layer's (state [B, H, P, N] fp32, conv window [B, K-1, C])."""
+    mamba layer's (state [B, H, P, N] fp32, conv window [B, K-1, C]); an
+    mlstm layer's (C [B, H, P, P], n [B, H, P]) and an slstm layer's
+    (c, n, h, m) [B, H, P], all fp32."""
     _require_ported(kind)
     if kind == "mamba":
         return ssm_mod.init_mamba2_state(cfg, batch, device)
+    if kind == "mlstm":
+        return xlstm_mod.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm_mod.init_slstm_state(cfg, batch, device)
     return tuple(torch.zeros(sh, dtype=torch.bfloat16, device=device)
                  for sh in _attn_cache_shapes(cfg, (batch, cache_len)))
 
@@ -301,17 +326,24 @@ def decode_layer(cfg, kind: str, lp, x, cache, position, window,
     place.  Returns (x, cache, aux): ``aux`` is the MoE load-balance loss
     (0 for dense layers), which decode callers drop.  ``paged`` (an
     ``attn.PagedKV``) selects the paged pools; ``write_mask`` gates
-    contiguous-row writes.  A mamba layer's state rows are per slot in
-    both arenas: they store under ``paged.write_mask`` or ``write_mask``
-    (the reference merges them row-wise on the same mask)."""
+    contiguous-row writes.  A state kind's rows (mamba, mlstm, slstm) are
+    per slot in both arenas: every leaf stores under ``paged.write_mask``
+    or ``write_mask`` (the reference merges them row-wise on the same
+    mask)."""
     _require_ported(kind)
-    if kind == "mamba":
+    if kind in _STATE_FWD:
         h = apply_norm(cfg.norm, x, lp["ln"])
-        y, st, cv = ssm_mod.mamba2_decode(cfg, lp["mamba"], h, cache[0],
-                                          cache[1])
+        if kind == "mamba":
+            y, st, cv = ssm_mod.mamba2_decode(cfg, lp["mamba"], h, cache[0],
+                                              cache[1])
+            new = (st, cv)
+        elif kind == "mlstm":
+            y, new = xlstm_mod.mlstm_decode(cfg, lp["mlstm"], h, cache)
+        else:
+            y, new = xlstm_mod.slstm_decode(cfg, lp["slstm"], h, cache)
         mask = paged.write_mask if paged is not None else write_mask
-        _store_rows(cache[0], st, mask)
-        _store_rows(cache[1], cv, mask)
+        for dst, val in zip(cache, new):
+            _store_rows(dst, val, mask)
         return x + y, cache, 0.0
     h = apply_norm(cfg.norm, x, lp["ln1"])
     y, new = _attn_decode_dispatch(cfg, lp["attn"], h, cache, position,

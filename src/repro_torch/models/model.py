@@ -1,5 +1,6 @@
-"""The Model: plan-driven decoder with early exits (dense, MoE and hybrid
-Mamba2 families, GQA or MLA attention).
+"""The Model: plan-driven decoder with early exits (dense, MoE, hybrid
+Mamba2 and xLSTM families, GQA or MLA attention; the xLSTM family has no
+attention and no RoPE).
 
 Public surface, as in the reference:
 

@@ -93,8 +93,11 @@ class ClusterConfig:
     max_len: int = 256                 # per-slot capacity in every pool
     prefill_chunk: int = 16
     exit_threshold: float = 0.5
+    temperature: float = 0.0          # 0 = greedy; rejected with spec_draft
+    long_mode: bool = False
     # one prefill chunk per poll so admissions interleave with decode
     max_prefill_chunks_per_step: int = 1
+    flush_every: int = 32
     # cross-tier KV handoff: "auto" = int8 when compression_decision says
     # the link pays for it, "raw" = always bf16 rows (exact continuation),
     # "int8" = always quantize
@@ -108,12 +111,14 @@ class ClusterConfig:
     page_size: int = 16
     # cross-tier speculative decoding (group clusters): ``spec_draft`` names
     # the entry that drafts on the device tier while the target verifies
-    # on the cloud tier ("" = off); the router then prices each token's
-    # downlink (``stream_tokens``, where the candidate can win).
-    # ``spec_k`` is the draft window a round; ``spec_draft_frac`` prices
-    # the draft's compute for admission when it has no plan config
+    # on the cloud tier ("" = off).  ``stream_tokens`` makes the router
+    # price each token's downlink, where the speculative candidate can
+    # win; spec_draft implies it.  ``spec_k`` is the draft window a round;
+    # ``spec_draft_frac`` prices the draft's compute for admission when it
+    # has no plan config
     spec_draft: str = ""
     spec_k: int = 4
+    stream_tokens: bool = False
     spec_draft_frac: float = 0.1
     # decode windows in every tier pool (scheduler ``async_decode``):
     # tier clocks charge per committed step, migrations drain in-flight
@@ -297,9 +302,14 @@ class TieredServingCluster:
                 raise ValueError(f"spec_draft {cfg.spec_draft!r} is not a "
                                  f"group entry (group has "
                                  f"{self.group.names})")
+            if cfg.temperature > 0.0:
+                raise ValueError(
+                    "spec_draft + temperature>0 is rejected at config "
+                    "time: lossless speculation verifies the target's "
+                    "argmax (see SpecPair); use temperature=0")
         self.router = AdmissionRouter(
             router_cfg, self.scenario,
-            stream_tokens=self.spec_enabled,
+            stream_tokens=cfg.stream_tokens or self.spec_enabled,
             spec_k=cfg.spec_k if self.spec_enabled else 0,
             spec_draft=cfg.spec_draft,
             spec_draft_frac=cfg.spec_draft_frac)
@@ -316,6 +326,8 @@ class TieredServingCluster:
             n_slots=cfg.base_slots, max_len=cfg.max_len,
             prefill_chunk=cfg.prefill_chunk,
             exit_threshold=cfg.exit_threshold,
+            temperature=cfg.temperature, long_mode=cfg.long_mode,
+            flush_every=cfg.flush_every,
             max_prefill_chunks_per_step=cfg.max_prefill_chunks_per_step,
             paged=cfg.paged, page_size=cfg.page_size,
             segmented=not cfg.async_decode, async_decode=cfg.async_decode,
@@ -491,6 +503,7 @@ class TieredServingCluster:
                 SchedulerConfig(
                     n_slots=n, max_len=cfg.max_len,
                     prefill_chunk=cfg.prefill_chunk, exit_threshold=0.0,
+                    long_mode=cfg.long_mode, flush_every=cfg.flush_every,
                     max_prefill_chunks_per_step=(
                         cfg.max_prefill_chunks_per_step),
                     paged=cfg.paged, page_size=cfg.page_size),

@@ -52,6 +52,7 @@ class ServeConfig:
     max_len: int = 256
     temperature: float = 0.0          # 0 = greedy
     exit_threshold: float = 0.5
+    long_mode: bool = False           # ring caches at long_context_window
     # cross-tier speculative decoding (ModelGroup engines with a scenario):
     # spec_draft names the group entry drafting on the device tier while
     # the routed model verifies on the cloud tier; empty disables
@@ -160,6 +161,7 @@ class ServingEngine:
                 SchedulerConfig(n_slots=n_slots, max_len=max_len,
                                 exit_threshold=s.exit_threshold,
                                 temperature=s.temperature,
+                                long_mode=s.long_mode,
                                 segmented=not s.async_decode,
                                 async_decode=s.async_decode,
                                 readback_interval=s.readback_interval),
@@ -227,13 +229,8 @@ class ServingEngine:
         prefills in one tier's arena and decodes in another's (migrated
         through export/import), and the raw payload keeps the engine's
         contract that tiered outputs are bit-identical to the single-pool
-        path.  The port's tier pools decode greedy, so a sampled engine
-        cannot route."""
+        path."""
         s = self.scfg
-        if s.temperature > 0.0:
-            raise NotImplementedError(
-                "repro_torch: the tiered cluster's pools decode greedy; "
-                "serve sampled batches without a scenario")
         if self._cluster is None or self._cluster.cfg.max_len < need:
             max_len = max(s.max_len, 1 << (need - 1).bit_length())
             target = self.group if self.group is not None else self.model
@@ -242,6 +239,8 @@ class ServingEngine:
                 scenario=self.scenario, plan_cfg=self.plan_cfg,
                 cfg=ClusterConfig(max_len=max_len,
                                   exit_threshold=s.exit_threshold,
+                                  temperature=s.temperature,
+                                  long_mode=s.long_mode,
                                   kv_handoff="raw",
                                   spec_draft=s.spec_draft, spec_k=s.spec_k,
                                   async_decode=s.async_decode,
@@ -308,7 +307,8 @@ class ServingEngine:
                 self.group,
                 SchedulerConfig(n_slots=max(slots.values()), max_len=need,
                                 exit_threshold=s.exit_threshold,
-                                temperature=s.temperature),
+                                temperature=s.temperature,
+                                long_mode=s.long_mode),
                 slots_per_model=slots))
         before = self._snapshot_pools(sched.pools)
         reqs = {m: [Request(tokens=p[i], max_new=max_new, model=m)

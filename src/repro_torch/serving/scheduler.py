@@ -126,10 +126,20 @@ class SchedulerConfig:
     exit_threshold: float = 0.5
     temperature: float = 0.0           # 0 = greedy
     flush_every: int = 32              # decode steps between counter reads
+    # ring caches at the model's long_context_window (contiguous arenas)
+    long_mode: bool = False
     max_prefill_chunks_per_step: int = 0   # 0 = whole prompt in one poll
     segmented: bool = True
-    paged: bool = False                # pool of n_slots full rows of pages
+    # paged arena: a global pool of page_size-token pages through per-slot
+    # block tables.  n_pages=0 sizes it to n_slots full rows (the
+    # contiguous arena's bytes); a smaller pool admits more slots in the
+    # same bytes, and admission waits while it is full.  prefix_cache
+    # turns on the radix prefix tree, which stays off for models with
+    # state rows (a skipped replay would leave their states unprimed)
+    paged: bool = False
     page_size: int = 16
+    n_pages: int = 0
+    prefix_cache: bool = True
     # decode windows of readback_interval monolithic steps, read back once
     # each (serving/window.py); the segmented step's per-probe host
     # short-circuit would be a sync point inside a window
@@ -281,18 +291,18 @@ class ContinuousBatchScheduler:
         self.prefix_hit_tokens = 0
         self.prefill_chunks_skipped = 0
         if cfg.paged:
-            if model._window(False) != 0:
+            if model._window(cfg.long_mode) != 0:
                 raise ValueError("paged mode: ring-buffer windows unsupported")
             if cfg.page_size <= 0 or cfg.max_len % cfg.page_size:
                 raise ValueError("paged mode: max_len must be a multiple of "
                                  "page_size")
             self._pps = cfg.max_len // cfg.page_size
-            n_pages = b * self._pps
+            n_pages = cfg.n_pages or b * self._pps
             self.page_alloc = PageAllocator(n_pages, cfg.page_size)
             # a prefix hit skips replaying the shared pages: sound only if
             # they fully determine the skipped positions, i.e. every cache
-            # leaf is pool-backed (no SSM state rows to prime)
-            if model.all_cache_paged():
+            # leaf is pool-backed (no SSM or xLSTM state rows to prime)
+            if cfg.prefix_cache and model.all_cache_paged():
                 self.prefix_cache = RadixPrefixCache(self.page_alloc)
             # host block table, sentinel = n_pages; written into one
             # persistent device buffer when dirty (a decode window's graph
@@ -373,7 +383,8 @@ class ContinuousBatchScheduler:
         if cfg.paged:
             return self.model.init_decode_cache_paged(
                 cfg.n_slots, self.page_alloc.n_pages, cfg.page_size)
-        return self.model.init_decode_cache(cfg.n_slots, cfg.max_len)
+        return self.model.init_decode_cache(cfg.n_slots, cfg.max_len,
+                                            long_mode=cfg.long_mode)
 
     def _stage_names(self) -> List[str]:
         names = []
@@ -611,16 +622,18 @@ class ContinuousBatchScheduler:
         t_dev = torch.arange(lo, hi, device=self.device)
         paged = self.page_alloc is not None
         cache = self.cache if paged else p.cache
+        lm = self.cfg.long_mode
         for i in range(hi - lo):
             t = t_dev[i]
             act = (t < p.lengths_d) & (t >= p.start_d)
             if paged:
                 logits, _, _ = model.decode_step(
-                    self.params, cache, toks[:, i:i + 1], t,
+                    self.params, cache, toks[:, i:i + 1], t, long_mode=lm,
                     paged=PagedKV(self._tbl_dev(), act))
             else:
                 logits, _, _ = model.decode_step(
-                    self.params, cache, toks[:, i:i + 1], t, write_mask=act)
+                    self.params, cache, toks[:, i:i + 1], t, long_mode=lm,
+                    write_mask=act)
             p.last = torch.where((t == p.lengths_d - 1)[:, None], logits,
                                  p.last)
 
@@ -745,6 +758,7 @@ class ContinuousBatchScheduler:
         compute garbage as in the monolithic step; counters are masked by
         ``active`` and the short-circuit consults active rows only."""
         model = self.model
+        lm = self.cfg.long_mode
         alive = self._alive0
         first_exit = self._first_exit0
         x = model.embed_decode_tokens(self.params, tokens)
@@ -760,10 +774,12 @@ class ContinuousBatchScheduler:
                 wm = alive & active_d
                 x, self.cache = model.decode_segment(
                     self.params, self.cache, x, seg, positions, wm,
-                    paged=PagedKV(self._tbl_dev(), wm), passthrough=alive)
+                    long_mode=lm, paged=PagedKV(self._tbl_dev(), wm),
+                    passthrough=alive)
             else:
                 x, self.cache = model.decode_segment(
-                    self.params, self.cache, x, seg, positions, alive)
+                    self.params, self.cache, x, seg, positions, alive,
+                    long_mode=lm)
             self.stage_calls[f"segment{seg.index}"] += 1
             layers_run += seg.layers
             segs_run += 1
@@ -785,7 +801,8 @@ class ContinuousBatchScheduler:
         paged = (PagedKV(self._tbl_dev(), active_d)
                  if self.page_alloc is not None else None)
         logits, ee, self.cache = self.model.decode_step(
-            self.params, self.cache, tokens, positions, paged=paged)
+            self.params, self.cache, tokens, positions,
+            long_mode=self.cfg.long_mode, paged=paged)
         if self._n_exits:
             idx = first_exit_index(ee, thr, self._vocab)
         else:
@@ -1029,10 +1046,12 @@ class ContinuousBatchScheduler:
         if self.page_alloc is not None:
             logits, _, self.cache = self.model.decode_step(
                 self.params, self.cache, tokens, positions,
+                long_mode=self.cfg.long_mode,
                 paged=PagedKV(self._tbl_dev(), act))
         else:
             logits, _, self.cache = self.model.decode_step(
-                self.params, self.cache, tokens, positions, write_mask=act)
+                self.params, self.cache, tokens, positions,
+                long_mode=self.cfg.long_mode, write_mask=act)
         return torch.argmax(logits, dim=-1)
 
     def _spec_readback(self, t) -> np.ndarray:
@@ -1256,6 +1275,7 @@ class ContinuousBatchScheduler:
         """Per-leaf layout of one exported slot row: its full shape and
         dtype, and which axis is the time axis, found by diffing the row
         shapes on the ``meta`` device at ``max_len`` vs ``max_len + 1``
+        (a ``long_mode`` ring shorter than ``max_len`` has no time axis)
         (paged arenas: ``pages_per_slot`` vs one more gathered page, so the
         varying axis is the page axis).  A leaf whose shape does not depend
         on the context length gets -1 and always ships whole."""
@@ -1271,7 +1291,9 @@ class ContinuousBatchScheduler:
         else:
             def rows(n):
                 return tree_leaves(self._gather_slot(
-                    self.model.init_decode_cache(b, n, device=meta), 0))
+                    self.model.init_decode_cache(
+                        b, n, long_mode=self.cfg.long_mode, device=meta),
+                    0))
             flat, flat2 = rows(self.cfg.max_len), rows(self.cfg.max_len + 1)
         axes = []
         for a, c in zip(flat, flat2):

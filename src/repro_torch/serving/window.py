@@ -169,7 +169,7 @@ class DecodeWindow:
                                         s.page_alloc.n_pages), act)
         logits, ee, _ = s.model.decode_step(
             s.params, s.cache, st[CUR][:, None], st[POS].to(torch.int32),
-            paged=paged, write_mask=write_mask)
+            long_mode=s.cfg.long_mode, paged=paged, write_mask=write_mask)
         if s._n_exits:
             idx = first_exit_index(ee, self.thr, s._vocab)
         else:

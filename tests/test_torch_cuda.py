@@ -176,7 +176,8 @@ def _check_exit(x, w, instance):
     (40, 2048, 49155),        # odd pitch, three 16-row groups
     (17, 512, 8192),          # aligned, one row past a 16-row group
     (16, 1000, 4099),         # D no multiple of the 64-row stage
-    (16, 2048, 32000)])       # zamba2-1.2b's exit probes
+    (16, 2048, 32000),        # zamba2-1.2b's exit probes
+    (16, 1024, 50304)])       # xlstm-350m's exit probes
 def test_exit_head_kernel_matches_plain(cuda, t, d, v):
     x, w = _exit_inputs(cuda, t, d, v)
     _check_exit(x, w, "aligned" if v % 8 == 0 else "odd_pitch")
@@ -214,7 +215,8 @@ def _bits(t):
 @pytest.mark.parametrize("rows,d,dtype", [
     (40 * 4 * 16 * 8, 64, torch.bfloat16),     # a paged granite slot leaf
     (4096, 2048, torch.float32), (777, 100, torch.bfloat16),
-    (3, 31, torch.float32), (1, 64, torch.bfloat16)])
+    (3, 31, torch.float32), (1, 64, torch.bfloat16),
+    (5 * 4 * 512, 512, torch.float32)])        # an xlstm-350m mLSTM C leaf
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_int8_kernels_match_plain_bitwise(cuda, rows, d, dtype, out_dtype):
     g = torch.Generator(device=cuda).manual_seed(rows + d)
@@ -472,6 +474,26 @@ def test_hybrid_window_graph_matches_eager_sync(cuda, paged):
     assert s_win.jit_cache_sizes() == {"decode_window": 1}
     if paged:
         assert s_win._window.per_replay["paged_gqa_attention"] == 2
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contig"])
+def test_xlstm_window_graph_matches_eager_sync(cuda, paged):
+    """xlstm-350m-smoke through the window's CUDA graph against the eager
+    sync monolithic step: every cache leaf is a state row (a paged arena
+    holds no pool), slots are reused, so rows are zeroed (paged) or merged
+    (contiguous) between occupants, and frozen rows must not advance a
+    live slot's state; the same greedy tokens, one capture, no port
+    kernel in a replay (the exit probes' full logits are plain matmuls
+    in the monolithic step)."""
+    arch = "xlstm-350m-smoke"
+    s_sync, r_sync = _smoke_pool(cuda, False, paged=paged, arch=arch)
+    s_sync.run()
+    s_win, r_win = _smoke_pool(cuda, True, paged=paged, arch=arch)
+    s_win.run()
+    torch.cuda.synchronize()
+    assert [r.out_tokens for r in r_win] == [r.out_tokens for r in r_sync]
+    assert s_win.jit_cache_sizes() == {"decode_window": 1}
+    assert not any(s_win._window.per_replay.values())
 
 
 def test_window_threshold_moves_without_recapture(cuda):

@@ -223,7 +223,9 @@ def test_generate_matches_reference_and_scheduler(models):
 def test_tiered_engine_routes_like_reference(models):
     """With a scenario every row routes through the tiered cluster (raw
     handoff): the per-tier route counts equal the reference engine's and
-    the tokens equal the single-pool engine's bit for bit."""
+    the tokens equal the single-pool engine's bit for bit.  A sampled
+    engine routes too, its tier pools sampling at its temperature (as the
+    reference's cluster does): one generator seed, the same tokens."""
     _, rm, rp, tm, tp = models[0]
     prompts = _prompts(3, 4, 9)
     plan = get_config("granite-3-2b")
@@ -241,9 +243,12 @@ def test_tiered_engine_routes_like_reference(models):
     assert got.tolist() == single.generate(prompts, max_new=5).tolist()
     assert eng.exit_stats()["tokens"] == 20.0
     assert eng.exit_stats() == single.exit_stats()
-    with pytest.raises(NotImplementedError, match="greedy"):
-        ServingEngine(tm, tp, ServeConfig(temperature=0.7),
-                      scenario=Scenario.default()).generate(prompts)
+    sampled = [ServingEngine(tm, tp, ServeConfig(temperature=0.7),
+                             scenario=Scenario.default(), plan_cfg=plan)
+               .generate(prompts, max_new=5,
+                         rng=torch.Generator().manual_seed(1)).tolist()
+               for _ in range(2)]
+    assert sampled[0] == sampled[1] != got.tolist()
 
 
 def test_generate_multi_matches_dedicated_engines(models):

@@ -25,7 +25,8 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.kernels.flash_attention",
         "repro_torch.serving.engine", "repro_torch.serving.adaptive",
         "repro_torch.serving.traces", "repro_torch.models.ssm",
-        "repro_torch.configs.zamba2_1p2b"}}
+        "repro_torch.configs.zamba2_1p2b", "repro_torch.models.xlstm",
+        "repro_torch.configs.xlstm_350m"}}
 assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
