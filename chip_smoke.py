@@ -16,11 +16,19 @@ Phases, each fatal on failure:
      128, window 4096) and zamba2-1.2b's (2 x 2048 tokens, 32 / 32 heads
      of 64, causal); the exit head at xlstm-350m's [16, 1024] x [1024,
      50,304] and the int8 pair on its fp32 mLSTM memory [10,240, 512];
+     paged GQA at qwen2-vl-2b's 12 heads of 128 over 2 (G 6), the exit
+     head at its [16, 1536] x [1536, 151,936] and at whisper-base's odd
+     pitch [16, 512] x [512, 51,865], flash at qwen2-vl-2b's forward (2 x
+     2048, causal) and without a mask at whisper-base's encoder (16 x
+     1,500) and cross-attention (16 x 448 against 1,500);
   3. small-input references: granite-3-2b-smoke, deepseek-v3-671b-smoke,
-     yi-6b-smoke, mistral-nemo-12b-smoke, zamba2-1.2b-smoke and
-     xlstm-350m-smoke paged decode, and starcoder2-3b-smoke on its
-     contiguous ring past the window, on the card (kernels) against the
-     same weights on the CPU (plain versions);
+     yi-6b-smoke, mistral-nemo-12b-smoke, zamba2-1.2b-smoke,
+     xlstm-350m-smoke and qwen2-vl-2b-smoke paged decode, starcoder2-3b-
+     smoke on its contiguous ring past the window and whisper-base-smoke
+     on its contiguous cache over primed cross rows, on the card (kernels)
+     against the same weights on the CPU (plain versions); the forward
+     also for qwen2-vl-2b-smoke with patches and whisper-base-smoke with
+     frames;
   4. the main path at full width: granite-3-2b (40 layers, random seeded
      weights) serving a Poisson trace through ``serve_poisson`` with the
      paged KV arena and depth-segmented decode; both kernels' launch counts
@@ -112,6 +120,38 @@ Phases, each fatal on failure:
      raw (the stream continues bit for bit) and int8 (every leaf and scale
      equal to the plain quantizer's on the live leaf, dequantized bit for
      bit, the stream complete).
+ 11. M-RoPE and vision-patch inputs at full width: qwen2-vl-2b (28
+     layers, d_model 1536, 12 / 2 heads of 128, vocab 151,936, random
+     seeded weights, nothing cut).  (a) ``serve_poisson``, paged and
+     segmented, 16 slots, 12 requests at 8 req/s, prompts 24-96 (a quarter
+     sharing a prefix), 12 new: paged GQA at G 6 and both exit probes
+     (V 151,936) launch and each is held against its plain version on a
+     live input; ``profile_decode``.  (b) a closed loop of 12 requests on
+     8 slots, sync monolithic then windows of 8: tokens equal (a top-2 tie
+     under 1e-2 the only excuse), one capture.  (c) one ``Model.forward``
+     over 2 x 2048 tokens whose first 1,024 positions a row are patch
+     embeddings (a 32 x 32 M-RoPE grid): one flash launch a layer, a live
+     call held against the plain version, every logit finite.
+ 12. the encoder-decoder family at full width: whisper-base (6 encoder +
+     6 decoder layers, d_model 512, 8 heads of 64, 1,500 frames, vocab
+     51,865, random seeded weights, nothing cut; contiguous arenas, each
+     request with seeded 0.02 N(0, 1) frames).  (a) ``serve_poisson``,
+     segmented, 16 slots, 16 requests at 8 req/s, prompts 16-64, 16 new:
+     each admission encodes its slots' frames (flash without a mask at 16
+     x 1,500) into the cross rows; the exit probes (odd pitch, V 51,865)
+     and the encoder's flash are held on live inputs; ``profile_decode``.
+     (b) a closed loop of 16 requests on 8 slots, sync monolithic then
+     windows of 8, so 8 requests enter freed slots after the capture:
+     tokens equal (the tie rule), one capture, and the last occupants'
+     cross rows equal the sync poll's bit for bit.  (c) one
+     ``Model.forward`` over 16 x 448 decoder tokens and 16 x 1,500 frames:
+     18 flash launches (the encoder's, the decoder's causal self-attention
+     and its cross-attention against 1,500 keys), one live call of each
+     held against the plain version.  (d) a live slot migrated between
+     16-slot contiguous arenas, raw (bit for bit) and int8 (every leaf and
+     scale, the cross rows' too, equal to the plain quantizer's).  (e) the
+     batch mode's ``serve`` (``ServingEngine.generate(frames=)``) equal to
+     a dedicated scheduler bit for bit.
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
@@ -677,12 +717,15 @@ def main(argv=None):
     check_smoke_vs_cpu(torch, "deepseek-v3-671b-smoke")
     for arch in ("yi-6b-smoke", "starcoder2-3b-smoke",
                  "mistral-nemo-12b-smoke", "zamba2-1.2b-smoke",
-                 "xlstm-350m-smoke"):
+                 "xlstm-350m-smoke", "qwen2-vl-2b-smoke",
+                 "whisper-base-smoke"):
         check_smoke_vs_cpu(torch, arch)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=True)
     check_forward_vs_cpu(torch, "deepseek-v3-671b-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "xlstm-350m-smoke", long_mode=False)
+    check_forward_vs_cpu(torch, "qwen2-vl-2b-smoke", long_mode=False)
+    check_forward_vs_cpu(torch, "whisper-base-smoke", long_mode=False)
 
     # ---- phase 4: the main path at full width -------------------------
     captured = {}
@@ -807,6 +850,16 @@ def main(argv=None):
     torch.cuda.empty_cache()
     xl, xl_launches = run_xlstm(torch, ops, ref, results)
 
+    # ---- phase 11: M-RoPE and vision-patch inputs (qwen2-vl-2b) -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    qv, qv_launches = run_qwen2_vl(torch, ops, ref, results)
+
+    # ---- phase 12: the encoder-decoder family (whisper-base) ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    wh, wh_launches = run_whisper(torch, ops, ref, results)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -860,6 +913,10 @@ def main(argv=None):
             part: n[kname] for part, n in z2_launches.items()}
         kernels[-1]["phase10_launches"] = {
             part: n[kname] for part, n in xl_launches.items()}
+        kernels[-1]["phase11_launches"] = {
+            part: n[kname] for part, n in qv_launches.items()}
+        kernels[-1]["phase12_launches"] = {
+            part: n[kname] for part, n in wh_launches.items()}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -867,7 +924,8 @@ def main(argv=None):
             json.dump({"card": card_line, "kernels": kernels,
                        "serve": stats, "async_decode": windows,
                        "tiered": tiered, "deepseek": ds, "forward": fwd,
-                       "multi": multi, "zamba2": z2, "xlstm": xl},
+                       "multi": multi, "zamba2": z2, "xlstm": xl,
+                       "qwen2_vl": qv, "whisper": wh},
                       f, indent=1)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
@@ -920,13 +978,15 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
     ``results[kernel]["shapes"]``."""
     from repro_torch.kernels import exit_head, paged_attention, paged_mla
     prep, sdpa = ab.sdpa_gathered()
-    # paged GQA, 32 query heads, pages of 16, pos < 2048: 8 slots of 128
-    # heads over 4 and 8 kv heads, and zamba2's shared attention (row 1c):
-    # 16 slots of 64 over 32 kv heads (G 1)
-    for label, b, nkv, hd in (("yi-6b", 8, 4, 128),
-                              ("mistral-nemo-12b", 8, 8, 128),
-                              ("zamba2-1.2b", 16, 32, 64)):
-        sets = ab.paged_inputs(gen, b, 32, nkv, hd, 16, 128, 2048, 4)
+    # paged GQA, pages of 16, pos < 2048: 8 slots of 32 heads of 128 over
+    # 4 and 8 kv heads, zamba2's shared attention (row 1c): 16 slots of 32
+    # heads of 64 over 32 kv heads (G 1), and qwen2-vl-2b's (row 1d): 16
+    # slots of 12 heads of 128 over 2 (G 6)
+    for label, b, nq, nkv, hd in (("yi-6b", 8, 32, 4, 128),
+                                  ("mistral-nemo-12b", 8, 32, 8, 128),
+                                  ("zamba2-1.2b", 16, 32, 32, 64),
+                                  ("qwen2-vl-2b", 16, 12, 2, 128)):
+        sets = ab.paged_inputs(gen, b, nq, nkv, hd, 16, 128, 2048, 4)
         a = sets[0]
         got = ops.paged_gqa_attention(*a)
         want = ref.paged_gqa_attention_ref(*a)
@@ -955,13 +1015,16 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
         print(f"  {json.dumps(row)}")
         del sets, lib_args
     # the exit head's aligned instance at the vocab widths of yi-6b and
-    # mistral-nemo-12b (8 rows), and of zamba2-1.2b's and xlstm-350m's
-    # probes (16 rows, rows 2c and 2d)
+    # mistral-nemo-12b (8 rows), and of zamba2-1.2b's, xlstm-350m's and
+    # qwen2-vl-2b's probes (16 rows, rows 2c, 2d and 2e); its odd-pitch
+    # instance at whisper-base's (row 2f)
     lib = entropy_library(torch)
     for label, t, d, v in (("yi-6b", 8, 4096, 64000),
                            ("mistral-nemo-12b", 8, 5120, 131072),
                            ("zamba2-1.2b", 16, 2048, 32000),
-                           ("xlstm-350m", 16, 1024, 50304)):
+                           ("xlstm-350m", 16, 1024, 50304),
+                           ("qwen2-vl-2b", 16, 1536, 151936),
+                           ("whisper-base", 16, 512, 51865)):
         x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(d, v, generator=gen, device="cuda")
              / math.sqrt(d)).bfloat16()
@@ -1027,31 +1090,58 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
     print(f"  sdpa (boolean mask) agrees to {lib_err:.3e}; "
           f"{json.dumps(row)}")
     del sets, mask
-    # flash at zamba2-1.2b's shared attention (row 6b): 32 query heads
-    # over 32 kv heads of 64 (G 1), 2 x 2048 tokens, causal
-    sets = flash_inputs(torch, gen, 2, 2048, 32, 32, 64, sets=2)
-    err = check_flash(torch, ops, ref, sets[0], True, 0, "zamba2-1.2b")
-    lib = sdpa_flash(F)
+    flash_shapes(torch, F, ops, ref, gen, results, make_mask)
 
-    def flash_causal(q, k, v):
-        return ops.flash_attention(q, k, v, causal=True)
 
-    def flash_causal_plain(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=True)
-    spread = interleaved_ms(torch, flash_causal, lib, sets, iters=10)
-    print_spread("flash_attention zamba2-1.2b", spread)
-    bound_ms, by = flash_bound(make_mask, sets[0][0], sets[0][1], True, 0)
-    row = {"q": list(sets[0][0].shape), "kv": list(sets[0][1].shape),
-           "window": 0, "max_abs_err": err,
-           "ms": spread["kernel"]["median"],
-           "plain_ms": device_ms(torch, flash_causal_plain, sets, iters=2),
-           "library_ms": spread["library"]["median"],
-           "bound_ms": bound_ms, "bound_by": by}
-    results["flash_attention"]["shapes"]["zamba2-1.2b"] = row
-    results["flash_attention"]["max_abs_err"] = max(
-        results["flash_attention"]["max_abs_err"], err)
-    print(f"  {json.dumps(row)}")
-    del sets
+def flash_shapes(torch, F, ops, ref, gen, results, make_mask):
+    """Rows 6b-6e: flash at zamba2-1.2b's shared attention (2 x 2048
+    tokens, 32 query heads of 64 over 32, G 1, causal), at phase 11's
+    forward (qwen2-vl-2b, 2 x 2048 tokens, 12 query heads of 128 over 2,
+    causal) and, without a mask, at phase 12's (whisper-base, 8 heads of
+    64): the encoder's self-attention over 1,500 frames (1,500 = 11 x 128
+    + 92: a ragged last key tile) and the decoder's cross-attention, 448
+    queries against the 1,500 encoder rows.  The library call is SDPA
+    (``enable_gqa``; causal, or no mask)."""
+    b, s_dec = WH_FWD
+    t_enc = 1500
+    for label, qs, kvs, nq, nkv, hd, causal in (
+            ("zamba2-1.2b", (2, 2048), (2, 2048), 32, 32, 64, True),
+            ("qwen2-vl-2b", (2, 2048), (2, 2048), 12, 2, 128, True),
+            ("whisper-base encoder", (b, t_enc), (b, t_enc), 8, 8, 64, False),
+            ("whisper-base cross", (b, s_dec), (b, t_enc), 8, 8, 64, False)):
+        sets = [tuple(torch.randn(*sh, n, hd, generator=gen, device="cuda")
+                      .bfloat16() for sh, n in ((qs, nq), (kvs, nkv),
+                                                (kvs, nkv)))
+                for _ in range(2)]
+        err = check_flash(torch, ops, ref, sets[0], causal, 0, label)
+
+        def flash(q, k, v, causal=causal):
+            return ops.flash_attention(q, k, v, causal=causal)
+
+        def flash_plain(q, k, v, causal=causal):
+            return ref.flash_attention_ref(q, k, v, causal=causal)
+
+        def lib(q, k, v, causal=causal):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True).transpose(1, 2)
+        lib_err = (lib(*sets[0]).float()
+                   - flash_plain(*sets[0]).float()).abs().max().item()
+        spread = interleaved_ms(torch, flash, lib, sets, iters=10)
+        print_spread(f"flash_attention {label}", spread)
+        bound_ms, by = flash_bound(make_mask, sets[0][0], sets[0][1], causal,
+                                   0)
+        row = {"q": list(sets[0][0].shape), "kv": list(sets[0][1].shape),
+               "causal": causal, "window": 0, "max_abs_err": err,
+               "ms": spread["kernel"]["median"],
+               "plain_ms": device_ms(torch, flash_plain, sets, iters=2),
+               "library_ms": spread["library"]["median"],
+               "bound_ms": bound_ms, "bound_by": by}
+        results["flash_attention"]["shapes"][label] = row
+        results["flash_attention"]["max_abs_err"] = max(
+            results["flash_attention"]["max_abs_err"], err)
+        print(f"  sdpa agrees to {lib_err:.3e}; {json.dumps(row)}")
+        del sets
 
 
 ASYNC_R = 8            # decode steps a window (phase 4b)
@@ -1059,15 +1149,25 @@ ASYNC_SLOTS = 16
 ASYNC_MAX_NEW = 64     # closed loop; the Poisson run takes 64 too
 
 
-def tie_gap(torch, model, params, prompt, got, want):
+def tie_gap(torch, model, params, prompt, got, want, frames=None):
     """First position where two greedy streams of one prompt differ, and
     the fp32 gap there between the two tokens' logits of a batch-1 decode
-    replay (``Model.prefill``) of ``want``'s stream."""
+    replay (``Model.prefill``) of ``want``'s stream; an encdec request's
+    replay decodes over cross rows primed from its ``frames``."""
     k = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
     seq = list(prompt) + list(want[:k])
     toks = torch.tensor([seq], dtype=torch.long, device="cuda")
-    logits, _ = model.prefill(params, {"tokens": toks})
-    row = logits[0, -1].float()
+    if frames is None:
+        logits, _ = model.prefill(params, {"tokens": toks})
+        row = logits[0, -1].float()
+    else:
+        from repro_torch.serving import prime_whisper_cross_cache
+        cache = model.init_decode_cache(1, len(seq))
+        prime_whisper_cross_cache(model, params, cache, torch.as_tensor(
+            frames, device="cuda")[None].bfloat16())
+        for t in range(len(seq)):
+            row, _, _ = model.decode_step(params, cache, toks[:, t:t + 1], t)
+        row = row[0].float()
     return k, float(row[want[k]] - row[got[k]])
 
 
@@ -1463,11 +1563,14 @@ def check_smoke_vs_cpu(torch, arch):
     routing differs between the two is left out of the logits check, and
     must be a router tie (probabilities within ROUTE_TIE).  A sliding-window
     model (no paged arena) decodes on its contiguous ring instead, from
-    positions that have wrapped around it."""
+    positions that have wrapped around it; an encoder-decoder model on its
+    contiguous cache, whose cross rows each side primes from the same
+    frames (the card's encoder runs flash without a mask)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, ffn
     from repro_torch.models.attention import PagedKV
     from repro_torch.models.common import tree_map
+    from repro_torch.serving import prime_whisper_cross_cache
     cfg = get_config(arch)
     cpu = Model(cfg, device="cpu")
     gpu = Model(cfg, device="cuda")
@@ -1478,10 +1581,19 @@ def check_smoke_vs_cpu(torch, arch):
     g = torch.Generator().manual_seed(1)
     tbl = torch.randperm(n_pages, generator=g).to(torch.int32).reshape(b, pps)
     ring = cfg.attention == "sliding"
+    encdec = cfg.family == "encdec"
     if ring:
         c_cpu = cpu.init_decode_cache(b, 4 * cfg.sliding_window)
         c_gpu = gpu.init_decode_cache(b, 4 * cfg.sliding_window)
         pos = torch.tensor([0, 60, 70, 130], dtype=torch.int32)
+    elif encdec:
+        c_cpu = cpu.init_decode_cache(b, 64)
+        c_gpu = gpu.init_decode_cache(b, 64)
+        frames = 0.02 * torch.randn(b, cfg.encdec.encoder_seq_len,
+                                    cfg.d_model, generator=g).bfloat16()
+        prime_whisper_cross_cache(cpu, p_cpu, c_cpu, frames)
+        prime_whisper_cross_cache(gpu, p_gpu, c_gpu, frames.cuda())
+        pos = torch.tensor([0, 5, 17, 40], dtype=torch.int32)
     else:
         c_cpu = cpu.init_decode_cache_paged(b, n_pages, page)
         c_gpu = gpu.init_decode_cache_paged(b, n_pages, page)
@@ -1494,12 +1606,13 @@ def check_smoke_vs_cpu(torch, arch):
         toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=g)
         mask = torch.ones(b, dtype=torch.bool)
         del log[:]
+        contiguous = ring or encdec
         lc, _, _ = cpu.decode_step(
             p_cpu, c_cpu, toks, pos,
-            paged=None if ring else PagedKV(tbl, mask))
+            paged=None if contiguous else PagedKV(tbl, mask))
         lg, _, _ = gpu.decode_step(
             p_gpu, c_gpu, toks.cuda(), pos.cuda(),
-            paged=None if ring else PagedKV(tbl.cuda(), mask.cuda()))
+            paged=None if contiguous else PagedKV(tbl.cuda(), mask.cuda()))
         keep = torch.ones(b, dtype=torch.bool)
         host = [r for r in log if r[0] == "cpu"]
         card = [r for r in log if r[0] == "cuda"]
@@ -1521,8 +1634,8 @@ def check_smoke_vs_cpu(torch, arch):
         worst_ent = max(worst_ent, (eg.cpu() - ec).abs().max().item())
         pos = pos + 1
     ffn._route = orig
-    print(f"smoke reference {arch} (card vs CPU, 8 "
-          f"{'ring' if ring else 'paged'} decode steps): "
+    arena = "ring" if ring else "primed contiguous" if encdec else "paged"
+    print(f"smoke reference {arch} (card vs CPU, 8 {arena} decode steps): "
           f"logits max_abs_err {worst:.3e} over {compared} rows (tol "
           f"{LOGIT_TOL}; {flips} rows left out at router ties), probe "
           f"entropy {worst_ent:.3e} (tol {ENT_TOL})")
@@ -1539,7 +1652,8 @@ def check_forward_vs_cpu(torch, arch, long_mode):
     differs must be a router tie, and it is left out with every row whose
     kept assignments moved because of it (capacity order); the MTP block
     attends over the sequence, so it also leaves out the later positions
-    of that sequence."""
+    of that sequence.  A vlm batch carries 0.02 N(0, 1) patch embeddings
+    in its first positions, an encdec batch frames of the same scale."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, ffn
     from repro_torch.models.common import tree_map
@@ -1549,12 +1663,19 @@ def check_forward_vs_cpu(torch, arch, long_mode):
     p_cpu = cpu.init(0)
     p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
     b, s = 2, 128
-    toks = torch.randint(0, cfg.vocab_size, (b, s),
-                         generator=torch.Generator().manual_seed(2))
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g)}
+    extra = {"vlm": ("patch_embeds", cfg.frontend_tokens),
+             "encdec": ("frames", cfg.encdec.encoder_seq_len)}
+    if cfg.family in extra:
+        key, n = extra[cfg.family]
+        batch[key] = 0.02 * torch.randn(b, n, cfg.d_model,
+                                        generator=g).bfloat16()
     log = []
     orig = record_routes(ffn, log)
-    want = cpu.forward(p_cpu, {"tokens": toks}, long_mode=long_mode)
-    got = gpu.forward(p_gpu, {"tokens": toks.cuda()}, long_mode=long_mode)
+    want = cpu.forward(p_cpu, batch, long_mode=long_mode)
+    got = gpu.forward(p_gpu, {k: t.cuda() for k, t in batch.items()},
+                      long_mode=long_mode)
     torch.cuda.synchronize()
     ffn._route = orig
     keep = torch.ones(b * s, dtype=torch.bool)
@@ -2211,33 +2332,44 @@ def layer_kernels(torch, cfg, kind, lp, slots):
 
 def sync_vs_windows(torch, ops, model, params, loop, phase):
     """A closed loop of ``loop["requests"]`` requests (prompts 16-64,
-    max_new 8-24, seed 2) on ``loop["slots"]`` paged slots, so slots are
-    reused and rows finish mid-window: the sync monolithic poll, then
-    windows of ``loop["readback_interval"]``.  Fails unless every stream
-    is full length and equal to the sync one (a first difference excused
-    only at a top-2 tie of a batch-1 replay) with one capture.  Returns
-    the summary and, per run, each slot's last occupant and a copy of the
-    arena's leaves."""
+    max_new 8-24, seed 2) on ``loop["slots"]`` paged slots (an encdec
+    model: contiguous ones, each request with 0.02 N(0, 1) frames), so
+    slots are reused and rows finish mid-window: the sync monolithic poll,
+    then windows of ``loop["readback_interval"]``.  Fails unless every
+    stream is full length and equal to the sync one (a first difference
+    excused only at a top-2 tie of a batch-1 replay) with one capture, and
+    unless the arena holds a prefix cache exactly when every cache leaf
+    is pool-backed.  Returns the summary and, per run, each slot's last
+    occupant and a copy of the arena's leaves."""
     import numpy as np
     from repro_torch.models.common import tree_leaves
     from repro_torch.serving import (ContinuousBatchScheduler, Request,
                                      SchedulerConfig)
+    cfg = model.cfg
     rs = np.random.RandomState(2)
-    prompts = [rs.randint(0, model.cfg.vocab_size, int(rs.randint(16, 65)))
+    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(16, 65)))
                for _ in range(loop["requests"])]
     max_news = [int(rs.randint(8, 25)) for _ in range(loop["requests"])]
+    paged = cfg.family != "encdec"
+    frames = [None] * len(prompts)
+    if not paged:
+        frames = [0.02 * rs.randn(cfg.encdec.encoder_seq_len, cfg.d_model)
+                  .astype(np.float32) for _ in prompts]
     out, streams, last, arenas = {}, {}, {}, {}
     for label, async_decode in (("sync", False), ("async", True)):
         sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
             n_slots=loop["slots"], max_len=96, prefill_chunk=16,
-            exit_threshold=0.5, segmented=False, paged=True,
+            exit_threshold=0.5, segmented=False, paged=paged,
             async_decode=async_decode,
             readback_interval=loop["readback_interval"]), device="cuda")
-        if sched.prefix_cache is not None:
-            fail(f"phase {phase} (b): an arena with state rows holds a "
-                 f"prefix cache")
-        reqs = [Request(tokens=p, max_new=n, req_id=j)
-                for j, (p, n) in enumerate(zip(prompts, max_news))]
+        if (sched.prefix_cache is not None) != (
+                paged and model.all_cache_paged()):
+            fail(f"phase {phase} (b): the arena's prefix cache is "
+                 f"{sched.prefix_cache}, but every leaf pool-backed is "
+                 f"{paged and model.all_cache_paged()}")
+        reqs = [Request(tokens=p, max_new=n, req_id=j, frames=f)
+                for j, (p, n, f) in enumerate(zip(prompts, max_news,
+                                                  frames))]
         for r in reqs:
             sched.submit(r)
         torch.cuda.synchronize()
@@ -2267,7 +2399,8 @@ def sync_vs_windows(torch, ops, model, params, loop, phase):
             continue
         # a first difference must sit at a top-2 tie of a batch-1 replay,
         # either way round
-        k, gap = tie_gap(torch, model, params, prompts[j], got, want)
+        k, gap = tie_gap(torch, model, params, prompts[j], got, want,
+                         frames[j])
         print(f"  (b) request {j} differs at token {k}: fp32 top-2 gap "
               f"{gap:.3e}")
         if not abs(gap) < LOGIT_TIE:
@@ -2632,14 +2765,11 @@ XL_MIGRATE = dict(requests=4, slots=16, max_len=128, max_new=24, polls=10)
 def run_xlstm(torch, ops, ref, results):
     """Phase 10 (see the module docstring).  Returns a summary and the
     launch counts of each part."""
-    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.profile_decode import profile_decode
     from repro_torch.launch.serve import serve_poisson
     from repro_torch.models import Model, xlstm
     from repro_torch.models.common import apply_norm, tree_leaves, tree_map
-    from repro_torch.serving import (ContinuousBatchScheduler, Request,
-                                     SchedulerConfig)
     t_phase = time.time()
     cfg = get_config("xlstm-350m")
     tr = XL_TRACE
@@ -2875,21 +3005,482 @@ def run_xlstm(torch, ops, ref, results):
     del xs, y_fwd, y_dec, y_cut, ys, state, c_fwd, n_fwd
 
     # (d) a live slot migrated between two 16-slot paged arenas, raw and
-    # int8: the raw stream continues bit for bit; every int8 leaf and
-    # scale equals the plain quantizer's on the same live leaf
-    mg = XL_MIGRATE
+    # int8
+    out["migrate"], launches["migrate"] = migrate_live_slot(
+        torch, ops, ref, model, params, XL_MIGRATE, 10)
+    del model, params
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 10 wall time {out['wall_s']:.1f}s")
+    return out, launches
+
+
+QV_TRACE = dict(rate=8.0, n_requests=12, slots=16, prompt_len=96,
+                max_new=12, threshold=0.5, paged=True, page_size=16,
+                segmented=True, prefix_share=0.25, prefix_len=32, seed=0)
+QV_LOOP = dict(requests=12, slots=8, readback_interval=8)
+QV_FWD = (2, 2048)         # phase 11 (c)'s forward
+QV_PATCHES = 1024          # ... of which the patch positions a row
+
+
+def live_capture(torch, ops, names, every):
+    """Wrap the kernels ``names`` of ``ops`` so that the first and then
+    every ``every``-th call of each kind keeps a copy of its small inputs
+    (kinds: each exit head's weight; flash's causal flag and lengths; one
+    for paged GQA).  Returns (captured {key: (args, kwargs)}, the
+    unwrapped kernels, restore())."""
+    orig = {n: getattr(ops, n) for n in names}
+    captured, calls = {}, {}
+
+    def kind(name, a, kw):
+        if name == "exit_head_entropy":
+            return a[1].data_ptr()
+        if name == "flash_attention":
+            return (kw.get("causal", True), a[0].shape[1], a[1].shape[1])
+        return 0
+
+    def wrap(name):
+        def call(*a, **kw):
+            key = (name, kind(name, a, kw))
+            calls[key] = calls.get(key, 0) + 1
+            if calls[key] % every == 1 or every == 1:
+                captured[key] = (tuple(
+                    t.clone() if t.numel() * t.element_size() < 2 ** 26
+                    else t for t in a), kw)
+            return orig[name](*a, **kw)
+        return call
+    for n in names:
+        setattr(ops, n, wrap(n))
+
+    def restore():
+        for n in names:
+            setattr(ops, n, orig[n])
+    return captured, orig, restore
+
+
+def hold_live(torch, ref, captured, orig, results, phase):
+    """Each captured live call against its plain version: paged GQA within
+    PAGED_TOL, the exit probe within ENT_TOL, flash within FLASH_TOL of
+    max(1, |plain|).  Returns {name: [shapes, ...]}."""
+    plain = {"paged_gqa_attention": (ref.paged_gqa_attention_ref, PAGED_TOL),
+             "exit_head_entropy": (ref.exit_head_entropy_ref, ENT_TOL),
+             "flash_attention": (ref.flash_attention_ref, FLASH_TOL)}
+    seen = {}
+    for (name, _), (a, kw) in captured.items():
+        fn, tol = plain[name]
+        got = orig[name](*a, **kw).float()
+        want = fn(*a, **kw).float()
+        diff = (got - want).abs()
+        err = diff.max().item()
+        scaled = err
+        if name == "flash_attention":
+            scaled = (diff / want.abs().clamp(min=1)).max().item()
+        shapes = [list(t.shape) for t in a]
+        of = (f", of max(1, |plain|) {scaled:.3e}"
+              if name == "flash_attention" else "")
+        print(f"  live {name} {shapes} {kw}: max_abs_err {err:.3e}{of} "
+              f"(tol {tol})")
+        if not torch.isfinite(got).all() or not scaled <= tol:
+            fail(f"phase {phase}: {name} disagrees with its plain version "
+                 f"on live inputs {shapes}")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           err)
+        seen.setdefault(name, []).append(shapes)
+    return seen
+
+
+def run_qwen2_vl(torch, ops, ref, results):
+    """Phase 11 (see the module docstring).  Returns a summary and the
+    launch counts of each part."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_decode import profile_decode
+    from repro_torch.launch.serve import serve_poisson
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_leaves
+    t_phase = time.time()
+    cfg = get_config("qwen2-vl-2b")
+    tr = QV_TRACE
+    model = Model(cfg, device="cuda")
+    params = model.init(tr["seed"])
+    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"vision-language path: qwen2-vl-2b (arXiv:2409.12191) at its "
+          f"published widths, nothing cut: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim} (G {cfg.num_heads // cfg.num_kv_heads}),"
+          f" vocab {cfg.vocab_size}, M-RoPE, exits after layers "
+          f"{cfg.exits.exit_layers}; random weights (seed 0, "
+          f"{pbytes / 1e9:.2f} GB)")
+    out = {"param_bytes": pbytes}
+    launches = {}
+
+    # (a) serve_poisson, paged and segmented; live kernel inputs
+    captured, orig, restore = live_capture(
+        torch, ops, ("paged_gqa_attention", "exit_head_entropy"), 97)
+    ops.reset_launches()
+    t0 = time.time()
+    st = serve_poisson(cfg, params=params, device="cuda", quiet=True,
+                       n_requests=tr["n_requests"], rate=tr["rate"],
+                       slots=tr["slots"], prompt_len=tr["prompt_len"],
+                       max_new=tr["max_new"], threshold=tr["threshold"],
+                       paged=tr["paged"], page_size=tr["page_size"],
+                       segmented=tr["segmented"],
+                       prefix_share=tr["prefix_share"],
+                       prefix_len=tr["prefix_len"], seed=tr["seed"])
+    torch.cuda.synchronize()
+    launches["serve"] = dict(ops.LAUNCHES)
+    wall = time.time() - t0
+    restore()
+    outs = st.pop("outputs")
+    print(f"  (a) served {tr['n_requests']} requests at {tr['rate']} req/s, "
+          f"prompts {tr['prompt_len'] // 4}-{tr['prompt_len']} tokens "
+          f"({tr['prefix_share']:.2f} sharing a {tr['prefix_len']}-token "
+          f"prefix), {tr['max_new']} new, {tr['slots']} slots, paged + "
+          f"segmented: {wall:.1f}s with warm-up; "
+          f"{st['sustained_tok_s']:.2f} tok/s, p50 "
+          f"{st['p50_latency_s'] * 1e3:.0f} ms, p95 "
+          f"{st['p95_latency_s'] * 1e3:.0f} ms, makespan "
+          f"{st['makespan_s']:.2f} s, prefix_hit_tokens "
+          f"{st['prefix_hit_tokens']}; launches {launches['serve']}")
+    if len(outs) != tr["n_requests"] or any(
+            len(o) != tr["max_new"] or not all(0 <= t < cfg.vocab_size
+                                               for t in o) for o in outs):
+        fail("phase 11 (a): a stream is short or out of the vocabulary")
+    for kname in ("paged_gqa_attention", "exit_head_entropy"):
+        if launches["serve"][kname] <= 0:
+            fail(f"phase 11 (a): {kname} was not launched")
+    out["live"] = hold_live(torch, ref, captured, orig, results, "11 (a)")
+    if len(out["live"].get("exit_head_entropy", [])) != model.n_exits or \
+            "paged_gqa_attention" not in out["live"]:
+        fail("phase 11 (a): no live call of each kernel was captured")
+    del captured
+    out["serve"] = st
+    prof = profile_decode(cfg, slots=tr["slots"], prompt_len=64, steps=4,
+                          seed=tr["seed"], params=params)
+    out["profile_decode"] = prof
+    print_profile(prof, "16 slots, 64-token prompts, 4 steps")
+
+    # (b) closed loop on 8 slots: sync monolithic, then windows of 8
+    loop, _, _ = sync_vs_windows(torch, ops, model, params, QV_LOOP, 11)
+    out.update(loop)
+    launches["loop"] = out["loop_async"]["launches"]
+    print(f"  (b) closed loop of {QV_LOOP['requests']} requests on "
+          f"{QV_LOOP['slots']} paged slots (prompts 16-64, max_new 8-24): "
+          f"{QV_LOOP['requests'] - len(loop['loop_ties'])} streams "
+          f"bit-identical to the sync monolithic poll, "
+          f"{len(loop['loop_ties'])} ties; one capture; "
+          f"{out['loop_sync']['wall_s']:.2f} s sync against "
+          f"{out['loop_async']['wall_s']:.2f} s with windows of "
+          f"{QV_LOOP['readback_interval']} (launches a replay "
+          f"{out['loop_async']['per_replay']})")
+
+    # (c) Model.forward on 2 x 2048 tokens, the first 1,024 of each row
+    # 0.02 N(0, 1) patch embeddings (a 32 x 32 M-RoPE grid)
+    b, s = QV_FWD
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                                     generator=g),
+             "patch_embeds": (0.02 * torch.randn(
+                 b, QV_PATCHES, cfg.d_model, device="cuda", generator=g))
+             .bfloat16()}
+    model.forward(params, {"tokens": batch["tokens"][:, :256],
+                           "patch_embeds": batch["patch_embeds"][:, :64]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured, orig, restore = live_capture(torch, ops, ("flash_attention",),
+                                           cfg.num_layers)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    e0.record()
+    fwd = model.forward(params, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches["forward"] = dict(ops.LAUNCHES)
+    restore()
+    dev_ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(fwd.logits).all()) and all(
+        bool(torch.isfinite(e).all()) for e in fwd.exit_logits)
+    print(f"  (c) Model.forward {b} x {s} tokens ({QV_PATCHES} patch "
+          f"positions a row): {dev_ms:.1f} ms between CUDA events "
+          f"({host_s:.2f} s host), {b * s / dev_ms * 1e3:.0f} tokens/s, peak "
+          f"{peak / 1e9:.2f} GB, logits {tuple(fwd.logits.shape)}, "
+          f"{len(fwd.exit_logits)} exit logits, finite {finite}; launches "
+          f"{launches['forward']}")
+    if not finite or tuple(fwd.logits.shape) != (b, s, cfg.vocab_size) \
+            or len(fwd.exit_logits) != model.n_exits:
+        fail("phase 11 (c): the forward's logits are not finite or "
+             "misshapen")
+    if launches["forward"]["flash_attention"] != cfg.num_layers:
+        fail(f"phase 11 (c): {launches['forward']['flash_attention']} flash "
+             f"launches, not {cfg.num_layers}")
+    del fwd
+    live = hold_live(torch, ref, captured, orig, results, "11 (c)")
+    out["forward"] = {"tokens": b * s, "patches": QV_PATCHES,
+                      "event_ms": dev_ms, "host_s": host_s,
+                      "tokens_s": b * s / dev_ms * 1e3, "peak_bytes": peak,
+                      "live_flash": live.get("flash_attention")}
+    del model, params, captured, batch
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 11 wall time {out['wall_s']:.1f}s")
+    return out, launches
+
+
+def print_profile(prof, label):
+    print(f"  profile_decode ({label}): host wall "
+          f"{prof['wall_ms_per_step']:.2f} ms/step, device "
+          f"{prof['device_ms_per_step']:.3f} ms/step, busy "
+          f"{prof['device_busy_share'] * 100:.1f} %, "
+          f"{prof['cuda_kernels_per_step']:.0f} CUDA kernels/step; the "
+          f"port's kernels a step "
+          f"{[(k['name'][:40], round(k['ms_per_step'], 4), k['calls_per_step']) for k in prof['port_kernels']]}")
+
+
+WH_TRACE = dict(rate=8.0, n_requests=16, slots=16, prompt_len=64,
+                max_new=16, threshold=0.5, segmented=True, seed=0)
+WH_LOOP = dict(requests=16, slots=8, readback_interval=8)
+WH_FWD = (16, 448)         # phase 12 (c): 16 rows of 448 decoder tokens
+WH_MIGRATE = dict(requests=4, slots=16, max_len=128, max_new=24, polls=10)
+WH_BATCH = (8, 32, 16)     # phase 12 (e): prompts, prompt length, max_new
+
+
+def run_whisper(torch, ops, ref, results):
+    """Phase 12 (see the module docstring).  Returns a summary and the
+    launch counts of each part."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_decode import profile_decode
+    from repro_torch.launch.serve import draw_frames, serve, serve_poisson
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import (ContinuousBatchScheduler, Request,
+                                     SchedulerConfig)
+    t_phase = time.time()
+    cfg = get_config("whisper-base")
+    tr = WH_TRACE
+    model = Model(cfg, device="cuda")
+    params = model.init(tr["seed"])
+    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    ec = cfg.encdec
+    cross_bytes = 2 * cfg.num_layers * ec.encoder_seq_len * cfg.d_model * 2
+    print(f"encoder-decoder path: whisper-base (arXiv:2212.04356) at its "
+          f"published widths, nothing cut: {ec.num_encoder_layers} encoder "
+          f"+ {cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads of {cfg.resolved_head_dim}, "
+          f"{ec.encoder_seq_len} frames, vocab {cfg.vocab_size}, exits "
+          f"after layers {cfg.exits.exit_layers}; random weights (seed 0, "
+          f"{pbytes / 1e6:.0f} MB), cross rows "
+          f"{cross_bytes / 2 ** 20:.1f} MiB a slot, contiguous arenas")
+    out = {"param_bytes": pbytes, "cross_bytes_per_slot": cross_bytes}
+    launches = {}
+
+    # (a) serve_poisson on the contiguous arena, segmented; each admission
+    # encodes its slots' frames (flash without a mask at 16 x 1,500)
+    captured, orig, restore = live_capture(
+        torch, ops, ("exit_head_entropy", "flash_attention"), 13)
+    ops.reset_launches()
+    t0 = time.time()
+    st = serve_poisson(cfg, params=params, device="cuda", quiet=True,
+                       n_requests=tr["n_requests"], rate=tr["rate"],
+                       slots=tr["slots"], prompt_len=tr["prompt_len"],
+                       max_new=tr["max_new"], threshold=tr["threshold"],
+                       segmented=tr["segmented"], seed=tr["seed"])
+    torch.cuda.synchronize()
+    launches["serve"] = dict(ops.LAUNCHES)
+    wall = time.time() - t0
+    restore()
+    outs = st.pop("outputs")
+    print(f"  (a) served {tr['n_requests']} requests with frames at "
+          f"{tr['rate']} req/s, prompts {tr['prompt_len'] // 4}-"
+          f"{tr['prompt_len']} tokens, {tr['max_new']} new, {tr['slots']} "
+          f"contiguous slots, segmented: {wall:.1f}s with warm-up; "
+          f"{st['sustained_tok_s']:.2f} tok/s, p50 "
+          f"{st['p50_latency_s'] * 1e3:.0f} ms, p95 "
+          f"{st['p95_latency_s'] * 1e3:.0f} ms, makespan "
+          f"{st['makespan_s']:.2f} s; launches {launches['serve']}")
+    if len(outs) != tr["n_requests"] or any(
+            len(o) != tr["max_new"] or not all(0 <= t < cfg.vocab_size
+                                               for t in o) for o in outs):
+        fail("phase 12 (a): a stream is short or out of the vocabulary")
+    if launches["serve"]["exit_head_entropy"] <= 0 \
+            or launches["serve"]["flash_attention"] <= 0 \
+            or launches["serve"]["paged_gqa_attention"]:
+        fail(f"phase 12 (a): launches {launches['serve']}: the exit probe "
+             f"and the encoder's flash must launch, paged GQA must not")
+    out["live"] = hold_live(torch, ref, captured, orig, results, "12 (a)")
+    if len(out["live"].get("exit_head_entropy", [])) != model.n_exits or \
+            "flash_attention" not in out["live"]:
+        fail("phase 12 (a): no live call of each kernel was captured")
+    del captured
+    out["serve"] = st
+    prof = profile_decode(cfg, slots=tr["slots"], prompt_len=64, steps=4,
+                          seed=tr["seed"], params=params)
+    out["profile_decode"] = prof
+    print_profile(prof, "16 contiguous slots, 64-token prompts, 4 steps")
+
+    # (b) closed loop on 8 contiguous slots, slots re-admitted with other
+    # frames after the capture: sync monolithic, then windows of 8
+    loop, last, arenas = sync_vs_windows(torch, ops, model, params,
+                                         WH_LOOP, 12)
+    out.update(loop)
+    ties = loop["loop_ties"]
+    launches["loop"] = out["loop_async"]["launches"]
+    # a request that is its slot's last occupant in both runs ends with
+    # the same cross rows bit for bit (primed from its frames, the rows
+    # encoded alone), whichever slot it sat in
+    slot_of = {lab: {j: sl for sl, j in m.items()} for lab, m in last.items()}
+    finals = sorted(set(slot_of["sync"]) & set(slot_of["async"]))
+    leaves = tree_leaves(model.init_decode_cache(1, 1, device="meta"))
+    cross = [i for i, t in enumerate(leaves)
+             if t.shape[2] == ec.encoder_seq_len]
+    same_cross = bool(finals) and all(
+        bits_equal(torch, arenas["sync"][i][:, slot_of["sync"][j]],
+                   arenas["async"][i][:, slot_of["async"][j]])
+        for j in finals for i in cross)
+    readmitted = WH_LOOP["requests"] - WH_LOOP["slots"]
+    if not ties and not same_cross:
+        fail("phase 12 (b): the windows' cross rows differ from the sync "
+             "poll's")
+    out["loop_cross_equal"] = same_cross
+    del arenas
+    print(f"  (b) closed loop of {WH_LOOP['requests']} requests on "
+          f"{WH_LOOP['slots']} contiguous slots ({readmitted} admitted into "
+          f"freed slots after the capture; prompts 16-64, max_new 8-24): "
+          f"{WH_LOOP['requests'] - len(ties)} streams bit-identical to the "
+          f"sync monolithic poll, {len(ties)} ties; one capture; the cross "
+          f"rows of {len(finals)} last occupants equal the sync poll's: "
+          f"{same_cross}; {out['loop_sync']['wall_s']:.2f} s sync against "
+          f"{out['loop_async']['wall_s']:.2f} s with windows of "
+          f"{WH_LOOP['readback_interval']} (launches a replay "
+          f"{out['loop_async']['per_replay']})")
+
+    # (c) Model.forward: 16 rows of 1,500 frames through the encoder and
+    # 448 decoder tokens (whisper's decoder context)
+    b, s = WH_FWD
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                                     generator=g),
+             "frames": (0.02 * torch.randn(b, ec.encoder_seq_len,
+                                           cfg.d_model, device="cuda",
+                                           generator=g)).bfloat16()}
+    model.forward(params, {"tokens": batch["tokens"][:2, :64],
+                           "frames": batch["frames"][:2]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured, orig, restore = live_capture(torch, ops, ("flash_attention",),
+                                           1)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    e0.record()
+    fwd = model.forward(params, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches["forward"] = dict(ops.LAUNCHES)
+    restore()
+    dev_ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(fwd.logits).all()) and all(
+        bool(torch.isfinite(e).all()) for e in fwd.exit_logits)
+    n_flash = ec.num_encoder_layers + 2 * cfg.num_layers
+    print(f"  (c) Model.forward {b} x {s} tokens over {b} x "
+          f"{ec.encoder_seq_len} frames: {dev_ms:.1f} ms between CUDA "
+          f"events ({host_s:.2f} s host), {b * s / dev_ms * 1e3:.0f} decoder "
+          f"tokens/s, peak {peak / 1e9:.2f} GB, logits "
+          f"{tuple(fwd.logits.shape)}, finite {finite}; launches "
+          f"{launches['forward']}")
+    if not finite or tuple(fwd.logits.shape) != (b, s, cfg.vocab_size) \
+            or len(fwd.exit_logits) != model.n_exits:
+        fail("phase 12 (c): the forward's logits are not finite or "
+             "misshapen")
+    if launches["forward"]["flash_attention"] != n_flash:
+        fail(f"phase 12 (c): {launches['forward']['flash_attention']} flash "
+             f"launches, not {n_flash}")
+    del fwd
+    # one live call of each kind: the encoder's (1,500 x 1,500, no mask),
+    # the decoder's causal self-attention and its cross-attention
+    if len(captured) != 3:
+        fail(f"phase 12 (c): flash ran at {sorted(captured)}, not the "
+             f"three kinds")
+    live = hold_live(torch, ref, captured, orig, results, "12 (c)")
+    out["forward"] = {"tokens": b * s, "frames": b * ec.encoder_seq_len,
+                      "event_ms": dev_ms, "host_s": host_s,
+                      "tokens_s": b * s / dev_ms * 1e3, "peak_bytes": peak,
+                      "live_flash": live["flash_attention"]}
+    del captured, batch
+
+    # (d) a live slot migrated between two 16-slot contiguous arenas, raw
+    # and int8, its cross rows included
+    out["migrate"], launches["migrate"] = migrate_live_slot(
+        torch, ops, ref, model, params, WH_MIGRATE, 12)
+
+    # (e) the CLI's batch mode: ServingEngine.generate(frames=) through
+    # ``serve``, against a dedicated scheduler of the same shape on the
+    # same seeded prompts and frames
+    nb, plen, max_new = WH_BATCH
+    ops.reset_launches()
+    t0 = time.time()
+    got, stats = serve(cfg, nb, plen, max_new, params=params, seed=3,
+                       device="cuda", quiet=True)
+    wall = time.time() - t0
+    launches["engine"] = dict(ops.LAUNCHES)
+    rs = np.random.RandomState(3)
+    prompts = rs.randint(0, cfg.vocab_size, (nb, plen)).astype(np.int32)
+    frames = draw_frames(rs, cfg, nb)
+    sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
+        n_slots=nb, max_len=plen + max_new, exit_threshold=0.5),
+        device="cuda")
+    reqs = [Request(tokens=p, max_new=max_new, frames=f)
+            for p, f in zip(prompts, frames)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    want = [list(r.out_tokens) for r in reqs]
+    equal = got.tolist() == want
+    print(f"  (e) serve() batch mode ({nb} prompts of {plen} tokens with "
+          f"frames, {max_new} new) through ServingEngine: {wall:.2f} s, "
+          f"equal to a dedicated scheduler bit for bit: {equal}; exit "
+          f"stats {stats}; launches {launches['engine']}")
+    if not equal:
+        fail("phase 12 (e): the engine's tokens differ from the scheduler's")
+    out["engine"] = {"wall_s": wall, "equal": equal, "exit_stats": stats}
+    del model, params, sched
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 12 wall time {out['wall_s']:.1f}s")
+    return out, launches
+
+
+def migrate_live_slot(torch, ops, ref, model, params, mg, phase):
+    """A live slot exported from one ``mg["slots"]``-slot arena (paged; an
+    encdec model's contiguous, each request with seeded frames) after
+    ``mg["polls"]`` polls and imported into another, raw (the stream must
+    continue bit for bit) and int8 (every leaf and scale must equal the
+    plain quantizer's on the live leaf and dequantize bit for bit, the
+    stream must complete); an encdec snapshot must hold every decoder
+    layer's cross rows whole.  Returns the summary and the launches (the
+    comparisons' own not counted)."""
+    import numpy as np
+    from repro_torch.launch.serve import draw_frames
+    from repro_torch.serving import (ContinuousBatchScheduler, Request,
+                                     SchedulerConfig)
+    cfg = model.cfg
+    paged = cfg.family != "encdec"
     rs = np.random.RandomState(4)
     prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(16, 49)))
                for _ in range(mg["requests"])]
+    frames = [draw_frames(rs, cfg) for _ in prompts]
 
     def arena():
         return ContinuousBatchScheduler(model, params, SchedulerConfig(
             n_slots=mg["slots"], max_len=mg["max_len"], prefill_chunk=16,
-            exit_threshold=0.5, paged=True), device="cuda")
+            exit_threshold=0.5, paged=paged), device="cuda")
 
     def submit(sched):
-        reqs = [Request(tokens=p, max_new=mg["max_new"], req_id=j)
-                for j, p in enumerate(prompts)]
+        reqs = [Request(tokens=p, max_new=mg["max_new"], req_id=j, frames=f)
+                for j, (p, f) in enumerate(zip(prompts, frames))]
         for r in reqs:
             sched.submit(r)
         return reqs
@@ -2907,9 +3498,17 @@ def run_xlstm(torch, ops, ref, results):
             src.poll()
         r = reqs[0]
         if r.done or not src.active[r.slot]:
-            fail(f"phase 10 (d): request 0 is not live after "
+            fail(f"phase {phase} (d): request 0 is not live after "
                  f"{mg['polls']} polls")
         snap = src.export_slot(r.slot, compress=label == "int8")
+        shapes = [list(q.shape) for q in snap.payload]
+        if not paged:
+            cross = [cfg.encdec.encoder_seq_len, cfg.num_kv_heads,
+                     cfg.resolved_head_dim]
+            if sum(sh[0] for sh in shapes if sh[1:] == cross) \
+                    != 2 * cfg.num_layers:
+                fail(f"phase {phase} (d): the snapshot holds no whole cross "
+                     f"rows of every decoder layer ({shapes})")
         if label == "int8":
             # the comparisons' launches are not the path's
             counted = dict(ops.LAUNCHES)
@@ -2922,16 +3521,16 @@ def run_xlstm(torch, ops, ref, results):
                         bits_equal(torch, q.cuda().reshape(qr.shape), qr)
                         and bits_equal(torch, sc.cuda().reshape(sr.shape),
                                        sr)):
-                    fail("phase 10 (d): an int8 leaf or scale differs from "
-                         "the plain quantizer on the live leaf")
+                    fail(f"phase {phase} (d): an int8 leaf or scale differs "
+                         f"from the plain quantizer on the live leaf")
                 yk = ops.decompress_rows(q.cuda(), sc.cuda(), dtype=a.dtype)
                 yr = ref.dequantize_rows_ref(qr, sr, a.dtype)
                 if not bits_equal(torch, yk.reshape(yr.shape), yr):
-                    fail("phase 10 (d): dequantize_rows differs from its "
-                         "plain version on the live payload")
+                    fail(f"phase {phase} (d): dequantize_rows differs from "
+                         f"its plain version on the live payload")
                 leaves += 1
             mig["int8_leaves"] = leaves
-            mig["int8_shapes"] = [list(q.shape) for q in snap.payload]
+            mig["int8_shapes"] = shapes
             ops.LAUNCHES.update(counted)
             del raw
         mig[f"{label}_bytes"] = snap.payload_bytes
@@ -2940,35 +3539,32 @@ def run_xlstm(torch, ops, ref, results):
         dst.run()
         src.run()
         if label == "raw" and r.out_tokens != want[0]:
-            fail("phase 10 (d): the raw migration's stream differs from the "
-                 "unmigrated run")
+            fail(f"phase {phase} (d): the raw migration's stream differs "
+                 f"from the unmigrated run")
         if len(r.out_tokens) != mg["max_new"] or not all(
                 0 <= t < cfg.vocab_size for t in r.out_tokens):
-            fail(f"phase 10 (d): the {label} migration's stream is short or "
-                 f"out of the vocabulary")
+            fail(f"phase {phase} (d): the {label} migration's stream is "
+                 f"short or out of the vocabulary")
         mig[f"{label}_equal"] = r.out_tokens == want[0]
         mig[f"{label}_others_equal"] = all(
             list(x.out_tokens) == want[x.req_id] for x in reqs[1:])
         del src, dst
     torch.cuda.synchronize()
-    launches["migrate"] = dict(ops.LAUNCHES)
-    if launches["migrate"]["quantize_rows"] <= 0 \
-            or launches["migrate"]["dequantize_rows"] <= 0:
-        fail("phase 10 (d): the int8 kernels did not launch")
-    out["migrate"] = mig
-    print(f"  (d) migration of a live slot between 16-slot paged arenas: "
-          f"raw {mig['raw_bytes'] / 2 ** 20:.1f} MiB, stream bit-identical "
+    launches = dict(ops.LAUNCHES)
+    if launches["quantize_rows"] <= 0 or launches["dequantize_rows"] <= 0:
+        fail(f"phase {phase} (d): the int8 kernels did not launch")
+    print(f"  (d) migration of a live slot between {mg['slots']}-slot "
+          f"{'paged' if paged else 'contiguous'} arenas: raw "
+          f"{mig['raw_bytes'] / 2 ** 20:.1f} MiB"
+          f"{'' if paged else ' (cross rows whole)'}, stream bit-identical "
           f"to the unmigrated run; int8 {mig['int8_bytes'] / 2 ** 20:.1f} "
           f"MiB, {mig['int8_leaves']} leaves and scales bit-identical to "
           f"the plain quantizer, dequantized bit-identically, stream "
           f"complete (equal to the unmigrated one: {mig['int8_equal']}); "
           f"the other streams of the source unchanged: "
           f"{mig['raw_others_equal']} / {mig['int8_others_equal']}; "
-          f"launches {launches['migrate']}")
-    del model, params
-    out["wall_s"] = time.time() - t_phase
-    print(f"phase 10 wall time {out['wall_s']:.1f}s")
-    return out, launches
+          f"launches {launches}")
+    return mig, launches
 
 
 FWD_BATCH = (8, 2048)      # phase 7's forward

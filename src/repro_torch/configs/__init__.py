@@ -5,17 +5,20 @@ Only the architectures whose model family the port runs are registered;
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ExitConfig, ModelConfig, SSMConfig
+from repro_torch.configs.base import (EncDecConfig, ExitConfig, ModelConfig,
+                                      SSMConfig)
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _dsv3
 from repro_torch.configs.granite_3_2b import CONFIG as _granite
 from repro_torch.configs.mistral_nemo_12b import CONFIG as _nemo
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl
 from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2
+from repro_torch.configs.whisper_base import CONFIG as _whisper
 from repro_torch.configs.xlstm_350m import CONFIG as _xlstm
 from repro_torch.configs.yi_6b import CONFIG as _yi
 from repro_torch.configs.zamba2_1p2b import CONFIG as _zamba2
 
 ARCHS = {c.name: c for c in (_granite, _dsv3, _yi, _starcoder2, _nemo,
-                             _zamba2, _xlstm)}
+                             _zamba2, _xlstm, _qwen2_vl, _whisper)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -30,5 +33,5 @@ def resolve_config(arch) -> ModelConfig:
     return arch if isinstance(arch, ModelConfig) else get_config(arch)
 
 
-__all__ = ["ARCHS", "ExitConfig", "ModelConfig", "SSMConfig", "get_config",
-           "resolve_config"]
+__all__ = ["ARCHS", "EncDecConfig", "ExitConfig", "ModelConfig", "SSMConfig",
+           "get_config", "resolve_config"]

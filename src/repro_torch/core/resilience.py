@@ -41,10 +41,13 @@ def resilient_forward(model, params, batch, alive, *,
     cfg = model.cfg
     x = model.embed_inputs(params, batch)
     bsz, seq = batch["tokens"].shape
+    positions = model.positions_for(bsz, seq, model.frontend_tokens_of(batch))
+    enc_out = (model.encode(params, batch["frames"])
+               if cfg.family == "encdec" else None)
     alive = torch.as_tensor(alive, device=x.device)
-    x, _, exit_logits = model.run_plan(params, x,
-                                       model.positions_for(bsz, seq),
-                                       model._window(long_mode), alive)
+    x, _, exit_logits = model.run_plan(params, x, positions,
+                                       model._window(long_mode), alive,
+                                       enc_out=enc_out)
     h = apply_norm(cfg.norm, x, params["final_norm"])
     return unembed(h, params.get("lm_head", params["embed"])), exit_logits
 

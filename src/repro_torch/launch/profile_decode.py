@@ -4,7 +4,9 @@
         [--slots 16] [--prompt-len 128] [--steps 8] [--json PATH]
         [--async-decode [--readback-interval 8]]
 
-Fills every slot of a paged, segmented scheduler with a prompt, then
+Fills every slot of a paged, segmented scheduler with a prompt (an
+encoder-decoder model: a contiguous one, each request with seeded encoder
+frames, as ``launch/serve.py`` draws them), then
 profiles ``--steps`` decode polls with ``torch.profiler`` (CPU and CUDA
 activity).  With ``--async-decode`` the scheduler is monolithic and
 decodes in windows (one CUDA graph replayed R times a window): the
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import resolve_config
+from repro_torch.launch.serve import draw_frames
 from repro_torch.models.model import Model
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
                                            SchedulerConfig)
@@ -53,9 +56,10 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
     max_new = warm + steps + R + 2
     max_len = prompt_len + max_new
     max_len += (-max_len) % 16
+    paged = model.cfg.family != "encdec"
     sched = ContinuousBatchScheduler(
         model, params, SchedulerConfig(n_slots=slots, max_len=max_len,
-                                       paged=True,
+                                       paged=paged,
                                        segmented=not async_decode,
                                        async_decode=async_decode,
                                        readback_interval=R),
@@ -63,7 +67,8 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
     rs = np.random.RandomState(seed)
     for _ in range(slots):
         sched.submit(Request(tokens=rs.randint(0, model.cfg.vocab_size,
-                                               prompt_len), max_new=max_new))
+                                               prompt_len), max_new=max_new,
+                             frames=draw_frames(rs, model.cfg)))
     t0 = time.perf_counter()
     sched.prefill_poll()                      # every slot admitted at once
     torch.cuda.synchronize()
@@ -93,6 +98,7 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
     port = [e for e in events if any(k in e.key for k in PORT_KERNELS)]
     return {
         "arch": model.cfg.name, "slots": slots, "prompt_len": prompt_len,
+        "paged": paged,
         "steps": steps, "async_decode": async_decode,
         "readback_interval": R,
         "graph_replays": (sched._window.replays - replays0

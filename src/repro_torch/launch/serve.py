@@ -20,6 +20,13 @@ tiered cloud/edge/device cluster.
         --spec-draft granite-3-2b-smoke --spec-k 4 --threshold 0 \\
         --requests 4 --prompt-len 12 --max-new 8
 
+An encoder-decoder arch (``whisper-base``, ``whisper-base-smoke``) gets
+each request's encoder frames drawn from the same seeded generator, ``0.02
+N(0, 1)`` of shape [encoder_seq_len, d_model] (the stub front end the
+reference feeds); it serves on contiguous arenas only (no ``--paged``).
+``qwen2-vl-2b`` serves text through M-RoPE, whose decode positions are
+plain RoPE's.
+
 ``--long`` serves with ring-buffer KV caches at the model's
 ``long_context_window`` (contiguous arenas only); ``--prefill-chunk`` is
 the prompt tokens a prefill round replays (Poisson modes).
@@ -73,6 +80,15 @@ SCENARIOS = {"default": Scenario.default,
              "tier-outage": Scenario.tier_outage}
 
 
+def draw_frames(rs, cfg, *lead):
+    """An encdec request's encoder frames, ``0.02 N(0, 1)`` fp32 [*lead,
+    Tenc, D] from the seeded ``rs`` (None for other families)."""
+    if cfg.family != "encdec":
+        return None
+    return 0.02 * rs.randn(*lead, cfg.encdec.encoder_seq_len,
+                           cfg.d_model).astype(np.float32)
+
+
 def _drive_open_loop(sched, reqs, arrivals):
     """Submit each request at its arrival offset and poll until every
     request completes.  Returns (t0, makespan_seconds, polls)."""
@@ -102,8 +118,9 @@ def serve(arch, batch: int, prompt_len: int, max_new: int, *,
           seed: int = 0, params=None, device="cuda", quiet: bool = False):
     """One closed batch through ``ServingEngine`` (the quickstart path):
     ``batch`` prompts of ``prompt_len`` tokens drawn from a seeded numpy
-    ``RandomState``, ``max_new`` tokens each.  Returns (tokens [batch,
-    max_new] int32, the engine's exit statistics)."""
+    ``RandomState`` (then, for an encdec arch, the batch's frames),
+    ``max_new`` tokens each.  Returns (tokens [batch, max_new] int32, the
+    engine's exit statistics)."""
     cfg = resolve_config(arch)
     model = Model(cfg, device=device)
     if params is None:
@@ -113,10 +130,12 @@ def serve(arch, batch: int, prompt_len: int, max_new: int, *,
                                     long_mode=long_mode,
                                     async_decode=async_decode,
                                     readback_interval=readback_interval))
-    prompts = np.random.RandomState(seed).randint(
-        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    rs = np.random.RandomState(seed)
+    prompts = rs.randint(0, cfg.vocab_size,
+                         (batch, prompt_len)).astype(np.int32)
+    frames = draw_frames(rs, cfg, batch)
     t0 = time.time()
-    out = eng.generate(prompts, max_new=max_new)
+    out = eng.generate(prompts, max_new=max_new, frames=frames)
     dt = time.time() - t0
     stats = eng.exit_stats()
     if not quiet:
@@ -171,10 +190,13 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
             k = min(int(n), prefix_len)
             toks[:k] = prefix[:k]
         reqs.append(Request(tokens=toks, max_new=max_new))
+    for r in reqs:
+        r.frames = draw_frames(rs, cfg)
 
     # warm up outside the timed trace (one admission + one step)
     sched.submit(Request(tokens=rs.randint(0, cfg.vocab_size,
-                                           int(lengths[0])), max_new=1))
+                                           int(lengths[0])), max_new=1,
+                         frames=reqs[0].frames))
     sched.run()
     sched.reset_stats()
     steps0 = sched._step_idx
@@ -286,7 +308,8 @@ def serve_tiered_poisson(arch, *, rate: float = 4.0,
     arrivals, lengths = poisson_trace(rs, rate, n_requests, prompt_len)
     crs = [cluster.submit(rs.randint(0, cfg.vocab_size, int(n)),
                           max_new=max_new, arrival=float(arr),
-                          deadline=deadline or None)
+                          deadline=deadline or None,
+                          frames=draw_frames(rs, cfg))
            for arr, n in zip(arrivals, lengths)]
     t0 = time.time()
     cluster.run()
@@ -365,18 +388,21 @@ def serve_multi_poisson(archs, *, rate: float = 4.0, n_requests: int = 32,
 
     rs = np.random.RandomState(seed)
     arrivals, lengths = poisson_trace(rs, rate, n_requests, prompt_len)
-    vocab = {e.name: e.model.cfg.vocab_size for e in group}
+    cfgs = {e.name: e.model.cfg for e in group}
     reqs = []
     for i, n in enumerate(lengths):
         arch = archs[i % len(archs)]
-        reqs.append(Request(tokens=rs.randint(0, vocab[arch], int(n)),
-                            max_new=max_new, model=arch))
+        reqs.append(Request(tokens=rs.randint(0, cfgs[arch].vocab_size,
+                                              int(n)),
+                            max_new=max_new, model=arch,
+                            frames=draw_frames(rs, cfgs[arch])))
 
     # warm up each arena outside the timed trace
     for arch in archs:
-        sched.submit(Request(tokens=rs.randint(0, vocab[arch],
+        sched.submit(Request(tokens=rs.randint(0, cfgs[arch].vocab_size,
                                                int(lengths[0])),
-                             max_new=1, model=arch))
+                             max_new=1, model=arch,
+                             frames=draw_frames(rs, cfgs[arch])))
     sched.run()
     sched.reset_stats()
 

@@ -1,6 +1,7 @@
 """Attention: GQA and MLA (DeepSeek-V3), full-sequence (``gqa_forward``,
-``mla_forward``) and one-token decode over contiguous per-slot caches and
-the paged KV arena.
+``mla_forward``; GQA also unmasked and as cross-attention) and one-token
+decode over contiguous per-slot caches and the paged KV arena, plus
+whisper's cross-attention decode step (``cross_decode``).
 
 Conventions as in the reference: x [B, S, D]; q/k/v [B, S, N, H];
 contiguous caches [B, S_max, Nkv, H]; paged pools [n_pages, P, Nkv, H].
@@ -93,22 +94,26 @@ def make_mask(q_len: int, kv_len: int, *, causal: bool, window: int = 0,
     return mask
 
 
-def gqa_forward(cfg, params, x, positions, *, window: int = 0, kv_x=None):
-    """Full-sequence causal self-attention.  x [B, S, D], positions [B, S] ->
-    (y [B, S, D], (k, v)).  The attention itself is
+def gqa_forward(cfg, params, x, positions, *, causal: bool = True,
+                window: int = 0, kv_x=None, rope_on: bool = True):
+    """Full-sequence attention.  x [B, S, D], positions [B, S] (or
+    [3, B, S] under M-RoPE) -> (y [B, S, D], (k, v)).  ``kv_x`` [B, Skv,
+    D] makes it cross-attention: k and v are projected from ``kv_x``, with
+    no rotation and no mask.  The attention itself is
     ``kernels.ops.flash_attention``: the hand-written kernel on the card,
     the reference's ``_sdpa`` + ``make_mask`` (its plain version) on the
-    CPU.  Cross-attention (``kv_x``, the encoder-decoder family) is not
-    ported yet."""
-    if kv_x is not None:
-        raise NotImplementedError(
-            "repro_torch: cross-attention is not ported yet")
+    CPU."""
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
-    q = apply_positional(q, positions, cfg.rope, cfg.rope_theta)
-    k = apply_positional(k, positions, cfg.rope, cfg.rope_theta)
-    out = kops.flash_attention(q, k, v, causal=True, window=window)
+    src = x if kv_x is None else kv_x
+    k = _proj(src, params["wk"])
+    v = _proj(src, params["wv"])
+    if kv_x is None:
+        if rope_on:
+            q = apply_positional(q, positions, cfg.rope, cfg.rope_theta)
+            k = apply_positional(k, positions, cfg.rope, cfg.rope_theta)
+        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = kops.flash_attention(q, k, v, causal=False)
     return _out_proj(out, params["wo"]), (k, v)
 
 
@@ -166,6 +171,24 @@ def gqa_decode(cfg, params, x, cache_k, cache_v, position, *, window: int = 0,
     out = torch.einsum("bngst,btnh->bsngh", probs, cache_v.float())
     out = out.reshape(b, 1, nq, hd).to(x.dtype)
     return _out_proj(out, params["wo"]), (cache_k, cache_v)
+
+
+def cross_decode(cfg, params, x, enc_k, enc_v):
+    """Whisper's cross-attention at one token: x [B, 1, D] against the
+    encoder's k/v [B, Tenc, Nkv, H], no mask.  Plain fp32 products and
+    softmax, as the reference's ``_sdpa`` (its cross decode reaches no
+    kernel either)."""
+    hd = cfg.resolved_head_dim
+    q = _proj(x, params["wq"])
+    b, sq, nq, _ = q.shape
+    nkv = enc_k.shape[2]
+    qg = q.reshape(b, sq, nkv, nq // nkv, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qg.float(),
+                          enc_k.float()) * (1.0 / math.sqrt(hd))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngst,btnh->bsngh", probs, enc_v.float())
+    out = out.reshape(b, sq, nq, hd).to(x.dtype)
+    return _out_proj(out, params["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,11 @@ exactly as in the reference.  Stacked blocks keep their leading layer axis
 ([n_units, ...]); the full-sequence forward (``run_scan_block``) and
 decode (``decode_scan_block``) walk it in a Python loop.  The ``dense``
 and ``moe`` kinds are ported, with GQA or MLA attention, ``mamba``
-(zamba2's Mamba2 layers, with its weight-shared attention block) and the
-xLSTM kinds ``mlstm`` and ``slstm``; ``pair`` (llama4's grouped dense/MoE
-unit) and the encoder-decoder kinds are not yet.
+(zamba2's Mamba2 layers, with its weight-shared attention block), the
+xLSTM kinds ``mlstm`` and ``slstm``, and whisper's ``enc`` (a dense layer
+with unmasked self-attention) and ``decx`` (causal self-attention,
+cross-attention over the encoder output, then the FFN); ``pair``
+(llama4's grouped dense/MoE unit) is not yet.
 """
 from __future__ import annotations
 
@@ -96,7 +98,8 @@ def build_plan(cfg) -> List[Tuple]:
 # Init
 # ---------------------------------------------------------------------------
 
-PORTED_KINDS = frozenset({"dense", "moe", "mamba", "mlstm", "slstm"})
+PORTED_KINDS = frozenset({"dense", "moe", "mamba", "mlstm", "slstm", "decx",
+                          "enc"})
 
 
 def _require_ported(kind: str):
@@ -138,9 +141,21 @@ def _init_slstm_layer(cfg):
             "slstm": xlstm_mod.init_slstm(cfg)}
 
 
+def _init_decx_layer(cfg):
+    return {
+        "ln1": init_norm(cfg.norm, cfg.d_model),
+        "self_attn": attn.init_gqa(cfg),
+        "ln2": init_norm(cfg.norm, cfg.d_model),
+        "cross_attn": attn.init_gqa(cfg),
+        "ln3": init_norm(cfg.norm, cfg.d_model),
+        "ffn": ffn_mod.init_ffn(cfg.d_model, cfg.d_ff, cfg.act),
+    }
+
+
 _INIT = {"dense": _init_dense_layer, "moe": _init_moe_layer,
          "mamba": _init_mamba_layer, "mlstm": _init_mlstm_layer,
-         "slstm": _init_slstm_layer}
+         "slstm": _init_slstm_layer, "decx": _init_decx_layer,
+         "enc": _init_dense_layer}
 
 # the state kinds' full-sequence functions, by kind
 _STATE_FWD = {"mamba": ssm_mod.mamba2_forward,
@@ -207,22 +222,38 @@ def _ffn_residual(cfg, kind: str, lp, x):
     return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), 0.0
 
 
-def forward_layer(cfg, kind: str, lp, x, positions, window):
+def forward_layer(cfg, kind: str, lp, x, positions, window, enc_out=None):
     """One layer over the full sequence (the reference's ``_dense_fwd`` /
-    ``_moe_fwd`` / ``_mamba_fwd`` / ``_mlstm_fwd`` / ``_slstm_fwd``).
-    Returns (x, aux)."""
+    ``_moe_fwd`` / ``_mamba_fwd`` / ``_mlstm_fwd`` / ``_slstm_fwd`` /
+    ``_enc_fwd`` and ``_make_decx_fwd(enc_out)``).  Returns (x, aux)."""
     if kind in _STATE_FWD:
         h = apply_norm(cfg.norm, x, lp["ln"])
         y, _ = _STATE_FWD[kind](cfg, lp[kind], h)
         return x + y, 0.0
+    if kind == "decx":
+        h = apply_norm(cfg.norm, x, lp["ln1"])
+        y, _ = attn.gqa_forward(cfg, lp["self_attn"], h, positions,
+                                window=window)
+        x = x + y
+        h = apply_norm(cfg.norm, x, lp["ln2"])
+        y, _ = attn.gqa_forward(cfg, lp["cross_attn"], h, positions,
+                                kv_x=enc_out)
+        x = x + y
+        h = apply_norm(cfg.norm, x, lp["ln3"])
+        return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), 0.0
     h = apply_norm(cfg.norm, x, lp["ln1"])
-    fwd = attn.mla_forward if cfg.attention == "mla" else attn.gqa_forward
-    y, _ = fwd(cfg, lp["attn"], h, positions, window=window)
+    if cfg.attention == "mla":
+        y, _ = attn.mla_forward(cfg, lp["attn"], h, positions, window=window)
+    else:
+        y, _ = attn.gqa_forward(cfg, lp["attn"], h, positions,
+                                causal=kind != "enc", window=window)
     return _ffn_residual(cfg, kind, lp, x + y)
 
 
-def run_scan_block(cfg, kind: str, bparams, x, positions, window):
+def run_scan_block(cfg, kind: str, bparams, x, positions, window,
+                   enc_out=None):
     """A stacked block over the full sequence: a loop over its layer axis.
+    ``enc_out`` is the encoder output a ``decx`` block attends to.
     Returns (x, aux): one layer's aux as it is, the sum over layers
     otherwise (the reference's rule)."""
     _require_ported(kind)
@@ -230,7 +261,7 @@ def run_scan_block(cfg, kind: str, bparams, x, positions, window):
     auxs = []
     for i in range(n):
         lp = tree_map(lambda a: a[i], bparams)
-        x, aux = forward_layer(cfg, kind, lp, x, positions, window)
+        x, aux = forward_layer(cfg, kind, lp, x, positions, window, enc_out)
         auxs.append(aux)
     return x, auxs[0] if n == 1 else sum(auxs[1:], auxs[0])
 
@@ -250,7 +281,8 @@ def run_shared_attn(cfg, sp, x, positions, window):
 
 # Scan kinds whose decode cache is attention KV (paged-arena eligible).
 # State kinds (mamba, mlstm, slstm) keep fixed per-slot rows in paged
-# arenas too.
+# arenas too; ``decx`` never reaches a paged arena (the scheduler and
+# ``Model.init_decode_cache_paged`` refuse the encdec family).
 PAGED_KINDS = frozenset({"dense", "moe", "pair", "enc"})
 
 
@@ -270,8 +302,15 @@ def init_layer_cache(cfg, kind: str, batch: int, cache_len: int,
     [B, S, Nkv, H], or MLA's (c_kv, k_rope) [B, S, R] / [B, S, Hr]; a
     mamba layer's (state [B, H, P, N] fp32, conv window [B, K-1, C]); an
     mlstm layer's (C [B, H, P, P], n [B, H, P]) and an slstm layer's
-    (c, n, h, m) [B, H, P], all fp32."""
+    (c, n, h, m) [B, H, P], all fp32; a decx layer's {"cross": (k, v)
+    [B, Tenc, Nkv, H], "self": (k, v) [B, S, Nkv, H]} bf16 (the keys in
+    the reference tree's sorted order, so leaves flatten alike)."""
     _require_ported(kind)
+    if kind == "decx":
+        def kv(length):
+            return tuple(torch.zeros(sh, dtype=torch.bfloat16, device=device)
+                         for sh in _attn_cache_shapes(cfg, (batch, length)))
+        return {"cross": kv(cfg.encdec.encoder_seq_len), "self": kv(cache_len)}
     if kind == "mamba":
         return ssm_mod.init_mamba2_state(cfg, batch, device)
     if kind == "mlstm":
@@ -286,8 +325,10 @@ def init_layer_cache_paged(cfg, kind: str, batch: int, n_pages: int,
                            page_size: int, device="cpu"):
     """Paged decode cache for ONE layer: global bf16 pools [n_pages, P,
     ...] of the same leaves, indexed through the slot block table; state
-    kinds keep their per-slot rows unchanged."""
+    kinds keep their per-slot rows unchanged.  ``decx`` has none."""
     _require_ported(kind)
+    if kind == "decx":
+        raise ValueError("kind 'decx' has no paged decode cache")
     if kind not in PAGED_KINDS:
         return init_layer_cache(cfg, kind, batch, 0, device)
     return tuple(torch.zeros(sh, dtype=torch.bfloat16, device=device)
@@ -329,8 +370,22 @@ def decode_layer(cfg, kind: str, lp, x, cache, position, window,
     contiguous-row writes.  A state kind's rows (mamba, mlstm, slstm) are
     per slot in both arenas: every leaf stores under ``paged.write_mask``
     or ``write_mask`` (the reference merges them row-wise on the same
-    mask)."""
+    mask).  A ``decx`` layer writes its self-attention row under
+    ``write_mask`` and reads its cross rows, which admission primed."""
     _require_ported(kind)
+    if kind == "decx":
+        if paged is not None:
+            raise ValueError("kind 'decx' has no paged decode")
+        h = apply_norm(cfg.norm, x, lp["ln1"])
+        y, _ = attn.gqa_decode(cfg, lp["self_attn"], h, cache["self"][0],
+                               cache["self"][1], position, window=window,
+                               write_mask=write_mask)
+        x = x + y
+        h = apply_norm(cfg.norm, x, lp["ln2"])
+        x = x + attn.cross_decode(cfg, lp["cross_attn"], h,
+                                  cache["cross"][0], cache["cross"][1])
+        h = apply_norm(cfg.norm, x, lp["ln3"])
+        return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), cache, 0.0
     if kind in _STATE_FWD:
         h = apply_norm(cfg.norm, x, lp["ln"])
         if kind == "mamba":

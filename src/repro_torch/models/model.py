@@ -1,6 +1,6 @@
-"""The Model: plan-driven decoder with early exits (dense, MoE, hybrid
-Mamba2 and xLSTM families, GQA or MLA attention; the xLSTM family has no
-attention and no RoPE).
+"""The Model: plan-driven transformer with early exits (dense, MoE, hybrid
+Mamba2, xLSTM, vision-language and encoder-decoder families, GQA or MLA
+attention; the xLSTM family has no attention and no RoPE).
 
 Public surface, as in the reference:
 
@@ -10,8 +10,13 @@ Public surface, as in the reference:
     cache   = m.init_decode_cache(batch, cache_len)
     logits, ee, cache = m.decode_step(params, cache, tokens, position)
 
-``forward`` runs the full sequence at once; its GQA self-attention goes
-through the flash-attention kernel on the card.
+Batch keys: "tokens" [B, S] int (always); "patch_embeds" [B, Tf, D]
+(vlm: the first Tf positions take them, under M-RoPE's (t, h, w) patch
+grid); "frames" [B, Tenc, D] (encdec: the encoder's input); "positions"
+optional.  ``forward`` runs the full sequence at once; its GQA attention
+(causal self-attention, the encoder's unmasked self-attention and the
+decoder's cross-attention) goes through the flash-attention kernel on the
+card.
 
 Depth-segmented decode: the plan compiles into ``decode_segments`` — runs of
 plan steps bounded by exit heads.  The serving scheduler runs only the
@@ -35,6 +40,7 @@ so ``bridge.params_from_jax`` maps one onto the other leaf by leaf.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -98,9 +104,6 @@ class Model:
         its final dtype (``common.materialize``)."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                f"repro_torch: {cfg.name} needs blocks not ported yet")
         top = {"embed": normal_init((cfg.vocab_size, cfg.d_model), 0.02),
                "final_norm": init_norm(cfg.norm, cfg.d_model)}
         if not cfg.tie_embeddings:
@@ -116,6 +119,11 @@ class Model:
             params["exit_heads"] = [
                 materialize(gen, B.init_exit_head(cfg), dev)
                 for _ in range(self.n_exits)]
+        if cfg.family == "encdec":
+            params["encoder"] = B.init_scan_block(
+                gen, cfg, "enc", cfg.encdec.num_encoder_layers, dev)
+            params["enc_norm"] = materialize(
+                gen, init_norm(cfg.norm, cfg.d_model), dev)
         if cfg.mtp_depth:
             params["mtp"] = self._init_mtp(gen)
         return params
@@ -136,34 +144,76 @@ class Model:
     # ------------------------------------------------------------------
     # Forward (full sequence)
     # ------------------------------------------------------------------
-    def positions_for(self, batch_size: int, seq_len: int):
-        """[B, S] int32 positions (plain RoPE; M-RoPE is not ported yet)."""
-        if self.cfg.rope == "mrope":
-            raise NotImplementedError(
-                "repro_torch: M-RoPE positions are not ported yet")
-        base = torch.arange(seq_len, dtype=torch.int32, device=self.device)
-        return base[None].expand(batch_size, seq_len)
+    def positions_for(self, batch_size: int, seq_len: int,
+                      frontend_tokens: int = 0, offset=0):
+        """Positions of a full sequence: [B, S] int32 (RoPE and none), or
+        [3, B, S] (t, h, w) under M-RoPE.  M-RoPE gives the first
+        ``frontend_tokens`` positions (the patches) t = 0 and h, w on a
+        g x g grid, g = ceil(sqrt(tf)); text continues at g + idx - tf in
+        all three components; ``offset`` is added to every component.
+        Copied from the reference as it is: with no patches g is 1, so
+        text-only forward positions start at 1 where decode positions
+        start at 0 (M-RoPE with equal components is RoPE, relative, so
+        the scores agree up to rounding)."""
+        dev = self.device
+        base = torch.arange(seq_len, dtype=torch.int32, device=dev) + offset
+        if self.cfg.rope != "mrope":
+            return base[None].expand(batch_size, seq_len)
+        tf = min(frontend_tokens, seq_len)
+        g = int(math.ceil(math.sqrt(max(tf, 1))))
+        idx = torch.arange(seq_len, dtype=torch.int32, device=dev)
+        is_text = idx >= tf
+        text = g + idx - tf
+        t = torch.where(is_text, text, torch.zeros_like(idx))
+        h = torch.where(is_text, text, idx // max(g, 1))
+        w = torch.where(is_text, text, idx % max(g, 1))
+        pos3 = torch.stack([t, h, w]) + offset             # [3, S]
+        return pos3[:, None].expand(3, batch_size, seq_len)
+
+    def frontend_tokens_of(self, batch) -> int:
+        """Tf: the patch positions of a vlm batch (0 otherwise)."""
+        if self.cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+            return batch["patch_embeds"].shape[1]
+        return 0
 
     def embed_inputs(self, params, batch):
-        if self.cfg.frontend == "vision_patches" and "patch_embeds" in batch:
-            raise NotImplementedError(
-                "repro_torch: vision patch inputs are not ported yet")
-        return embed(batch["tokens"], params["embed"])
+        """Token embeddings [B, S, D]; a vlm batch's first Tf rows take its
+        patch embeddings, cast to the embedding dtype."""
+        x = embed(batch["tokens"], params["embed"])
+        tf = self.frontend_tokens_of(batch)
+        if tf:
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x[:, tf:]],
+                          dim=1)
+        return x
+
+    def encode(self, params, frames):
+        """Whisper's encoder over stub frame embeddings [B, Tenc, D]: its
+        dense layers with unmasked self-attention, then its norm."""
+        cfg = self.cfg
+        pos = self.positions_for(frames.shape[0], frames.shape[1])
+        x, _ = B.run_scan_block(cfg, "enc", params["encoder"], frames, pos, 0)
+        return apply_norm(cfg.norm, x, params["enc_norm"])
 
     def forward(self, params, batch, *,
                 long_mode: bool = False) -> ModelOutputs:
-        """Full-sequence forward of ``batch["tokens"]`` [B, S] (and
-        ``batch["positions"]`` [B, S] if given): final logits, every exit
-        head's logits, the MoE aux loss, the final hidden state and, with
-        an MTP head, the MTP logits."""
+        """Full-sequence forward of ``batch`` (see the module docstring
+        for its keys): final logits, every exit head's logits, the MoE aux
+        loss, the final hidden state and, with an MTP head, the MTP
+        logits.  An encdec model encodes ``batch["frames"]`` first and
+        every decoder layer attends to it."""
         cfg = self.cfg
         x = self.embed_inputs(params, batch)
         bsz, seq = batch["tokens"].shape
         window = self._window(long_mode)
         positions = batch.get("positions")
         if positions is None:
-            positions = self.positions_for(bsz, seq)
-        x, aux, exit_logits = self.run_plan(params, x, positions, window)
+            positions = self.positions_for(bsz, seq,
+                                           self.frontend_tokens_of(batch))
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = self.encode(params, batch["frames"])
+        x, aux, exit_logits = self.run_plan(params, x, positions, window,
+                                            enc_out=enc_out)
         h = apply_norm(cfg.norm, x, params["final_norm"])
         logits = unembed(h, params.get("lm_head", params["embed"]))
         mtp_logits = None
@@ -172,13 +222,15 @@ class Model:
                                            window)
         return ModelOutputs(logits, exit_logits, aux, h, mtp_logits)
 
-    def run_plan(self, params, x, positions, window, alive=None):
+    def run_plan(self, params, x, positions, window, alive=None,
+                 enc_out=None):
         """The plan's blocks and exit heads over the full sequence x
         [B, S, D].  ``alive`` [n_blocks] (bool or float; None = all
         alive) makes a failed block an identity bypass, x = a * y +
         (1 - a) * x, as ``core.resilience.resilient_forward`` asks; a
-        shared-attention site follows the block before it.  Returns (x,
-        aux loss, exit logits)."""
+        shared-attention site follows the block before it.  ``enc_out``
+        [B, Tenc, D] is what the decoder layers of an encdec model attend
+        to.  Returns (x, aux loss, exit logits)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         exit_logits: List[torch.Tensor] = []
@@ -186,7 +238,7 @@ class Model:
         for step in self.plan:
             if step[0] == "scan":
                 y, a = B.run_scan_block(cfg, step[1], params["blocks"][bi],
-                                        x, positions, window)
+                                        x, positions, window, enc_out)
                 if alive is None:
                     x = y
                 else:
@@ -254,7 +306,9 @@ class Model:
     def init_decode_cache(self, batch_size: int, seq_len: int, *,
                           long_mode: bool = False, device=None):
         """Contiguous cache: per block, (k, v) [n_layers, B, S, Nkv, H] (a
-        mamba block's state rows [n_layers, B, ...]), plus (k, v)
+        mamba block's state rows [n_layers, B, ...]; a decx block's
+        {"cross": (k, v) [n_layers, B, Tenc, Nkv, H], "self": (k, v)}), plus
+        (k, v)
         [B, S, Nkv, H] per shared-attention site, on the model's device
         unless ``device`` names another (the scheduler probes slot-row
         shapes on ``"meta"``)."""
@@ -288,6 +342,8 @@ class Model:
         scheduler's block table, not a batch axis.  Mamba blocks keep
         their per-slot state rows [n_layers, B, ...]; shared-attention
         sites get unstacked pools [n_pages, P, Nkv, H]."""
+        if self.cfg.family == "encdec":
+            raise ValueError("paged decode: encdec unsupported")
         dev = self.device if device is None else device
         cache = {"blocks": [
             self._stack([B.init_layer_cache_paged(

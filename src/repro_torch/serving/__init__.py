@@ -7,7 +7,8 @@ from repro_torch.serving.cluster import (ClusterConfig, ClusterRequest,
                                          TieredServingCluster,
                                          derive_tier_slots)
 from repro_torch.serving.engine import (ServeConfig, ServingEngine,
-                                        make_serve_step)
+                                        make_serve_step,
+                                        prime_whisper_cross_cache)
 from repro_torch.serving.multipool import (ModelEntry, ModelGroup,
                                            MultiModelScheduler, SpecPair)
 from repro_torch.serving.router import AdmissionRouter
@@ -24,4 +25,5 @@ __all__ = ["AdaptiveExitController", "AdmissionRouter", "ClusterConfig",
            "ServeConfig", "ServingEngine", "SlotSnapshot", "SpecPair",
            "StepReport", "TieredServingCluster", "derive_tier_slots",
            "diurnal_trace", "flash_crowd_trace", "make_serve_step",
-           "make_trace", "mixed_slo_trace", "poisson_trace"]
+           "make_trace", "mixed_slo_trace", "poisson_trace",
+           "prime_whisper_cross_cache"]

@@ -398,11 +398,12 @@ class TieredServingCluster:
 
     def submit(self, tokens, *, max_new: int = 32,
                deadline: Optional[float] = None, arrival: float = 0.0,
-               eos_id: Optional[int] = None,
+               eos_id: Optional[int] = None, frames=None,
                model: Optional[str] = None) -> ClusterRequest:
         """Route one request and enqueue it at the chosen tier.
-        ``arrival`` is the request's birth on the virtual clock; ``model``
-        names the group entry that serves it (None = the default)."""
+        ``arrival`` is the request's birth on the virtual clock; ``frames``
+        [Tenc, D] are an encdec request's encoder inputs; ``model`` names
+        the group entry that serves it (None = the default)."""
         m = self._resolve_model(model)
         toks = np.asarray(tokens).reshape(-1)
         if toks.size + max_new > self.cfg.max_len:
@@ -413,7 +414,7 @@ class TieredServingCluster:
                               queue_cost=self.queue_costs(arrival, model=m),
                               exclude=self.dead or None, **route_kw)
         cr = ClusterRequest(Request(tokens=toks, max_new=max_new,
-                                    eos_id=eos_id, model=m),
+                                    eos_id=eos_id, frames=frames, model=m),
                             arrival, deadline, d, ready_at=arrival)
         cr.booked_model = m
         self._place(cr, arrival)

@@ -27,9 +27,11 @@ same poll loop (or routes per (model, row) across the tiered cluster when
 a scenario is set), with per-model exit counters and outputs bit-identical
 to dedicated single-model engines.
 
-The port of the reference's ``serving/engine.py``.  Whisper's encoder
-frames and its cross-cache priming are not ported: an encoder-decoder
-model raises.
+An encoder-decoder model (whisper) takes ``frames=`` [B, Tenc, D], one
+row a request; ``prime_whisper_cross_cache`` fills a decode cache's
+cross-attention rows from them.
+
+The port of the reference's ``serving/engine.py``.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.early_exit import exit_stats_dict
+from repro_torch.models.attention import _proj
 from repro_torch.serving.adaptive import AdaptiveExitController
 from repro_torch.serving.cluster import ClusterConfig, TieredServingCluster
 from repro_torch.serving.multipool import ModelGroup, MultiModelScheduler
@@ -72,6 +75,24 @@ def make_serve_step(model):
         return model.decode_step(params, cache, tokens, position)
 
     return serve_step
+
+
+def prime_whisper_cross_cache(model, params, cache, frames):
+    """Fill every decoder layer's cross-attention k/v from the encoder
+    output of ``frames`` [B, Tenc, D], in place: ``cache["blocks"][bi]``
+    of a decx block holds {"cross": (k, v), "self": (k, v)} stacked over
+    its layers [n, B, Tenc, Nkv, H].  Returns ``cache``."""
+    enc_out = model.encode(params, frames)
+    for kind, blk, bp in zip(model.scan_block_kinds(), cache["blocks"],
+                             params["blocks"]):
+        if kind != "decx":
+            continue
+        ck, cv = blk["cross"]
+        wk, wv = bp["cross_attn"]["wk"], bp["cross_attn"]["wv"]
+        for i in range(ck.shape[0]):
+            ck[i].copy_(_proj(enc_out, wk[i]).to(torch.bfloat16))
+            cv[i].copy_(_proj(enc_out, wv[i]).to(torch.bfloat16))
+    return cache
 
 
 def _host(a) -> np.ndarray:
@@ -116,12 +137,6 @@ class ServingEngine:
             self.params = params
             self.exit_counts_by_model = {}
             self.tokens_served_by_model = {}
-        models = [e.model for e in model] if self.group else [model]
-        for m in models:
-            if m.cfg.family == "encdec":
-                raise NotImplementedError(
-                    f"repro_torch: {m.cfg.name} needs the encoder frames and "
-                    "cross-cache priming of whisper, which are not ported")
         self.scfg = ServeConfig() if scfg is None else scfg
         self.scenario = scenario           # set -> route through tier pools
         self.plan_cfg = plan_cfg           # config or {name: config} (group)
@@ -169,11 +184,12 @@ class ServingEngine:
         sched.params = self.params     # pick up any engine params update
         return sched
 
-    def generate(self, prompt_tokens, *, max_new: int = 32, rng=None,
-                 deadline=None):
+    def generate(self, prompt_tokens, *, max_new: int = 32, frames=None,
+                 rng=None, deadline=None):
         """prompt_tokens [B, S0] -> generated [B, max_new] int32 (a CPU
-        tensor).  ``rng`` (a ``torch.Generator``) samples when the
-        temperature is above 0.
+        tensor).  ``frames`` [B, Tenc, D] are an encdec model's encoder
+        inputs (required there).  ``rng`` (a ``torch.Generator``) samples
+        when the temperature is above 0.
 
         With a ``scenario`` configured, rows are routed per request across
         the cloud/edge/device pools (``deadline`` feeds the router);
@@ -183,13 +199,18 @@ class ServingEngine:
                              "{model: prompts}, ...)")
         toks = _host(prompt_tokens)
         b, s0 = toks.shape
+        if self.model.cfg.family == "encdec" and frames is None:
+            raise ValueError("whisper needs encoder frames")
         if self.scenario is not None:
-            return self._generate_tiered(toks, max_new, rng, deadline)
+            return self._generate_tiered(toks, max_new, frames, rng,
+                                         deadline)
         sched = self._scheduler(b, s0 + max_new)
         sched.controller = self.controller
         sched.adaptive_every = self._adaptive_every
         before = self._snapshot_pools({0: sched})
-        reqs = [Request(tokens=toks[i], max_new=max_new) for i in range(b)]
+        reqs = [Request(tokens=toks[i], max_new=max_new,
+                        frames=None if frames is None else frames[i])
+                for i in range(b)]
         for r in reqs:
             sched.submit(r)
         sched.run(rng=rng)
@@ -254,7 +275,7 @@ class ServingEngine:
                              for t, c in cl.router.route_counts.items()}
         cl.clear_completed()
 
-    def _generate_tiered(self, toks, max_new, rng, deadline):
+    def _generate_tiered(self, toks, max_new, frames, rng, deadline):
         """Batch generation through the tiered cluster: one routed request
         per row, exit counters aggregated over all tier pools."""
         b, s0 = toks.shape
@@ -269,7 +290,9 @@ class ServingEngine:
             tr.sched.adaptive_every = self._adaptive_every
         now = cl.virtual_now()
         crs = [cl.submit(toks[i], max_new=max_new, deadline=deadline,
-                         arrival=now) for i in range(b)]
+                         arrival=now,
+                         frames=None if frames is None else frames[i])
+               for i in range(b)]
         cl.run()
         self._absorb_pool_deltas(pools, before)
         self._finish_cluster_batch(cl, routes_before)

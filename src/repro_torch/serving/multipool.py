@@ -392,7 +392,10 @@ class SpecPair(MultiModelScheduler):
 
     def submit(self, req: Request):
         """Serve ``req`` on the target; a shadow request mirrors it on the
-        draft arena."""
+        draft arena.  An encdec request (one with frames) is refused, as
+        the reference refuses it."""
+        if req.frames is not None:
+            raise ValueError("SpecPair: encdec requests unsupported")
         req.model = self.target_name
         if req.req_id < 0:
             req.req_id = self.n_submitted

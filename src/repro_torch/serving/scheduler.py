@@ -25,6 +25,12 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
 * **State rows** (hybrid Mamba2 models): per-slot SSM and conv rows beside
   the paged pools, zeroed at admission, written only by live rows, and
   shipped whole by a migration; such arenas run without the prefix cache.
+* **Encoder-decoder models** (whisper; contiguous arenas only): each
+  request carries its encoder frames [Tenc, D]; admission runs them
+  through the encoder into the admitted rows' cross-attention caches,
+  which the merge copies into the arena's own tensors in place, and a
+  migration ships them whole (their shape does not depend on
+  ``max_len``).
 * **Sampled decode** (``temperature > 0`` and an rng from ``set_rng`` or
   ``run(rng=)``; greedy otherwise): Gumbel-max draws from a counter-based
   hash of (key, tick, slot, token) (``serving/sampling.py``).
@@ -103,6 +109,7 @@ class Request:
     tokens: Any
     max_new: int = 32
     eos_id: Optional[int] = None
+    frames: Any = None                 # [Tenc, D] for encdec (whisper) archs
     req_id: int = -1
     # model name in a multi-model pool ("" = the pool's default model); a
     # single-model scheduler ignores it
@@ -291,6 +298,8 @@ class ContinuousBatchScheduler:
         self.prefix_hit_tokens = 0
         self.prefill_chunks_skipped = 0
         if cfg.paged:
+            if mcfg.family == "encdec":
+                raise ValueError("paged mode: encdec unsupported")
             if model._window(cfg.long_mode) != 0:
                 raise ValueError("paged mode: ring-buffer windows unsupported")
             if cfg.page_size <= 0 or cfg.max_len % cfg.page_size:
@@ -435,6 +444,8 @@ class ContinuousBatchScheduler:
         if toks.size + req.max_new > self.cfg.max_len:
             raise ValueError(f"prompt {toks.size} + max_new {req.max_new} "
                              f"exceeds max_len {self.cfg.max_len}")
+        if self.model.cfg.family == "encdec" and req.frames is None:
+            raise ValueError("encdec request needs frames")
         req.tokens = toks.astype(np.int32)
         if req.req_id < 0:
             req.req_id = self.n_submitted
@@ -591,6 +602,8 @@ class ContinuousBatchScheduler:
             self._reset_states(take)
         else:
             fresh = self._init_cache()
+            if self.model.cfg.family == "encdec":
+                self._prime_cross(fresh, take, reqs)
         self._pending = _PendingPrefill(
             reqs=reqs, slots=take, tokens=tokens, lengths=lengths,
             lengths_d=self._upload(lengths), admit=admit, cache=fresh,
@@ -598,6 +611,24 @@ class ContinuousBatchScheduler:
                              device=self.device),
             n_chunks=n_chunks, start=start, start_d=self._upload(start))
         return reqs
+
+    def _prime_cross(self, cache, slots: List[int], reqs: List[Request]):
+        """Encdec admission: the admitted rows' frames (zeros in the other
+        rows, as the reference) through the encoder into ``cache``'s cross
+        rows.  ``cache`` is the admission's private cache; the merge at
+        the end of the prefill copies the admitted rows into the arena's
+        own tensors in place, which a captured decode window reads."""
+        from repro_torch.serving.engine import prime_whisper_cross_cache
+        mcfg = self.model.cfg
+        frames = torch.zeros((self.cfg.n_slots, mcfg.encdec.encoder_seq_len,
+                              mcfg.d_model), dtype=torch.bfloat16,
+                             device=self.device)
+        for slot, r in zip(slots, reqs):
+            f = r.frames
+            if not isinstance(f, torch.Tensor):
+                f = torch.from_numpy(np.asarray(f, np.float32))
+            frames[slot] = f.to(self.device).to(torch.bfloat16)
+        prime_whisper_cross_cache(self.model, self.params, cache, frames)
 
     def _reset_states(self, slots: List[int]):
         """Zero the state rows (batch axis 1 of a stacked block) of the

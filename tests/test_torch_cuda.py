@@ -80,7 +80,8 @@ def test_paged_gqa_kernel_matches_plain(cuda, group, hd):
     (16, 8, 4, 64, 18),        # ... at serving's table length
     (3, 12, 4, 128, 37),       # two kv-head groups, the second part-full
     (1, 8, 5, 128, 128),       # one sequence spread over many splits
-    (16, 32, 1, 64, 128)])     # zamba2-1.2b's shared attention (G 1)
+    (16, 32, 1, 64, 128),      # zamba2-1.2b's shared attention (G 1)
+    (16, 2, 6, 128, 128)])     # qwen2-vl-2b: 12 heads over 2 (G 6)
 def test_paged_gqa_kernel_long_tables(cuda, b, nkv, group, hd, pps):
     """Tables long enough for several splits (merged by the combine
     launch), with a one-token sequence (pos 0) in the first row."""
@@ -177,7 +178,9 @@ def _check_exit(x, w, instance):
     (17, 512, 8192),          # aligned, one row past a 16-row group
     (16, 1000, 4099),         # D no multiple of the 64-row stage
     (16, 2048, 32000),        # zamba2-1.2b's exit probes
-    (16, 1024, 50304)])       # xlstm-350m's exit probes
+    (16, 1024, 50304),        # xlstm-350m's exit probes
+    (16, 1536, 151936),       # qwen2-vl-2b's exit probes (aligned)
+    (16, 512, 51865)])        # whisper-base's exit probes (odd pitch)
 def test_exit_head_kernel_matches_plain(cuda, t, d, v):
     x, w = _exit_inputs(cuda, t, d, v)
     _check_exit(x, w, "aligned" if v % 8 == 0 else "odd_pitch")
@@ -372,6 +375,28 @@ def test_flash_kernel_matches_plain(cuda, b, s, nq, nkv, hd, causal, window):
     assert err.max().item() <= 1e-2
 
 
+@pytest.mark.parametrize("b,sq,skv,nq,nkv,hd,causal", [
+    (2, 1500, 1500, 8, 8, 64, False),   # whisper-base's encoder
+    (2, 24, 1500, 8, 8, 64, False),     # its cross-attention, Sq < 128
+    (2, 200, 1500, 8, 8, 64, False),    # ... Sq past one query tile
+    (1, 130, 100, 4, 2, 128, False),    # Skv < Sq, both ragged
+    (2, 300, 200, 8, 2, 64, True)])     # causal, Skv < Sq
+def test_flash_kernel_sq_ne_skv(cuda, b, sq, skv, nq, nkv, hd, causal):
+    """Queries and keys of different lengths: keys past Skv on the last
+    tile (1,500 = 11 x 128 + 92) are masked, query rows past Sq are not
+    stored; held as ``test_flash_kernel_matches_plain``."""
+    q, k, v = _qkv(cuda, b, sq, skv, nq, nkv, hd, seed=sq + skv)
+    n0 = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs() / want.float().abs().clamp(min=1)
+    assert err.max().item() <= 1e-2
+
+
 def test_flash_wrapper_raises_instead_of_falling_back(cuda):
     q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, 64)
     with pytest.raises(ValueError):             # fp32 inputs
@@ -436,6 +461,10 @@ def _smoke_pool(dev, async_decode, slots=4, max_new=9, R=4, paged=True,
     reqs = [Request(tokens=rs.randint(0, model.cfg.vocab_size,
                                       int(rs.randint(4, 17))),
                     max_new=max_new, req_id=j) for j in range(6)]
+    if model.cfg.family == "encdec":
+        for r in reqs:         # frames far apart, so stale rows would show
+            r.frames = rs.randn(model.cfg.encdec.encoder_seq_len,
+                                model.cfg.d_model).astype(np.float32)
     for r in reqs:
         sched.submit(r)
     return sched, reqs
@@ -494,6 +523,28 @@ def test_xlstm_window_graph_matches_eager_sync(cuda, paged):
     assert [r.out_tokens for r in r_win] == [r.out_tokens for r in r_sync]
     assert s_win.jit_cache_sizes() == {"decode_window": 1}
     assert not any(s_win._window.per_replay.values())
+
+
+def test_whisper_window_graph_reads_readmitted_cross_rows(cuda):
+    """whisper-base-smoke through the window's CUDA graph against the
+    eager sync monolithic step: six requests through four contiguous
+    slots, so two slots are re-admitted after the capture with other
+    frames.  Admission writes their cross rows into the arena's own
+    tensors in place (every cache leaf keeps its storage from the capture
+    on), so the graph's next replay reads them: the same greedy tokens,
+    one capture."""
+    from repro_torch.models.common import tree_leaves
+    arch = "whisper-base-smoke"
+    s_sync, r_sync = _smoke_pool(cuda, False, paged=False, arch=arch)
+    s_sync.run()
+    s_win, r_win = _smoke_pool(cuda, True, paged=False, arch=arch)
+    ptrs = [t.data_ptr() for t in tree_leaves(s_win.cache)]
+    s_win.run()
+    torch.cuda.synchronize()
+    assert s_win.n_admitted == 6 > s_win.cfg.n_slots
+    assert [t.data_ptr() for t in tree_leaves(s_win.cache)] == ptrs
+    assert [r.out_tokens for r in r_win] == [r.out_tokens for r in r_sync]
+    assert s_win.jit_cache_sizes() == {"decode_window": 1}
 
 
 def test_window_threshold_moves_without_recapture(cuda):

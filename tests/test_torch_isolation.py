@@ -26,7 +26,8 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.serving.engine", "repro_torch.serving.adaptive",
         "repro_torch.serving.traces", "repro_torch.models.ssm",
         "repro_torch.configs.zamba2_1p2b", "repro_torch.models.xlstm",
-        "repro_torch.configs.xlstm_350m"}}
+        "repro_torch.configs.xlstm_350m", "repro_torch.configs.qwen2_vl_2b",
+        "repro_torch.configs.whisper_base"}}
 assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
@@ -45,7 +46,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 43      # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 45      # every submodule walked
 
 
 def test_entry_points_default_to_cuda():
