@@ -20,15 +20,19 @@ Phases, each fatal on failure:
      head at its [16, 1536] x [1536, 151,936] and at whisper-base's odd
      pitch [16, 512] x [512, 51,865], flash at qwen2-vl-2b's forward (2 x
      2048, causal) and without a mask at whisper-base's encoder (16 x
-     1,500) and cross-attention (16 x 448 against 1,500);
+     1,500) and cross-attention (16 x 448 against 1,500); paged GQA at
+     llama4-maverick's 40 heads of 128 over 8 (G 5), the exit head at its
+     [16, 5120] x [5120, 202,048] and flash at its forward (2 x 2048, 40
+     / 8 heads of 128, causal);
   3. small-input references: granite-3-2b-smoke, deepseek-v3-671b-smoke,
      yi-6b-smoke, mistral-nemo-12b-smoke, zamba2-1.2b-smoke,
-     xlstm-350m-smoke and qwen2-vl-2b-smoke paged decode, starcoder2-3b-
+     xlstm-350m-smoke, qwen2-vl-2b-smoke and llama4-maverick-400b-a17b-
+     smoke (bf16 and W8A8 experts) paged decode, starcoder2-3b-
      smoke on its contiguous ring past the window and whisper-base-smoke
      on its contiguous cache over primed cross rows, on the card (kernels)
      against the same weights on the CPU (plain versions); the forward
-     also for qwen2-vl-2b-smoke with patches and whisper-base-smoke with
-     frames;
+     also for qwen2-vl-2b-smoke with patches, whisper-base-smoke with
+     frames and llama4-maverick-smoke with W8A8 experts;
   4. the main path at full width: granite-3-2b (40 layers, random seeded
      weights) serving a Poisson trace through ``serve_poisson`` with the
      paged KV arena and depth-segmented decode; both kernels' launch counts
@@ -152,6 +156,28 @@ Phases, each fatal on failure:
      scale, the cross rows' too, equal to the plain quantizer's).  (e) the
      batch mode's ``serve`` (``ServingEngine.generate(frames=)``) equal to
      a dedicated scheduler bit for bit.
+ 13. llama4 pair units and W8A8 experts: llama4-maverick-400b-a17b at its
+     published widths (d_model 5120, 40 / 8 heads of 128, vocab 202,048,
+     dense d_ff 16,384, 128 experts of 8,192 top-1 plus a shared one),
+     cut in depth only to 4 layers, two pair units, the exit at 2;
+     random seeded weights, 72.6 GB of bf16, quantized in place to about
+     40.4 GB (32.2 GB of int8 experts).  (a) One live MoE layer on 16
+     tokens of 0.5 N(0, 1), bf16 experts then W8A8: relative error under
+     0.05, each of the three W8A8 products bit-exact against its plain
+     version, the kernel timed against the plain version and against
+     ``torch.bmm`` in bf16 on the same shapes.  (b) ``serve_poisson`` on
+     the quantized tree, paged and segmented, 16 slots, 16 requests at 8
+     req/s, prompts 16-64 (a quarter sharing a prefix), 16 new: paged GQA
+     (G 5), the exit probe (V 202,048) and the W8A8 kernel launch, each
+     held against its plain version on a live input; one live MoE input's
+     capacity drops recounted on the host; ``profile_decode``.  (c) a
+     closed loop of 16 requests on 8 slots, sync monolithic then windows
+     of 8: tokens equal (the tie rule), one capture.  (d) one
+     ``Model.forward`` over 2 x 2048 tokens: one flash launch a layer, a
+     live flash call and a live W8A8 call (C 40) held against their plain
+     versions, every logit finite.  (e) a live pair slot migrated between
+     16-slot paged arenas, raw (bit for bit) and int8 (every leaf and
+     scale equal to the plain quantizer's).
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
@@ -183,6 +209,7 @@ SRC = os.path.join(HERE, "src")
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense):
 # HBM bytes/s and bf16 tensor-core FLOP/s
 PEAKS = (3.35e12, 989e12)
+INT8_PEAK = 1979e12   # dense int8 tensor-core OP/s, the same data sheet
 
 PAGED_TOL = 1e-2   # bf16 output: both accumulate in fp32 and round once;
                    # one bf16 ulp of |out| < 2 is at most 2^-7 = 0.0078
@@ -289,9 +316,10 @@ def print_spread(label, spread):
               f"{[round(t, 4) for t in r['ms']]}")
 
 
-def bound(nbytes, ops):
-    """Least time in ms for the work, and what sets it."""
-    t_bytes, t_ops = nbytes / PEAKS[0], ops / PEAKS[1]
+def bound(nbytes, ops, ops_peak=PEAKS[1]):
+    """Least time in ms for the work, and what sets it (``ops_peak``: the
+    rate of the operations' type, bf16 unless said)."""
+    t_bytes, t_ops = nbytes / PEAKS[0], ops / ops_peak
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -333,6 +361,17 @@ def quant_bound(x):
 def dequant_bound(q, out_dtype_bytes):
     t, d = q.shape
     return bound(t * d + 4 * t + t * d * out_dtype_bytes, t * d)
+
+
+def w8a8_bound(aq, a_s, wq, w_s):
+    """Bytes: aq, wq and both scales read once, the fp32 output written
+    once; operations: 2 per multiply-add of every capacity row (the
+    kernel computes them all), at the int8 peak."""
+    e, c, k = aq.shape
+    n = wq.shape[2]
+    nbytes = aq.numel() + wq.numel() + 4 * (a_s.numel() + w_s.numel()) \
+        + 4 * e * c * n
+    return bound(nbytes, 2 * e * c * k * n, INT8_PEAK)
 
 
 def bits_equal(torch, a, b):
@@ -718,14 +757,17 @@ def main(argv=None):
     for arch in ("yi-6b-smoke", "starcoder2-3b-smoke",
                  "mistral-nemo-12b-smoke", "zamba2-1.2b-smoke",
                  "xlstm-350m-smoke", "qwen2-vl-2b-smoke",
-                 "whisper-base-smoke"):
+                 "whisper-base-smoke", "llama4-maverick-400b-a17b-smoke"):
         check_smoke_vs_cpu(torch, arch)
+    check_smoke_vs_cpu(torch, "llama4-maverick-400b-a17b-smoke", w8a8=True)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "granite-3-2b-smoke", long_mode=True)
     check_forward_vs_cpu(torch, "deepseek-v3-671b-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "xlstm-350m-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "qwen2-vl-2b-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "whisper-base-smoke", long_mode=False)
+    check_forward_vs_cpu(torch, "llama4-maverick-400b-a17b-smoke",
+                         long_mode=False, w8a8=True)
 
     # ---- phase 4: the main path at full width -------------------------
     captured = {}
@@ -860,6 +902,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     wh, wh_launches = run_whisper(torch, ops, ref, results)
 
+    # ---- phase 13: llama4 pair units and W8A8 experts -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    l4, l4_launches = run_llama4(torch, ops, ref, results)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -876,18 +923,23 @@ def main(argv=None):
         "flash_attention": ("src/repro_torch/kernels/csrc/"
                             "flash_attention.cu",
                             "src/repro/kernels/attention.py:71"),
+        # no Pallas kernel: the reference's int8 dot_general (XLA)
+        "w8a8_expert_matmul": ("src/repro_torch/kernels/csrc/w8a8_expert.cu",
+                               "src/repro/models/ffn.py:164"),
     }
     # launches: each kernel's count on the path that carries it (phase 4
     # for GQA attention and the exit probe, phase 5's int8 run for the
     # handoff, phase 6 for paged MLA, phase 7's timed forward for flash
-    # attention); the exit head's deepseek-v3 numbers
-    # (phase 2 at its widths, phase 6's launches) ride along under
-    # "deepseek"
+    # attention, phase 13's serving run for the W8A8 expert GEMM); the
+    # exit head's deepseek-v3 numbers (phase 2 at its widths, phase 6's
+    # launches) ride along under "deepseek"
     path_launches = dict(main_launches)
     path_launches["quantize_rows"] = tier_launches["quantize_rows"]
     path_launches["dequantize_rows"] = tier_launches["dequantize_rows"]
     path_launches["paged_mla_attention"] = ds_launches["paged_mla_attention"]
     path_launches["flash_attention"] = fwd_launches["flash_attention"]
+    path_launches["w8a8_expert_matmul"] = \
+        l4_launches["serve"]["w8a8_expert_matmul"]
     exit_ds["launches"] = ds_launches["exit_head_entropy"]
     kernels = []
     for kname, r in results.items():
@@ -917,6 +969,10 @@ def main(argv=None):
             part: n[kname] for part, n in qv_launches.items()}
         kernels[-1]["phase12_launches"] = {
             part: n[kname] for part, n in wh_launches.items()}
+        kernels[-1]["phase13_launches"] = {
+            part: n[kname] for part, n in l4_launches.items()}
+        if kname == "w8a8_expert_matmul":
+            kernels[-1]["pallas_counterpart"] = None
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -925,7 +981,7 @@ def main(argv=None):
                        "serve": stats, "async_decode": windows,
                        "tiered": tiered, "deepseek": ds, "forward": fwd,
                        "multi": multi, "zamba2": z2, "xlstm": xl,
-                       "qwen2_vl": qv, "whisper": wh},
+                       "qwen2_vl": qv, "whisper": wh, "llama4": l4},
                       f, indent=1)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
@@ -980,12 +1036,14 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
     prep, sdpa = ab.sdpa_gathered()
     # paged GQA, pages of 16, pos < 2048: 8 slots of 32 heads of 128 over
     # 4 and 8 kv heads, zamba2's shared attention (row 1c): 16 slots of 32
-    # heads of 64 over 32 kv heads (G 1), and qwen2-vl-2b's (row 1d): 16
-    # slots of 12 heads of 128 over 2 (G 6)
+    # heads of 64 over 32 kv heads (G 1), qwen2-vl-2b's (row 1d): 16
+    # slots of 12 heads of 128 over 2 (G 6), and llama4-maverick's (row
+    # 1e): 16 slots of 40 heads of 128 over 8 (G 5)
     for label, b, nq, nkv, hd in (("yi-6b", 8, 32, 4, 128),
                                   ("mistral-nemo-12b", 8, 32, 8, 128),
                                   ("zamba2-1.2b", 16, 32, 32, 64),
-                                  ("qwen2-vl-2b", 16, 12, 2, 128)):
+                                  ("qwen2-vl-2b", 16, 12, 2, 128),
+                                  ("llama4-maverick", 16, 40, 8, 128)):
         sets = ab.paged_inputs(gen, b, nq, nkv, hd, 16, 128, 2048, 4)
         a = sets[0]
         got = ops.paged_gqa_attention(*a)
@@ -1016,15 +1074,16 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
         del sets, lib_args
     # the exit head's aligned instance at the vocab widths of yi-6b and
     # mistral-nemo-12b (8 rows), and of zamba2-1.2b's, xlstm-350m's and
-    # qwen2-vl-2b's probes (16 rows, rows 2c, 2d and 2e); its odd-pitch
-    # instance at whisper-base's (row 2f)
+    # qwen2-vl-2b's and llama4-maverick's probes (16 rows, rows 2c, 2d,
+    # 2e and 2g); its odd-pitch instance at whisper-base's (row 2f)
     lib = entropy_library(torch)
     for label, t, d, v in (("yi-6b", 8, 4096, 64000),
                            ("mistral-nemo-12b", 8, 5120, 131072),
                            ("zamba2-1.2b", 16, 2048, 32000),
                            ("xlstm-350m", 16, 1024, 50304),
                            ("qwen2-vl-2b", 16, 1536, 151936),
-                           ("whisper-base", 16, 512, 51865)):
+                           ("whisper-base", 16, 512, 51865),
+                           ("llama4-maverick", 16, 5120, 202048)):
         x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(d, v, generator=gen, device="cuda")
              / math.sqrt(d)).bfloat16()
@@ -1094,21 +1153,24 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
 
 
 def flash_shapes(torch, F, ops, ref, gen, results, make_mask):
-    """Rows 6b-6e: flash at zamba2-1.2b's shared attention (2 x 2048
+    """Rows 6b-6f: flash at zamba2-1.2b's shared attention (2 x 2048
     tokens, 32 query heads of 64 over 32, G 1, causal), at phase 11's
     forward (qwen2-vl-2b, 2 x 2048 tokens, 12 query heads of 128 over 2,
-    causal) and, without a mask, at phase 12's (whisper-base, 8 heads of
+    causal), without a mask at phase 12's (whisper-base, 8 heads of
     64): the encoder's self-attention over 1,500 frames (1,500 = 11 x 128
     + 92: a ragged last key tile) and the decoder's cross-attention, 448
-    queries against the 1,500 encoder rows.  The library call is SDPA
-    (``enable_gqa``; causal, or no mask)."""
+    queries against the 1,500 encoder rows, and at phase 13's forward
+    (llama4-maverick, 2 x 2048 tokens, 40 query heads of 128 over 8, G 5,
+    causal).  The library call is SDPA (``enable_gqa``; causal, or no
+    mask)."""
     b, s_dec = WH_FWD
     t_enc = 1500
     for label, qs, kvs, nq, nkv, hd, causal in (
             ("zamba2-1.2b", (2, 2048), (2, 2048), 32, 32, 64, True),
             ("qwen2-vl-2b", (2, 2048), (2, 2048), 12, 2, 128, True),
             ("whisper-base encoder", (b, t_enc), (b, t_enc), 8, 8, 64, False),
-            ("whisper-base cross", (b, s_dec), (b, t_enc), 8, 8, 64, False)):
+            ("whisper-base cross", (b, s_dec), (b, t_enc), 8, 8, 64, False),
+            ("llama4-maverick", (2, 2048), (2, 2048), 40, 8, 128, True)):
         sets = [tuple(torch.randn(*sh, n, hd, generator=gen, device="cuda")
                       .bfloat16() for sh, n in ((qs, nq), (kvs, nkv),
                                                 (kvs, nkv)))
@@ -1557,7 +1619,7 @@ def record_routes(ffn, log):
     return orig
 
 
-def check_smoke_vs_cpu(torch, arch):
+def check_smoke_vs_cpu(torch, arch, w8a8=False):
     """A smoke-width paged decode: the card (kernels, cuBLAS) against the
     CPU (plain versions) on the same weights and inputs.  A row whose MoE
     routing differs between the two is left out of the logits check, and
@@ -1565,8 +1627,12 @@ def check_smoke_vs_cpu(torch, arch):
     model (no paged arena) decodes on its contiguous ring instead, from
     positions that have wrapped around it; an encoder-decoder model on its
     contiguous cache, whose cross rows each side primes from the same
-    frames (the card's encoder runs flash without a mask)."""
+    frames (the card's encoder runs flash without a mask).  ``w8a8``
+    quantizes the experts first (the W8A8 kernel against the CPU's int32
+    sum); a model with no exit (llama4-maverick-smoke: its exit would
+    split a pair unit) skips the probe."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import Model, ffn
     from repro_torch.models.attention import PagedKV
     from repro_torch.models.common import tree_map
@@ -1575,7 +1641,10 @@ def check_smoke_vs_cpu(torch, arch):
     cpu = Model(cfg, device="cpu")
     gpu = Model(cfg, device="cuda")
     p_cpu = cpu.init(0)
+    if w8a8:
+        ffn.quantize_model_moe(p_cpu)
     p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    w0 = ops.LAUNCHES["w8a8_expert_matmul"]
     b, page, pps = 4, 16, 4
     n_pages = b * pps
     g = torch.Generator().manual_seed(1)
@@ -1628,13 +1697,18 @@ def check_smoke_vs_cpu(torch, arch):
                 flips += 1
         compared += int(keep.sum())
         worst = max(worst, (lg.cpu() - lc)[keep].abs().max().item())
-        x = cpu.embed_decode_tokens(p_cpu, toks)
-        ec = cpu.exit_probe_entropy(p_cpu, 0, x)
-        eg = gpu.exit_probe_entropy(p_gpu, 0, x.cuda())
-        worst_ent = max(worst_ent, (eg.cpu() - ec).abs().max().item())
+        if cpu.n_exits:
+            x = cpu.embed_decode_tokens(p_cpu, toks)
+            ec = cpu.exit_probe_entropy(p_cpu, 0, x)
+            eg = gpu.exit_probe_entropy(p_gpu, 0, x.cuda())
+            worst_ent = max(worst_ent, (eg.cpu() - ec).abs().max().item())
         pos = pos + 1
     ffn._route = orig
+    torch.cuda.synchronize()
+    if w8a8 and ops.LAUNCHES["w8a8_expert_matmul"] <= w0:
+        fail(f"{arch}: the W8A8 kernel did not launch")
     arena = "ring" if ring else "primed contiguous" if encdec else "paged"
+    arena += " W8A8" if w8a8 else ""
     print(f"smoke reference {arch} (card vs CPU, 8 {arena} decode steps): "
           f"logits max_abs_err {worst:.3e} over {compared} rows (tol "
           f"{LOGIT_TOL}; {flips} rows left out at router ties), probe "
@@ -1643,7 +1717,7 @@ def check_smoke_vs_cpu(torch, arch):
         fail(f"the card disagrees with the CPU on {arch}")
 
 
-def check_forward_vs_cpu(torch, arch, long_mode):
+def check_forward_vs_cpu(torch, arch, long_mode, w8a8=False):
     """The smoke-width ``Model.forward`` on 2 x 128 tokens: the card (flash
     kernel, cuBLAS) against the CPU (plain versions) on the same weights.
     Logits and MTP logits within LOGIT_TOL, exit logits within EXIT_TOL
@@ -1653,7 +1727,8 @@ def check_forward_vs_cpu(torch, arch, long_mode):
     kept assignments moved because of it (capacity order); the MTP block
     attends over the sequence, so it also leaves out the later positions
     of that sequence.  A vlm batch carries 0.02 N(0, 1) patch embeddings
-    in its first positions, an encdec batch frames of the same scale."""
+    in its first positions, an encdec batch frames of the same scale.
+    ``w8a8`` quantizes the experts first."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, ffn
     from repro_torch.models.common import tree_map
@@ -1661,6 +1736,8 @@ def check_forward_vs_cpu(torch, arch, long_mode):
     cpu = Model(cfg, device="cpu")
     gpu = Model(cfg, device="cuda")
     p_cpu = cpu.init(0)
+    if w8a8:
+        ffn.quantize_model_moe(p_cpu)
     p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
     b, s = 2, 128
     g = torch.Generator().manual_seed(2)
@@ -1711,7 +1788,8 @@ def check_forward_vs_cpu(torch, arch, long_mode):
     exit_err = max([(g.cpu() - w).abs().max().item()
                     for g, w in zip(got.exit_logits, want.exit_logits)],
                    default=0.0)
-    line = (f"smoke forward {arch}{' long_mode' if long_mode else ''} "
+    line = (f"smoke forward {arch}{' long_mode' if long_mode else ''}"
+            f"{' W8A8' if w8a8 else ''} "
             f"(card vs CPU, {b} x {s} tokens): logits max_abs_err "
             f"{err:.3e} over {int(keep.sum())} rows (tol {LOGIT_TOL}; "
             f"{flips} rows left out at router ties), exit logits "
@@ -3032,8 +3110,8 @@ def live_capture(torch, ops, names, every):
     captured, calls = {}, {}
 
     def kind(name, a, kw):
-        if name == "exit_head_entropy":
-            return a[1].data_ptr()
+        if name in ("exit_head_entropy", "w8a8_expert_matmul"):
+            return a[1 if name == "exit_head_entropy" else 2].data_ptr()
         if name == "flash_attention":
             return (kw.get("causal", True), a[0].shape[1], a[1].shape[1])
         return 0
@@ -3060,10 +3138,12 @@ def live_capture(torch, ops, names, every):
 def hold_live(torch, ref, captured, orig, results, phase):
     """Each captured live call against its plain version: paged GQA within
     PAGED_TOL, the exit probe within ENT_TOL, flash within FLASH_TOL of
-    max(1, |plain|).  Returns {name: [shapes, ...]}."""
+    max(1, |plain|), the W8A8 expert GEMM bit for bit.  Returns {name:
+    [shapes, ...]}."""
     plain = {"paged_gqa_attention": (ref.paged_gqa_attention_ref, PAGED_TOL),
              "exit_head_entropy": (ref.exit_head_entropy_ref, ENT_TOL),
-             "flash_attention": (ref.flash_attention_ref, FLASH_TOL)}
+             "flash_attention": (ref.flash_attention_ref, FLASH_TOL),
+             "w8a8_expert_matmul": (ref.w8a8_expert_matmul_ref, 0.0)}
     seen = {}
     for (name, _), (a, kw) in captured.items():
         fn, tol = plain[name]
@@ -3079,6 +3159,8 @@ def hold_live(torch, ref, captured, orig, results, phase):
               if name == "flash_attention" else "")
         print(f"  live {name} {shapes} {kw}: max_abs_err {err:.3e}{of} "
               f"(tol {tol})")
+        if name == "w8a8_expert_matmul" and not bits_equal(torch, got, want):
+            scaled = float("inf")
         if not torch.isfinite(got).all() or not scaled <= tol:
             fail(f"phase {phase}: {name} disagrees with its plain version "
                  f"on live inputs {shapes}")
@@ -3453,14 +3535,15 @@ def run_whisper(torch, ops, ref, results):
     return out, launches
 
 
-def migrate_live_slot(torch, ops, ref, model, params, mg, phase):
+def migrate_live_slot(torch, ops, ref, model, params, mg, phase, part="d"):
     """A live slot exported from one ``mg["slots"]``-slot arena (paged; an
     encdec model's contiguous, each request with seeded frames) after
     ``mg["polls"]`` polls and imported into another, raw (the stream must
     continue bit for bit) and int8 (every leaf and scale must equal the
     plain quantizer's on the live leaf and dequantize bit for bit, the
     stream must complete); an encdec snapshot must hold every decoder
-    layer's cross rows whole.  Returns the summary and the launches (the
+    layer's cross rows whole.  ``part`` is the step's letter in the
+    phase's output.  Returns the summary and the launches (the
     comparisons' own not counted)."""
     import numpy as np
     from repro_torch.launch.serve import draw_frames
@@ -3498,7 +3581,7 @@ def migrate_live_slot(torch, ops, ref, model, params, mg, phase):
             src.poll()
         r = reqs[0]
         if r.done or not src.active[r.slot]:
-            fail(f"phase {phase} (d): request 0 is not live after "
+            fail(f"phase {phase} ({part}): request 0 is not live after "
                  f"{mg['polls']} polls")
         snap = src.export_slot(r.slot, compress=label == "int8")
         shapes = [list(q.shape) for q in snap.payload]
@@ -3507,8 +3590,8 @@ def migrate_live_slot(torch, ops, ref, model, params, mg, phase):
                      cfg.resolved_head_dim]
             if sum(sh[0] for sh in shapes if sh[1:] == cross) \
                     != 2 * cfg.num_layers:
-                fail(f"phase {phase} (d): the snapshot holds no whole cross "
-                     f"rows of every decoder layer ({shapes})")
+                fail(f"phase {phase} ({part}): the snapshot holds no whole "
+                     f"cross rows of every decoder layer ({shapes})")
         if label == "int8":
             # the comparisons' launches are not the path's
             counted = dict(ops.LAUNCHES)
@@ -3521,13 +3604,13 @@ def migrate_live_slot(torch, ops, ref, model, params, mg, phase):
                         bits_equal(torch, q.cuda().reshape(qr.shape), qr)
                         and bits_equal(torch, sc.cuda().reshape(sr.shape),
                                        sr)):
-                    fail(f"phase {phase} (d): an int8 leaf or scale differs "
-                         f"from the plain quantizer on the live leaf")
+                    fail(f"phase {phase} ({part}): an int8 leaf or scale "
+                         f"differs from the plain quantizer on the live leaf")
                 yk = ops.decompress_rows(q.cuda(), sc.cuda(), dtype=a.dtype)
                 yr = ref.dequantize_rows_ref(qr, sr, a.dtype)
                 if not bits_equal(torch, yk.reshape(yr.shape), yr):
-                    fail(f"phase {phase} (d): dequantize_rows differs from "
-                         f"its plain version on the live payload")
+                    fail(f"phase {phase} ({part}): dequantize_rows differs "
+                         f"from its plain version on the live payload")
                 leaves += 1
             mig["int8_leaves"] = leaves
             mig["int8_shapes"] = shapes
@@ -3539,11 +3622,11 @@ def migrate_live_slot(torch, ops, ref, model, params, mg, phase):
         dst.run()
         src.run()
         if label == "raw" and r.out_tokens != want[0]:
-            fail(f"phase {phase} (d): the raw migration's stream differs "
+            fail(f"phase {phase} ({part}): the raw migration's stream differs "
                  f"from the unmigrated run")
         if len(r.out_tokens) != mg["max_new"] or not all(
                 0 <= t < cfg.vocab_size for t in r.out_tokens):
-            fail(f"phase {phase} (d): the {label} migration's stream is "
+            fail(f"phase {phase} ({part}): the {label} migration's stream is "
                  f"short or out of the vocabulary")
         mig[f"{label}_equal"] = r.out_tokens == want[0]
         mig[f"{label}_others_equal"] = all(
@@ -3552,8 +3635,8 @@ def migrate_live_slot(torch, ops, ref, model, params, mg, phase):
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     if launches["quantize_rows"] <= 0 or launches["dequantize_rows"] <= 0:
-        fail(f"phase {phase} (d): the int8 kernels did not launch")
-    print(f"  (d) migration of a live slot between {mg['slots']}-slot "
+        fail(f"phase {phase} ({part}): the int8 kernels did not launch")
+    print(f"  ({part}) migration of a live slot between {mg['slots']}-slot "
           f"{'paged' if paged else 'contiguous'} arenas: raw "
           f"{mig['raw_bytes'] / 2 ** 20:.1f} MiB"
           f"{'' if paged else ' (cross rows whole)'}, stream bit-identical "
@@ -3565,6 +3648,316 @@ def migrate_live_slot(torch, ops, ref, model, params, mg, phase):
           f"{mig['raw_others_equal']} / {mig['int8_others_equal']}; "
           f"launches {launches}")
     return mig, launches
+
+
+L4_TRACE = dict(rate=8.0, n_requests=16, slots=16, prompt_len=64,
+                max_new=16, threshold=0.5, paged=True, page_size=16,
+                segmented=True, prefix_share=0.25, prefix_len=32, seed=0)
+L4_LOOP = dict(requests=16, slots=8, readback_interval=8)
+L4_FWD = (2, 2048)         # phase 13 (d)'s forward
+L4_MIGRATE = dict(requests=4, slots=16, max_len=128, max_new=24, polls=10)
+W8A8_REL = 0.05    # bf16-vs-W8A8 relative error of a MoE layer's output:
+#                    the bound of the reference's own
+#                    test_w8a8_expert_matmul_close_to_bf16
+
+
+def llama4_cut(get_config):
+    """llama4-maverick at its published widths (hf:meta-llama/Llama-4-
+    Scout-17B-16E family card, as the reference config names it), cut in
+    depth only to 4 layers: two pair units of a dense layer (d_ff 16,384)
+    and a MoE layer (128 experts of 8,192, top-1, one shared); the exit
+    at 2, the boundary between the units (one inside a unit would be
+    dropped)."""
+    cfg = get_config("llama4-maverick-400b-a17b")
+    return dataclasses.replace(
+        cfg, name="llama4-maverick-400b-a17b-4l", num_layers=4,
+        exits=dataclasses.replace(cfg.exits, exit_layers=(2,),
+                                  entropy_threshold=0.5))
+
+
+def w8a8_rows(torch, ops, ref, calls, labels):
+    """The W8A8 kernel on live calls: bit-exact against its plain version,
+    then timed against it and against ``torch.bmm`` in bf16 on the same
+    shapes (the dispatched rows and the experts dequantized to bf16: what
+    the unquantized path runs).  Returns a row per label."""
+    rows = {}
+    for label, a in zip(labels, calls):
+        aq, a_s, wq, w_s = a
+        got = ops.w8a8_expert_matmul(*a)
+        want = ref.w8a8_expert_matmul_ref(*a)
+        torch.cuda.synchronize()
+        if not bits_equal(torch, got, want):
+            fail(f"phase 13 (a): w8a8_expert_matmul differs from its plain "
+                 f"version on the live {label} product")
+        del got, want
+        w_bf = torch.empty(wq.shape, dtype=torch.bfloat16, device="cuda")
+        for i in range(wq.shape[0]):           # one expert's fp32 at a time
+            w_bf[i] = (wq[i].float() * w_s[i]).bfloat16()
+        a_bf = (aq.float() * a_s).bfloat16()
+        spread = interleaved_ms(torch, ops.w8a8_expert_matmul, torch.bmm,
+                                [a], lib_args=[(a_bf, w_bf)], iters=10)
+        print_spread(f"w8a8_expert_matmul llama4 {label}", spread)
+        bound_ms, by = w8a8_bound(*a)
+        rows[label] = {
+            "aq": list(aq.shape), "wq": list(wq.shape), "max_abs_err": 0.0,
+            "ms": spread["kernel"]["median"],
+            "plain_ms": device_ms(torch, ref.w8a8_expert_matmul_ref, [a],
+                                  iters=3),
+            "library_ms": spread["library"]["median"],
+            "bound_ms": bound_ms, "bound_by": by, "spread": spread}
+        brief = {k: v for k, v in rows[label].items() if k != "spread"}
+        print(f"  {json.dumps(brief)}")
+        del w_bf, a_bf
+    return rows
+
+
+def run_llama4(torch, ops, ref, results):
+    """Phase 13 (see the module docstring).  Returns a summary and the
+    launch counts of each part."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_decode import profile_decode
+    from repro_torch.launch.serve import serve_poisson
+    from repro_torch.models import Model, ffn
+    from repro_torch.models.common import tree_leaves, tree_map
+    t_phase = time.time()
+    cfg = llama4_cut(get_config)
+    m = cfg.moe
+    tr = L4_TRACE
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = Model(cfg, device="cuda")
+    params = model.init(tr["seed"])
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    bf16_bytes = nbytes(params)
+    print(f"llama4 path: {cfg.name} at its published widths ({cfg.source}"
+          f" family card), cut in depth to {cfg.num_layers} layers = "
+          f"{len(model.plan) - model.n_exits} pair units: d_model "
+          f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim} (G {cfg.num_heads // cfg.num_kv_heads}),"
+          f" dense d_ff {cfg.d_ff}, {m.num_experts} experts of "
+          f"{m.d_ff_expert} top-{m.top_k} + {m.num_shared_experts} shared, "
+          f"vocab {cfg.vocab_size}, exit after layer "
+          f"{cfg.exits.exit_layers}; random weights (seed 0): "
+          f"{bf16_bytes / 1e9:.2f} GB bf16, init {init_s:.1f}s")
+    out = {"init_s": init_s, "bf16_bytes": bf16_bytes}
+    launches = {}
+
+    # (a) one live MoE layer on 16 tokens of 0.5 N(0, 1): bf16 experts,
+    # then the same layer after quantize_model_moe
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = (0.5 * torch.randn(1, 16, cfg.d_model, device="cuda",
+                           generator=g)).bfloat16()
+    lp = tree_map(lambda a: a[0], params["blocks"][0]["b"]["moe"])
+    y_bf, _ = ffn.moe_ffn(lp, x, cfg)
+    del lp                        # a view would keep the bf16 leaves alive
+    t0 = time.time()
+    ffn.quantize_model_moe(params)
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    q_bytes = nbytes(params)
+    peak = torch.cuda.max_memory_allocated()
+    int8_bytes = sum(t.numel() for t in tree_leaves(params)
+                     if t.dtype == torch.int8)
+    lpq = tree_map(lambda a: a[0], params["blocks"][0]["b"]["moe"])
+    calls = []
+    orig_w8a8 = ops.w8a8_expert_matmul
+
+    def rec(*a):
+        calls.append(a)
+        return orig_w8a8(*a)
+    ops.w8a8_expert_matmul = rec
+    n0 = ops.LAUNCHES["w8a8_expert_matmul"]
+    y_q, _ = ffn.moe_ffn(lpq, x, cfg)
+    torch.cuda.synchronize()
+    ops.w8a8_expert_matmul = orig_w8a8
+    rel = ((y_q.float() - y_bf.float()).norm()
+           / y_bf.float().norm()).item()
+    print(f"  (a) quantize_model_moe in place: {quant_s:.1f}s, "
+          f"{q_bytes / 1e9:.2f} GB after ({int8_bytes / 1e9:.2f} GB int8 "
+          f"experts), peak device memory {peak / 1e9:.2f} GB; one MoE layer "
+          f"on 16 tokens: bf16 vs W8A8 relative error {rel:.4f} (bound "
+          f"{W8A8_REL}), {len(calls)} W8A8 launches")
+    if len(calls) != 3 or ops.LAUNCHES["w8a8_expert_matmul"] != n0 + 3:
+        fail("phase 13 (a): the W8A8 layer did not launch the kernel for "
+             "its three products")
+    if not (0 < rel < W8A8_REL and torch.isfinite(y_q.float()).all()):
+        fail(f"phase 13 (a): bf16 vs W8A8 relative error {rel}")
+    rows = w8a8_rows(torch, ops, ref, [calls[0], calls[2]],
+                     ["gate", "down"])
+    gate = rows["gate"]
+    results["w8a8_expert_matmul"] = {
+        k: gate[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by")}
+    results["w8a8_expert_matmul"]["shapes"] = rows
+    out.update(quant_s=quant_s, q_bytes=q_bytes, int8_bytes=int8_bytes,
+               peak_bytes=peak, rel_err=rel)
+    del calls, lpq, x, y_bf, y_q
+
+    # (b) serve_poisson on the quantized tree, paged and segmented; live
+    # kernel inputs and one live MoE input captured
+    captured, orig, restore = live_capture(
+        torch, ops, ("paged_gqa_attention", "exit_head_entropy",
+                     "w8a8_expert_matmul"), 97)
+    orig_moe, moe_calls, moe_live = ffn.moe_ffn, [0], []
+
+    def moe_capture(lp_moe, h, c):
+        moe_calls[0] += 1
+        if moe_calls[0] == 97:
+            moe_live.append((lp_moe, h.clone()))
+        return orig_moe(lp_moe, h, c)
+    ffn.moe_ffn = moe_capture
+    ops.reset_launches()
+    t0 = time.time()
+    st = serve_poisson(cfg, params=params, device="cuda", quiet=True,
+                       n_requests=tr["n_requests"], rate=tr["rate"],
+                       slots=tr["slots"], prompt_len=tr["prompt_len"],
+                       max_new=tr["max_new"], threshold=tr["threshold"],
+                       paged=tr["paged"], page_size=tr["page_size"],
+                       segmented=tr["segmented"],
+                       prefix_share=tr["prefix_share"],
+                       prefix_len=tr["prefix_len"], seed=tr["seed"])
+    torch.cuda.synchronize()
+    launches["serve"] = dict(ops.LAUNCHES)
+    wall = time.time() - t0
+    restore()
+    ffn.moe_ffn = orig_moe
+    outs = st.pop("outputs")
+    print(f"  (b) served {tr['n_requests']} requests at {tr['rate']} req/s, "
+          f"prompts {tr['prompt_len'] // 4}-{tr['prompt_len']} tokens "
+          f"({tr['prefix_share']:.2f} sharing a {tr['prefix_len']}-token "
+          f"prefix), {tr['max_new']} new, {tr['slots']} slots, paged + "
+          f"segmented, W8A8 experts: {wall:.1f}s with warm-up; "
+          f"{st['sustained_tok_s']:.2f} tok/s, p50 "
+          f"{st['p50_latency_s'] * 1e3:.0f} ms, p95 "
+          f"{st['p95_latency_s'] * 1e3:.0f} ms, makespan "
+          f"{st['makespan_s']:.2f} s, prefix_hit_tokens "
+          f"{st['prefix_hit_tokens']}; launches {launches['serve']}")
+    print(f"  exit stats {st['exit_stats']}; stage calls "
+          f"{st['stage_calls']}")
+    if len(outs) != tr["n_requests"] or any(
+            len(o) != tr["max_new"] or not all(0 <= t < cfg.vocab_size
+                                               for t in o) for o in outs):
+        fail("phase 13 (b): a stream is short or out of the vocabulary")
+    for kname in ("paged_gqa_attention", "exit_head_entropy",
+                  "w8a8_expert_matmul"):
+        if launches["serve"][kname] <= 0:
+            fail(f"phase 13 (b): {kname} was not launched")
+    out["live"] = hold_live(torch, ref, captured, orig, results, "13 (b)")
+    if len(out["live"].get("w8a8_expert_matmul", [])) != 3 * 2 or \
+            len(out["live"].get("exit_head_entropy", [])) != 1 or \
+            "paged_gqa_attention" not in out["live"]:
+        fail("phase 13 (b): no live call of each kernel (and of each W8A8 "
+             "product) was captured")
+    del captured
+    # one live MoE input's routing and capacity drops, recounted on the host
+    if not moe_live:
+        fail("phase 13 (b): no live MoE call was captured")
+    lp_moe, h = moe_live[0]
+    x2d = h.reshape(-1, h.shape[-1])
+    t_tok = x2d.shape[0]
+    cap = ffn._capacity(t_tok, m.num_experts, m.top_k, m.capacity_factor)
+    _, idx_host, _ = ffn._route(x2d.cpu(), lp_moe["router"].cpu(), m.top_k)
+    _, kept = ffn._slots(idx_host, 0, m.num_experts, cap)
+    _, idx_card, _ = ffn._route(x2d, lp_moe["router"], m.top_k)
+    same = bool(torch.equal(idx_card.cpu(), idx_host))
+    dropped = int((~kept).sum())
+    print(f"  live MoE input [{t_tok}, {x2d.shape[1]}]: capacity {cap} rows "
+          f"per expert ({m.num_experts * cap} rows computed); the host's "
+          f"routing drops {dropped} of {t_tok * m.top_k} assignments; the "
+          f"card routes {'identically' if same else 'differently'}")
+    out["moe_live"] = {"tokens": t_tok, "capacity": cap, "dropped": dropped,
+                       "card_routes_same": same}
+    del moe_live, lp_moe, h, x2d
+    out["serve"] = st
+    prof = profile_decode(cfg, slots=tr["slots"], prompt_len=64, steps=4,
+                          seed=tr["seed"], params=params)
+    out["profile_decode"] = prof
+    print_profile(prof, "16 slots, 64-token prompts, 4 steps")
+
+    # (c) closed loop on 8 slots: sync monolithic, then windows of 8
+    loop, _, _ = sync_vs_windows(torch, ops, model, params, L4_LOOP, 13)
+    out.update(loop)
+    launches["loop"] = out["loop_async"]["launches"]
+    per = out["loop_async"]["per_replay"]
+    print(f"  (c) closed loop of {L4_LOOP['requests']} requests on "
+          f"{L4_LOOP['slots']} paged slots (prompts 16-64, max_new 8-24): "
+          f"{L4_LOOP['requests'] - len(loop['loop_ties'])} streams "
+          f"bit-identical to the sync monolithic poll, "
+          f"{len(loop['loop_ties'])} ties; one capture; "
+          f"{out['loop_sync']['wall_s']:.2f} s sync against "
+          f"{out['loop_async']['wall_s']:.2f} s with windows of "
+          f"{L4_LOOP['readback_interval']} (launches a replay {per})")
+    if per["w8a8_expert_matmul"] != 3 * 2 or \
+            per["paged_gqa_attention"] != cfg.num_layers:
+        fail(f"phase 13 (c): a replay launches {per}, not 6 W8A8 and "
+             f"{cfg.num_layers} paged-GQA kernels")
+
+    # (d) Model.forward on 2 x 2048 tokens
+    b, s = L4_FWD
+    g = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                         generator=g)
+    model.forward(params, {"tokens": toks[:, :256]})          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured, orig, restore = live_capture(
+        torch, ops, ("flash_attention", "w8a8_expert_matmul"),
+        cfg.num_layers)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    e0.record()
+    fwd = model.forward(params, {"tokens": toks})
+    e1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches["forward"] = dict(ops.LAUNCHES)
+    restore()
+    dev_ms = e0.elapsed_time(e1)
+    fpeak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(fwd.logits).all()) and all(
+        bool(torch.isfinite(e).all()) for e in fwd.exit_logits) \
+        and math.isfinite(fwd.aux_loss.item())
+    print(f"  (d) Model.forward {b} x {s} tokens: {dev_ms:.1f} ms between "
+          f"CUDA events ({host_s:.2f} s host), {b * s / dev_ms * 1e3:.0f} "
+          f"tokens/s, peak {fpeak / 1e9:.2f} GB, logits "
+          f"{tuple(fwd.logits.shape)}, {len(fwd.exit_logits)} exit logits, "
+          f"aux {fwd.aux_loss.item():.5f}, finite {finite}; launches "
+          f"{launches['forward']}")
+    if not finite or tuple(fwd.logits.shape) != (b, s, cfg.vocab_size) \
+            or len(fwd.exit_logits) != model.n_exits:
+        fail("phase 13 (d): the forward's logits are not finite or "
+             "misshapen")
+    if launches["forward"]["flash_attention"] != cfg.num_layers:
+        fail(f"phase 13 (d): {launches['forward']['flash_attention']} flash "
+             f"launches, not {cfg.num_layers}")
+    del fwd
+    live = hold_live(torch, ref, captured, orig, results, "13 (d)")
+    if not live.get("flash_attention") or \
+            len(live.get("w8a8_expert_matmul", [])) != 6:
+        fail("phase 13 (d): no live flash or W8A8 call was captured")
+    out["forward"] = {"tokens": b * s, "event_ms": dev_ms, "host_s": host_s,
+                      "tokens_s": b * s / dev_ms * 1e3, "peak_bytes": fpeak,
+                      "live": live}
+    del captured, toks
+
+    # (e) a live pair slot migrated between 16-slot paged arenas
+    mig, launches["migrate"] = migrate_live_slot(torch, ops, ref, model,
+                                                 params, L4_MIGRATE, 13,
+                                                 part="e")
+    if mig["int8_leaves"] != 4 * len(model.scan_block_kinds()):
+        fail(f"phase 13 (e): {mig['int8_leaves']} int8 leaves, not a (k, v) "
+             f"of each layer of each pair unit")
+    out["migrate"] = mig
+    del model, params
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 13 wall time {out['wall_s']:.1f}s")
+    return out, launches
 
 
 FWD_BATCH = (8, 2048)      # phase 7's forward

@@ -9,6 +9,7 @@ from repro_torch.configs.base import (EncDecConfig, ExitConfig, ModelConfig,
                                       SSMConfig)
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _dsv3
 from repro_torch.configs.granite_3_2b import CONFIG as _granite
+from repro_torch.configs.llama4_maverick_400b import CONFIG as _llama4
 from repro_torch.configs.mistral_nemo_12b import CONFIG as _nemo
 from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl
 from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2
@@ -18,7 +19,7 @@ from repro_torch.configs.yi_6b import CONFIG as _yi
 from repro_torch.configs.zamba2_1p2b import CONFIG as _zamba2
 
 ARCHS = {c.name: c for c in (_granite, _dsv3, _yi, _starcoder2, _nemo,
-                             _zamba2, _xlstm, _qwen2_vl, _whisper)}
+                             _zamba2, _xlstm, _qwen2_vl, _whisper, _llama4)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -27,6 +27,7 @@ SOURCES = {
     "exit_head": CSRC / "exit_head.cu",
     "feature_compress": CSRC / "feature_compress.cu",
     "flash_attention": CSRC / "flash_attention.cu",
+    "w8a8_expert": CSRC / "w8a8_expert.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -62,6 +63,11 @@ SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    "w8a8_expert": {
+        "repro_w8a8_k_step": ([], _I),
+        "repro_w8a8_expert_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _P], _I),
     },
 }
 

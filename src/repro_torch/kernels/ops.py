@@ -17,10 +17,12 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _pattn
 from repro_torch.kernels import paged_mla as _pmla
 from repro_torch.kernels import ref
+from repro_torch.kernels import w8a8_expert as _w8a8
 
 LAUNCHES = {"paged_gqa_attention": 0, "paged_mla_attention": 0,
             "exit_head_entropy": 0, "quantize_rows": 0,
-            "dequantize_rows": 0, "flash_attention": 0}
+            "dequantize_rows": 0, "flash_attention": 0,
+            "w8a8_expert_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -217,3 +219,38 @@ def decompress_rows(q, scale, dtype=torch.bfloat16):
     out = _fc.dequantize_cuda(q2, s2, dtype)
     LAUNCHES["dequantize_rows"] += 1
     return out.reshape(*lead, d)
+
+
+def w8a8_expert_matmul(aq, a_scale, wq, w_scale):
+    """W8A8 grouped expert GEMM: aq [E, C, K] int8 with a_scale [E, C, 1]
+    fp32, wq [E, K, N] int8 with w_scale [E, 1, N] fp32 -> fp32 [E, C, N]
+    = float(s32 sum over K) * a_scale * w_scale, every capacity row
+    computed."""
+    args = (aq, a_scale, wq, w_scale)
+    if not _on_card(*args):
+        return ref.w8a8_expert_matmul_ref(*args)
+    _require(aq.ndim == 3 and wq.ndim == 3,
+             f"w8a8_expert_matmul aq {tuple(aq.shape)} wq {tuple(wq.shape)}")
+    e, c, k = aq.shape
+    n = wq.shape[2]
+    _require(wq.shape[:2] == (e, k) and a_scale.shape == (e, c, 1)
+             and w_scale.shape == (e, 1, n),
+             f"w8a8_expert_matmul aq {tuple(aq.shape)} a_scale "
+             f"{tuple(a_scale.shape)} wq {tuple(wq.shape)} w_scale "
+             f"{tuple(w_scale.shape)}")
+    _require(aq.dtype == wq.dtype == torch.int8
+             and a_scale.dtype == w_scale.dtype == torch.float32,
+             f"w8a8_expert_matmul takes int8 aq / wq and fp32 scales, got "
+             f"{aq.dtype} / {wq.dtype} / {a_scale.dtype} / {w_scale.dtype}")
+    _require(0 < e < 65536 and 0 < c and -(-c // _w8a8.BLOCK_C) < 65536,
+             f"w8a8_expert_matmul grid for E {e}, C {c}")
+    _require(_w8a8.supported(k, n),
+             f"w8a8_expert_matmul has no instance for K={k}, N={n} (K a "
+             f"multiple of {_w8a8.K_STEP} up to {_w8a8.MAX_K}, N of 4)")
+    _require(all(t.is_contiguous() for t in args),
+             "w8a8_expert_matmul takes contiguous tensors")
+    _require(aq.data_ptr() % 16 == 0 and wq.data_ptr() % 4 == 0,
+             "w8a8_expert_matmul: aq must be 16-byte and wq 4-byte aligned")
+    out = _w8a8.matmul_cuda(*args)
+    LAUNCHES["w8a8_expert_matmul"] += 1
+    return out

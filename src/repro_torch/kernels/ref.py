@@ -109,3 +109,22 @@ def quantize_rows_ref(x):
 def dequantize_rows_ref(q, scale, dtype=torch.bfloat16):
     """(q int8 [..., D], scale fp32 [..., 1]) -> x [..., D] ``dtype``."""
     return (q.float() * scale).to(dtype)
+
+
+def w8a8_expert_matmul_ref(aq, a_scale, wq, w_scale):
+    """aq [E, C, K] int8, a_scale [E, C, 1] fp32, wq [E, K, N] int8,
+    w_scale [E, 1, N] fp32 -> fp32 [E, C, N] = float(s32 sum) * a_scale *
+    w_scale, left to right.  The int32 sum is exact: an int32 ``bmm`` on
+    the CPU; on the card, which has no integer ``bmm``, one fp64 product
+    an expert (exact, since every partial sum is an integer of magnitude
+    at most K * 127^2 < 2^53; one expert at a time keeps the fp64 copy of
+    wq to one [K, N] matrix), cast back to int32."""
+    if aq.device.type == "cpu":
+        acc = torch.bmm(aq.int(), wq.int())
+    else:
+        e, c, _ = aq.shape
+        acc = torch.empty((e, c, wq.shape[2]), dtype=torch.int32,
+                          device=aq.device)
+        for i in range(e):
+            acc[i] = torch.mm(aq[i].double(), wq[i].double()).to(torch.int32)
+    return acc.float() * a_scale * w_scale

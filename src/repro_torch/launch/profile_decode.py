@@ -39,7 +39,7 @@ from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
 PORT_KERNELS = ("paged_gqa_partial", "paged_gqa_combine", "paged_mla_partial",
                 "paged_mla_combine", "exit_head_partial", "exit_head_finish",
                 "flash_fwd_kernel", "quantize_rows_kernel",
-                "dequantize_rows_kernel")
+                "dequantize_rows_kernel", "w8a8_expert_kernel")
 
 
 def profile_decode(arch="granite-3-2b", slots: int = 16,

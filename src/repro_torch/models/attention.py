@@ -11,10 +11,21 @@ latent pools [n_pages, P, R] / [n_pages, P, Hr].
 Caches are updated IN PLACE (the reference donates them to XLA and gets
 new arrays back); every decode function still returns the caches it was
 given, so call sites read like the reference's.
+
+``REPRO_ATTN`` (read at import, as the reference reads it): ``dense``
+(the default) or ``chunked``; any other value raises ``ValueError``.
+Under ``chunked`` the full-sequence self-attention of ``gqa_forward`` on
+the CPU follows ``_sdpa_chunked``, a copy of the reference's q-chunk /
+kv-chunk online softmax, where the reference takes it: no ``kv_x``,
+Sq * Skv above 2048^2, both lengths multiples of 1024.  On the card both
+settings launch the flash-attention kernel, which is that same online
+softmax written by hand (bf16 tiles in shared memory, fp32 running max
+and sum in registers), so the toggle changes nothing there.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -23,6 +34,22 @@ from repro_torch.models.common import init_norm, rmsnorm, scaled_init
 from repro_torch.models.rope import apply_positional, apply_rope
 
 NEG_INF = -1e30
+
+
+def _env_impl(var: str, default: str, legal: tuple) -> str:
+    """An implementation toggle from the environment, checked at import:
+    a typo (REPRO_ATTN=kernal) raises instead of falling through to the
+    default."""
+    val = os.environ.get(var, default)
+    if val not in legal:
+        raise ValueError(
+            f"{var}={val!r} is not a known implementation; legal values: "
+            + ", ".join(repr(v) for v in legal))
+    return val
+
+
+ATTN_IMPL = _env_impl("REPRO_ATTN", "dense", ("dense", "chunked"))
+CHUNKED_THRESHOLD = 2048   # chunked when Sq * Skv exceeds its square
 
 
 def init_gqa(cfg):
@@ -94,6 +121,71 @@ def make_mask(q_len: int, kv_len: int, *, causal: bool, window: int = 0,
     return mask
 
 
+def _sdpa_chunked(q, k, v, *, causal: bool, window: int, scale: float,
+                  q_chunk: int = 1024, kv_chunk: int = 1024):
+    """The reference's ``_sdpa_chunked``: q chunks in a Python loop, each
+    seeing only its causal (and windowed) kv range, kv chunks folded in
+    with an online softmax.  Block inputs are bf16 and their products
+    summed in fp32 (the reference's ``preferred_element_type``); P is
+    rounded to bf16 before P V; the running max, sum and output are fp32.
+    q [B, Sq, Nq, H], k/v [B, Skv, Nkv, H] -> [B, Sq, Nq, H] in q's
+    dtype."""
+    b, sq, nq, h = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    qc, kc = min(q_chunk, sq), min(kv_chunk, skv)
+    if sq % qc or skv % kc:
+        raise ValueError(f"_sdpa_chunked: lengths {sq} / {skv} are not "
+                         f"whole chunks of {qc} / {kc}")
+    kf = k.to(torch.bfloat16).float()
+    vf = v.to(torch.bfloat16).float()
+    outs = []
+    for q0 in range(0, sq, qc):
+        qg = q[:, q0:q0 + qc].reshape(b, qc, nkv, g, h).to(
+            torch.bfloat16).float()
+        hi = min(skv, q0 + qc) if causal else skv
+        lo = max(0, q0 - window - kc + 1) if window else 0
+        lo = (lo // kc) * kc
+        hi = ((hi + kc - 1) // kc) * kc
+        q_pos = q0 + torch.arange(qc, device=q.device)
+        m_run = torch.full((b, nkv, g, qc), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((b, nkv, g, qc), dtype=torch.float32,
+                            device=q.device)
+        acc = torch.zeros((b, nkv, g, qc, h), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(lo, hi, kc):
+            s = torch.einsum("bsngh,btnh->bngst", qg,
+                             kf[:, k0:k0 + kc]) * scale
+            k_pos = k0 + torch.arange(kc, device=q.device)
+            mask = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            if window:
+                mask &= k_pos[None, :] > q_pos[:, None] - window
+            s = s.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bngst,btnh->bngsh", p.to(torch.bfloat16).float(),
+                vf[:, k0:k0 + kc])
+            m_run = m_new
+        o = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, qc, nq, h))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _takes_chunked(q, k) -> bool:
+    """The reference's condition for ``_sdpa_chunked`` (self-attention
+    only), on the CPU; the card always runs the flash kernel."""
+    sq, skv = q.shape[1], k.shape[1]
+    return (ATTN_IMPL == "chunked" and q.device.type == "cpu"
+            and sq * skv > CHUNKED_THRESHOLD ** 2
+            and sq % 1024 == 0 and skv % 1024 == 0)
+
+
 def gqa_forward(cfg, params, x, positions, *, causal: bool = True,
                 window: int = 0, kv_x=None, rope_on: bool = True):
     """Full-sequence attention.  x [B, S, D], positions [B, S] (or
@@ -102,7 +194,7 @@ def gqa_forward(cfg, params, x, positions, *, causal: bool = True,
     no rotation and no mask.  The attention itself is
     ``kernels.ops.flash_attention``: the hand-written kernel on the card,
     the reference's ``_sdpa`` + ``make_mask`` (its plain version) on the
-    CPU."""
+    CPU, or there ``_sdpa_chunked`` under ``REPRO_ATTN=chunked``."""
     q = _proj(x, params["wq"])
     src = x if kv_x is None else kv_x
     k = _proj(src, params["wk"])
@@ -111,7 +203,12 @@ def gqa_forward(cfg, params, x, positions, *, causal: bool = True,
         if rope_on:
             q = apply_positional(q, positions, cfg.rope, cfg.rope_theta)
             k = apply_positional(k, positions, cfg.rope, cfg.rope_theta)
-        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+        if _takes_chunked(q, k):
+            out = _sdpa_chunked(q, k, v, causal=causal, window=window,
+                                scale=1.0 / math.sqrt(cfg.resolved_head_dim))
+        else:
+            out = kops.flash_attention(q, k, v, causal=causal,
+                                       window=window)
     else:
         out = kops.flash_attention(q, k, v, causal=False)
     return _out_proj(out, params["wo"]), (k, v)

@@ -11,10 +11,13 @@ exactly as in the reference.  Stacked blocks keep their leading layer axis
 decode (``decode_scan_block``) walk it in a Python loop.  The ``dense``
 and ``moe`` kinds are ported, with GQA or MLA attention, ``mamba``
 (zamba2's Mamba2 layers, with its weight-shared attention block), the
-xLSTM kinds ``mlstm`` and ``slstm``, and whisper's ``enc`` (a dense layer
+xLSTM kinds ``mlstm`` and ``slstm``, whisper's ``enc`` (a dense layer
 with unmasked self-attention) and ``decx`` (causal self-attention,
-cross-attention over the encoder output, then the FFN); ``pair``
-(llama4's grouped dense/MoE unit) is not yet.
+cross-attention over the encoder output, then the FFN), and llama4's
+``pair``: one unit of a dense layer ``"a"`` then a MoE layer ``"b"``,
+whose cache is the dict {"a": (k, v), "b": (k, v)} (the reference's key
+order, so its leaves flatten alike).  The plan never splits a unit, so an
+exit inside one is dropped.
 """
 from __future__ import annotations
 
@@ -98,8 +101,8 @@ def build_plan(cfg) -> List[Tuple]:
 # Init
 # ---------------------------------------------------------------------------
 
-PORTED_KINDS = frozenset({"dense", "moe", "mamba", "mlstm", "slstm", "decx",
-                          "enc"})
+PORTED_KINDS = frozenset({"dense", "moe", "pair", "mamba", "mlstm", "slstm",
+                          "decx", "enc"})
 
 
 def _require_ported(kind: str):
@@ -124,6 +127,10 @@ def _init_moe_layer(cfg):
         "ln2": init_norm(cfg.norm, cfg.d_model),
         "moe": ffn_mod.init_moe(cfg),
     }
+
+
+def _init_pair_unit(cfg):
+    return {"a": _init_dense_layer(cfg), "b": _init_moe_layer(cfg)}
 
 
 def _init_mamba_layer(cfg):
@@ -153,9 +160,9 @@ def _init_decx_layer(cfg):
 
 
 _INIT = {"dense": _init_dense_layer, "moe": _init_moe_layer,
-         "mamba": _init_mamba_layer, "mlstm": _init_mlstm_layer,
-         "slstm": _init_slstm_layer, "decx": _init_decx_layer,
-         "enc": _init_dense_layer}
+         "pair": _init_pair_unit, "mamba": _init_mamba_layer,
+         "mlstm": _init_mlstm_layer, "slstm": _init_slstm_layer,
+         "decx": _init_decx_layer, "enc": _init_dense_layer}
 
 # the state kinds' full-sequence functions, by kind
 _STATE_FWD = {"mamba": ssm_mod.mamba2_forward,
@@ -224,8 +231,12 @@ def _ffn_residual(cfg, kind: str, lp, x):
 
 def forward_layer(cfg, kind: str, lp, x, positions, window, enc_out=None):
     """One layer over the full sequence (the reference's ``_dense_fwd`` /
-    ``_moe_fwd`` / ``_mamba_fwd`` / ``_mlstm_fwd`` / ``_slstm_fwd`` /
-    ``_enc_fwd`` and ``_make_decx_fwd(enc_out)``).  Returns (x, aux)."""
+    ``_moe_fwd`` / ``_pair_fwd`` / ``_mamba_fwd`` / ``_mlstm_fwd`` /
+    ``_slstm_fwd`` / ``_enc_fwd`` and ``_make_decx_fwd(enc_out)``).
+    Returns (x, aux); a pair unit's aux is its MoE layer's."""
+    if kind == "pair":
+        x, _ = forward_layer(cfg, "dense", lp["a"], x, positions, window)
+        return forward_layer(cfg, "moe", lp["b"], x, positions, window)
     if kind in _STATE_FWD:
         h = apply_norm(cfg.norm, x, lp["ln"])
         y, _ = _STATE_FWD[kind](cfg, lp[kind], h)
@@ -304,8 +315,12 @@ def init_layer_cache(cfg, kind: str, batch: int, cache_len: int,
     mlstm layer's (C [B, H, P, P], n [B, H, P]) and an slstm layer's
     (c, n, h, m) [B, H, P], all fp32; a decx layer's {"cross": (k, v)
     [B, Tenc, Nkv, H], "self": (k, v) [B, S, Nkv, H]} bf16 (the keys in
-    the reference tree's sorted order, so leaves flatten alike)."""
+    the reference tree's sorted order, so leaves flatten alike); a pair
+    unit's {"a": (k, v), "b": (k, v)}, its dense and MoE layers'."""
     _require_ported(kind)
+    if kind == "pair":
+        return {"a": init_layer_cache(cfg, "dense", batch, cache_len, device),
+                "b": init_layer_cache(cfg, "moe", batch, cache_len, device)}
     if kind == "decx":
         def kv(length):
             return tuple(torch.zeros(sh, dtype=torch.bfloat16, device=device)
@@ -325,10 +340,17 @@ def init_layer_cache_paged(cfg, kind: str, batch: int, n_pages: int,
                            page_size: int, device="cpu"):
     """Paged decode cache for ONE layer: global bf16 pools [n_pages, P,
     ...] of the same leaves, indexed through the slot block table; state
-    kinds keep their per-slot rows unchanged.  ``decx`` has none."""
+    kinds keep their per-slot rows unchanged; a pair unit holds one set
+    of pools for each of its layers, {"a": ..., "b": ...}.  ``decx`` has
+    none."""
     _require_ported(kind)
     if kind == "decx":
         raise ValueError("kind 'decx' has no paged decode cache")
+    if kind == "pair":
+        return {"a": init_layer_cache_paged(cfg, "dense", batch, n_pages,
+                                            page_size, device),
+                "b": init_layer_cache_paged(cfg, "moe", batch, n_pages,
+                                            page_size, device)}
     if kind not in PAGED_KINDS:
         return init_layer_cache(cfg, kind, batch, 0, device)
     return tuple(torch.zeros(sh, dtype=torch.bfloat16, device=device)
@@ -371,8 +393,16 @@ def decode_layer(cfg, kind: str, lp, x, cache, position, window,
     per slot in both arenas: every leaf stores under ``paged.write_mask``
     or ``write_mask`` (the reference merges them row-wise on the same
     mask).  A ``decx`` layer writes its self-attention row under
-    ``write_mask`` and reads its cross rows, which admission primed."""
+    ``write_mask`` and reads its cross rows, which admission primed.  A
+    ``pair`` unit decodes its dense layer, then its MoE layer, each with
+    its own half of the cache."""
     _require_ported(kind)
+    if kind == "pair":
+        x, _, _ = decode_layer(cfg, "dense", lp["a"], x, cache["a"],
+                               position, window, paged, write_mask)
+        x, _, aux = decode_layer(cfg, "moe", lp["b"], x, cache["b"],
+                                 position, window, paged, write_mask)
+        return x, cache, aux
     if kind == "decx":
         if paged is not None:
             raise ValueError("kind 'decx' has no paged decode")

@@ -5,7 +5,23 @@ route every token to its top-k experts, give each expert ``capacity``
 rows, drop the assignments past it (in the row-major order of the (token,
 k) assignments), run every expert over its rows as one batched product,
 and combine the expert outputs weighted by the gates.  The expert-parallel
-form across devices and the W8A8 expert weights are not ported yet.
+form across devices is not ported.
+
+Serving-time W8A8 experts (the reference's ``quantize_model_moe``): the
+expert weights are stored int8 with one fp32 scale per (expert, output
+column), and each product quantizes its dispatched rows per row, so the
+expert GEMMs run s8 x s8 -> s32 (``kernels.ops.w8a8_expert_matmul``, a
+hand-written kernel on the card) and read half the bytes of bf16.  A MoE
+params dict holds either form, told apart by its keys, and ``moe_ffn``
+takes both.
+
+The two quantizers divide by 127 in the two forms the reference takes:
+``_quant_rows`` runs inside the reference's jitted decode step and
+forward, where XLA turns ``amax / 127`` into ``amax * fl(1/127)``, so the
+port multiplies by ``ref.INV127``; ``quantize_expert_weights`` runs eagerly
+(``quantize_model_moe`` is called outside any jit), so the port divides.
+``tests/test_torch_w8a8.py`` holds each against the reference, eager and
+under ``jax.jit``, bit for bit.
 """
 from __future__ import annotations
 
@@ -15,6 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import INV127
 from repro_torch.models.common import activation, scaled_init
 
 
@@ -100,16 +118,94 @@ def _slots(idx, e0: int, e_loc: int, capacity: int):
     return slot, kept
 
 
+# ---------------------------------------------------------------------------
+# W8A8 experts
+# ---------------------------------------------------------------------------
+
+_EXPERT_KEYS = ("wg", "wu", "wd")
+
+
+def _quantize_weight(w):
+    """One expert weight leaf [..., E, in, out] -> (int8 of its shape, fp32
+    scales [..., E, 1, out]), the reference's eager ``quantize_expert_weights``
+    formula: s = max(amax_in(|w|) / 127, 1e-8), q = clip(round(w / s),
+    +-127).  Made one expert at a time, so the fp32 transient is one
+    [in, out] matrix (168 MB at llama4's widths, not the whole leaf's
+    21.5 GB).  The divisor 127 is a tensor on w's device: PyTorch's CUDA
+    division by a host scalar multiplies by its reciprocal instead."""
+    lead, nout = w.shape[:-2], w.shape[-1]
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty((*lead, 1, nout), dtype=torch.float32, device=w.device)
+    c127 = torch.tensor(127.0, dtype=torch.float32, device=w.device)
+    wf, qf, sf = (t.reshape(-1, *t.shape[-2:]) for t in (w, q, s))
+    for i in range(wf.shape[0]):
+        we = wf[i].float()
+        se = torch.clamp(we.abs().amax(dim=0, keepdim=True) / c127, min=1e-8)
+        qf[i].copy_(torch.clamp(torch.round(we / se), -127.0, 127.0))
+        sf[i].copy_(se)
+    return q, s
+
+
+def quantize_expert_weights(moe_params):
+    """bf16 expert weights -> int8 + scales: keys wg/wu/wd -> *_q (int8,
+    the weight's shape) and *_s (fp32 [..., E, 1, out]); every other key
+    as it is.  Returns a new dict; ``moe_params`` is left alone."""
+    out = {k: v for k, v in moe_params.items() if k not in _EXPERT_KEYS}
+    for k in _EXPERT_KEYS:
+        out[k + "_q"], out[k + "_s"] = _quantize_weight(moe_params[k])
+    return out
+
+
+def quantize_model_moe(params):
+    """Every MoE expert set of a model params tree (a dict holding "wg"
+    next to a "router") in its W8A8 form; the rest untouched.  IN PLACE,
+    unlike the reference's tree map: each bf16 leaf leaves its dict as
+    soon as its int8 form exists, so it is freed once nothing else holds
+    it (a full-width llama4 tree carries 64.4 GB of bf16 experts and
+    would not fit twice on one card).  Returns ``params``."""
+    if isinstance(params, dict):
+        if "wg" in params and "router" in params:
+            for k in _EXPERT_KEYS:
+                params[k + "_q"], params[k + "_s"] = _quantize_weight(
+                    params.pop(k))
+        for v in params.values():
+            quantize_model_moe(v)
+    elif isinstance(params, (list, tuple)):
+        for v in params:
+            quantize_model_moe(v)
+    return params
+
+
+def _quant_rows(x):
+    """Per-row symmetric int8: x [T, D] -> (q int8, scale fp32 [T, 1]),
+    scale = max(amax * fl(1/127), 1e-8) (the jitted reference's form),
+    q = clip(round_half_even(x / scale), +-127)."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) * INV127, min=1e-8)
+    q = torch.clamp(torch.round(xf / s), -127.0, 127.0).to(torch.int8)
+    return q, s
+
+
+def _q_expert_matmul(ebuf, wq, ws):
+    """W8A8 grouped matmul: ebuf [E, C, d] float, wq [E, d, f] int8, ws
+    [E, 1, f] fp32 -> fp32 [E, C, f] = float(s32 sum) * a_scale * w_scale.
+    Every capacity row is computed, empty or not, as the reference does."""
+    e, c, d = ebuf.shape
+    aq, as_ = _quant_rows(ebuf.reshape(e * c, d))
+    return kops.w8a8_expert_matmul(aq.reshape(e, c, d),
+                                   as_.reshape(e, c, 1), wq, ws)
+
+
 def _dispatch_compute_combine(x2d, gates, idx, weights, e0: int,
                               capacity: int, act: str):
-    """Local-expert scatter -> batched expert FFN -> gather-combine (the
-    reference's bf16 branch).  x2d [T,d]; gates/idx [T,k]; ``weights``
-    holds E_loc experts {"wg","wu","wd"}; e0 = first local expert id.
-    Returns this shard's output [T,d] in x2d's dtype."""
+    """Local-expert scatter -> batched expert FFN -> gather-combine.
+    x2d [T,d]; gates/idx [T,k]; ``weights`` holds E_loc experts as either
+    {"wg","wu","wd"} bf16 or the W8A8 form {"wg_q","wg_s",...}; e0 = first
+    local expert id.  Returns this shard's output [T,d] in x2d's dtype."""
     t, d = x2d.shape
     k = idx.shape[1]
-    wg, wu, wd = weights["wg"], weights["wu"], weights["wd"]
-    e_loc = wg.shape[0]
+    quant = "wg_q" in weights
+    e_loc = weights["wg_q" if quant else "wg"].shape[0]
     fn = activation(act)
     slot, _ = _slots(idx, e0, e_loc, capacity)
     # each kept row receives exactly one token; only the trash row sums
@@ -118,9 +214,16 @@ def _dispatch_compute_combine(x2d, gates, idx, weights, e0: int,
     for j in range(k):
         buf.index_add_(0, slot[:, j], x2d)
     ebuf = buf[:e_loc * capacity].reshape(e_loc, capacity, d)
-    h = fn(torch.bmm(ebuf, wg.to(ebuf.dtype)))
-    h = h * torch.bmm(ebuf, wu.to(ebuf.dtype))
-    out = torch.bmm(h, wd.to(ebuf.dtype))
+    if quant:                             # h stays fp32 between products
+        h = fn(_q_expert_matmul(ebuf, weights["wg_q"], weights["wg_s"]))
+        h = h * _q_expert_matmul(ebuf, weights["wu_q"], weights["wu_s"])
+        out = _q_expert_matmul(h, weights["wd_q"],
+                               weights["wd_s"]).to(x2d.dtype)
+    else:
+        wg, wu, wd = weights["wg"], weights["wu"], weights["wd"]
+        h = fn(torch.bmm(ebuf, wg.to(ebuf.dtype)))
+        h = h * torch.bmm(ebuf, wu.to(ebuf.dtype))
+        out = torch.bmm(h, wd.to(ebuf.dtype))
     flat = torch.cat([out.reshape(e_loc * capacity, d),
                       torch.zeros((1, d), dtype=out.dtype,
                                   device=out.device)])
@@ -157,6 +260,7 @@ def moe_ffn_reference(params, x, cfg,
 
 def moe_ffn(params, x, cfg):
     """The MoE layer on one device, as the reference runs it without a
-    mesh (``ShardCtx(None)``, what serving builds): the reference oracle.
+    mesh (``ShardCtx(None)``, what serving builds): the reference oracle,
+    bf16 or W8A8 experts by the keys of ``params``.
     x [B,S,D] -> (y [B,S,D], aux_loss scalar)."""
     return moe_ffn_reference(params, x, cfg)

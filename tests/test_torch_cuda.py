@@ -17,7 +17,9 @@ P would miss 1e-3 at full width, see tests/test_torch_paged_plan.py):
 1e-3, against outputs that are convex combinations of latents |c| < 5;
 the entropy is fp32 summed in another order (1e-4 at small D,
 1e-3 at D >= 2048).  The int8 kernels are held bit for bit: one IEEE division and
-one rounding per element, and a max that no order changes.
+one rounding per element, and a max that no order changes.  So is the
+W8A8 expert GEMM: its int32 sum is exact in any order, and its two scale
+products are the plain version's, rounded once each.
 """
 import math
 
@@ -441,16 +443,19 @@ def test_smoke_forward_card_matches_cpu(cuda, long_mode):
 
 
 def _smoke_pool(dev, async_decode, slots=4, max_new=9, R=4, paged=True,
-                arch="granite-3-2b-smoke"):
+                arch="granite-3-2b-smoke", w8a8=False):
     """A smoke-width paged monolithic pool on the card (granite-3-2b by
-    default), six requests through four slots (two re-admissions)."""
+    default), six requests through four slots (two re-admissions);
+    ``w8a8`` quantizes the MoE experts."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.models import Model
+    from repro_torch.models import Model, ffn
     from repro_torch.serving import (ContinuousBatchScheduler, Request,
                                      SchedulerConfig)
     model = Model(get_config(arch), device=dev)
     params = model.init(0)
+    if w8a8:
+        ffn.quantize_model_moe(params)
     max_len = 16 + max_new
     max_len += (-max_len) % 16
     sched = ContinuousBatchScheduler(model, params, SchedulerConfig(
@@ -523,6 +528,106 @@ def test_xlstm_window_graph_matches_eager_sync(cuda, paged):
     assert [r.out_tokens for r in r_win] == [r.out_tokens for r in r_sync]
     assert s_win.jit_cache_sizes() == {"decode_window": 1}
     assert not any(s_win._window.per_replay.values())
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["bf16", "w8a8"])
+def test_llama4_window_graph_matches_eager_sync(cuda, w8a8):
+    """llama4-maverick-smoke (one pair unit) through the window's CUDA
+    graph against the eager sync monolithic step, bf16 and W8A8 experts:
+    the same greedy tokens, one capture, and in every replay the paged
+    kernel for both layers of the unit and (W8A8) the expert GEMM for its
+    three products, with ``_quant_rows`` inside the graph."""
+    arch = "llama4-maverick-400b-a17b-smoke"
+    s_sync, r_sync = _smoke_pool(cuda, False, arch=arch, w8a8=w8a8)
+    s_sync.run()
+    s_win, r_win = _smoke_pool(cuda, True, arch=arch, w8a8=w8a8)
+    s_win.run()
+    torch.cuda.synchronize()
+    assert [r.out_tokens for r in r_win] == [r.out_tokens for r in r_sync]
+    assert s_win.jit_cache_sizes() == {"decode_window": 1}
+    per = s_win._window.per_replay
+    assert per["paged_gqa_attention"] == 2
+    assert per["w8a8_expert_matmul"] == (3 if w8a8 else 0)
+
+
+def _w8a8_inputs(dev, e, c, k, n, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    aq = torch.randint(-127, 128, (e, c, k), generator=g, device=dev,
+                       dtype=torch.int16).to(torch.int8)
+    wq = torch.randint(-127, 128, (e, k, n), generator=g, device=dev,
+                       dtype=torch.int16).to(torch.int8)
+    aq[0, 0] = 127                  # the largest |sum| the kernel meets
+    wq[0, :, :4] = 127
+    a_s = torch.rand(e, c, 1, generator=g, device=dev) * 0.05 + 1e-4
+    w_s = torch.rand(e, 1, n, generator=g, device=dev) * 0.05 + 1e-4
+    return aq, a_s, wq, w_s
+
+
+@pytest.mark.parametrize("e,c,k,n", [
+    (8, 4, 5120, 8192),      # llama4-maverick's gate/up at decode (C 4)
+    (8, 40, 8192, 5120),     # its down product at a 2 x 2048 forward
+    (4, 4, 256, 128),        # llama4-smoke
+    (3, 5, 64, 300),         # ragged C, N no multiple of the 128 tile
+    (2, 13, 272, 388),       # two row groups, the second ragged
+    (1, 1, 16, 4)])          # one row, one step, one lane's columns
+def test_w8a8_kernel_matches_plain_bitwise(cuda, e, c, k, n):
+    args = _w8a8_inputs(cuda, e, c, k, n, seed=e + c + k + n)
+    n0 = ops.LAUNCHES["w8a8_expert_matmul"]
+    got = ops.w8a8_expert_matmul(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["w8a8_expert_matmul"] == n0 + 1
+    want = ref.w8a8_expert_matmul_ref(*args)
+    assert got.dtype == torch.float32 and got.shape == (e, c, n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the card's plain version (fp64 sums) against the CPU's int32 bmm
+    host = ref.w8a8_expert_matmul_ref(*(t.cpu() for t in args))
+    assert torch.equal(want.cpu().view(torch.int32), host.view(torch.int32))
+
+
+def test_w8a8_wrapper_raises_instead_of_falling_back(cuda):
+    aq, a_s, wq, w_s = _w8a8_inputs(cuda, 2, 4, 64, 128)
+    with pytest.raises(ValueError, match="no instance"):
+        ops.w8a8_expert_matmul(aq[:, :, :40].contiguous(), a_s,
+                               wq[:, :40].contiguous(), w_s)
+    with pytest.raises(ValueError, match="no instance"):
+        ops.w8a8_expert_matmul(aq, a_s, wq[:, :, :6].contiguous(),
+                               w_s[:, :, :6].contiguous())
+    with pytest.raises(ValueError, match="int8"):
+        ops.w8a8_expert_matmul(aq.float(), a_s, wq, w_s)
+    with pytest.raises(ValueError, match="devices"):
+        ops.w8a8_expert_matmul(aq, a_s, wq.cpu(), w_s)
+
+
+def test_w8a8_moe_layer_card_matches_cpu(cuda):
+    """A llama4-smoke MoE layer with W8A8 experts on the card against the
+    CPU on the same weights and input: the quantized weights bit for bit
+    (one IEEE division per element on both), the output within 2e-2
+    (cuBLAS and the CPU round the shared expert's bf16 products
+    differently)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn
+    from repro_torch.models.common import materialize
+    cfg = get_config("llama4-maverick-400b-a17b-smoke")
+    p = materialize(torch.Generator().manual_seed(0), ffn.init_moe(cfg),
+                    "cpu")
+    pq = ffn.quantize_expert_weights(p)
+    pq_card = ffn.quantize_expert_weights(
+        {k: (v.cuda() if isinstance(v, torch.Tensor) else
+             {kk: vv.cuda() for kk, vv in v.items()}) for k, v in p.items()})
+    for key in ("wg_q", "wg_s", "wu_q", "wu_s", "wd_q", "wd_s"):
+        a, b = pq[key], pq_card[key].cpu()
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32
+                           else a, b.view(torch.int32)
+                           if b.dtype == torch.float32 else b), key
+    x = (0.5 * torch.randn(2, 16, cfg.d_model,
+                           generator=torch.Generator().manual_seed(1))
+         ).bfloat16()
+    n0 = ops.LAUNCHES["w8a8_expert_matmul"]
+    y_card, _ = ffn.moe_ffn(pq_card, x.cuda(), cfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["w8a8_expert_matmul"] == n0 + 3
+    y_cpu, _ = ffn.moe_ffn(pq, x, cfg)
+    assert (y_card.cpu().float() - y_cpu.float()).abs().max().item() <= 2e-2
 
 
 def test_whisper_window_graph_reads_readmitted_cross_rows(cuda):

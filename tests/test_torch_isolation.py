@@ -27,7 +27,9 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.serving.traces", "repro_torch.models.ssm",
         "repro_torch.configs.zamba2_1p2b", "repro_torch.models.xlstm",
         "repro_torch.configs.xlstm_350m", "repro_torch.configs.qwen2_vl_2b",
-        "repro_torch.configs.whisper_base"}}
+        "repro_torch.configs.whisper_base",
+        "repro_torch.kernels.w8a8_expert",
+        "repro_torch.configs.llama4_maverick_400b"}}
 assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
