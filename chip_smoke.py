@@ -38,12 +38,12 @@ Phases, each fatal on failure:
      paged KV arena and depth-segmented decode; both kernels' launch counts
      must go up, and each kernel is held against its plain version again on
      inputs captured from that run;
-  4b. async decode windows at full width: granite-3-2b, paged, 16 slots,
-     monolithic steps.  (a) A closed loop of 16 requests (prompts 16-64
+  4b. async decode windows at full width: granite-3-2b cut in depth to
+     16 layers, paged, 16 slots, monolithic steps.  (a) A closed loop of 16 requests (prompts 16-64
      tokens, max_new 64) through the eager sync poll, then through windows
      of 8 steps (one CUDA graph of one step, captured once, replayed 8
      times a window): tokens bit-identical (a top-2 tie under 1e-2 is the
-     only excuse), one capture, and 40 paged-attention launches per decode
+     only excuse), one capture, and 16 paged-attention launches per decode
      step the card ran in each; (b) the same loop again with every decode
      poll under ``torch.cuda.set_sync_debug_mode("error")`` (the ring wait
      is an event wait); (c) sampled decode at T 0.7: two runs from the
@@ -78,7 +78,8 @@ Phases, each fatal on failure:
      against the decode replay of ``Model.prefill`` on 2 x 128 tokens,
      measured on an fp32 forward; the plain-attention forward must pass
      that check and a planted fault (P in fp8 before P V) must fail it;
-  8. multi-model pools and speculative pairs at full width: (a) one
+  8. multi-model pools and speculative pairs at full width, each model
+     cut in depth to 8 layers: (a) one
      ``MultiModelScheduler`` serving granite-3-2b, yi-6b and
      mistral-nemo-12b (seeds 0, 1, 2) through ``serve_multi_poisson``, 6
      Poisson requests round-robin, paged and segmented, 8 slots a model;
@@ -90,9 +91,9 @@ Phases, each fatal on failure:
      tiered cluster over a ``ModelGroup`` with ``spec_draft``, where every
      request must route speculative, match target-only greedy, and feed
      its measured acceptance (at least 4 at k 6) back to the router;
-  9. the hybrid family and the engine at full width: zamba2-1.2b (38
-     Mamba2 layers, one shared attention block at 6 sites, random seeded
-     weights).  (a) ``serve_poisson``, paged and segmented, 16 slots, 24
+  9. the hybrid family and the engine at full width: zamba2-1.2b cut in
+     depth to 14 Mamba2 layers (of 38), one shared attention block at 2
+     sites (of 6), random seeded weights.  (a) ``serve_poisson``, paged and segmented, 16 slots, 24
      requests at 8 req/s, prompts 32-128 (a quarter sharing a prefix that
      must never hit: the arena has no prefix cache), 16 new: the paged-GQA
      (G 1) and exit-head (V 32,000) counts must rise and each kernel is
@@ -101,14 +102,14 @@ Phases, each fatal on failure:
      loop of 24 requests on 8 slots (slots reused, state rows reset; rows
      finishing mid-window), sync monolithic then windows of 8: tokens
      equal (a top-2 tie under 1e-2 the only excuse), one capture.  (c) one
-     ``Model.forward`` over 2 x 2048 tokens (6 flash launches) and its
+     ``Model.forward`` over 2 x 2048 tokens (2 flash launches) and its
      argmax against the decode replay on 2 x 256.  (d) ``ServingEngine``:
      ``generate`` on 8 x 64 prompts equal to the scheduler bit for bit,
      the tiered engine equal to the single pool, and an adaptive async
      engine whose threshold moves up with one capture;
- 10. the xLSTM family at full width: xlstm-350m (20 mLSTM and 4 sLSTM
-     layers, random seeded weights; 80 MiB of fp32 state rows a slot and
-     no pool at all).  (a) ``serve_poisson``, paged and segmented, 16
+ 10. the xLSTM family at full width: xlstm-350m cut in depth to 12
+     layers (10 mLSTM and 2 sLSTM, of 20 and 4), random seeded weights;
+     fp32 state rows a slot and no pool at all.  (a) ``serve_poisson``, paged and segmented, 16
      slots, 16 requests at 8 req/s, prompts 24-96 (a quarter sharing a
      prefix that must never hit), 16 new: both exit probes (V 50,304)
      launch and each is held against its plain version on a live input;
@@ -124,9 +125,9 @@ Phases, each fatal on failure:
      raw (the stream continues bit for bit) and int8 (every leaf and scale
      equal to the plain quantizer's on the live leaf, dequantized bit for
      bit, the stream complete).
- 11. M-RoPE and vision-patch inputs at full width: qwen2-vl-2b (28
-     layers, d_model 1536, 12 / 2 heads of 128, vocab 151,936, random
-     seeded weights, nothing cut).  (a) ``serve_poisson``, paged and
+ 11. M-RoPE and vision-patch inputs at full width: qwen2-vl-2b (cut in
+     depth to 10 layers of 28; d_model 1536, 12 / 2 heads of 128, vocab
+     151,936, random seeded weights).  (a) ``serve_poisson``, paged and
      segmented, 16 slots, 12 requests at 8 req/s, prompts 24-96 (a quarter
      sharing a prefix), 12 new: paged GQA at G 6 and both exit probes
      (V 151,936) launch and each is held against its plain version on a
@@ -178,6 +179,32 @@ Phases, each fatal on failure:
      versions, every logit finite.  (e) a live pair slot migrated between
      16-slot paged arenas, raw (bit for bit) and int8 (every leaf and
      scale equal to the plain quantizer's).
+ 14. training with the flash backward kernel (csrc/flash_attention_bwd.cu,
+     which replaces no Pallas kernel: the reference differentiates its jnp
+     ``_sdpa``).  (a) the backward kernel against its plain version at
+     granite-3-2b's training shape (q [4, 1024, 32, 64], 8 kv heads,
+     causal), the same with window 256, whisper-base's unmasked cross
+     shape (q [16, 448, 8, 64] against [16, 1500, 8, 64]) and qwen2-vl-2b's
+     head dim 128 ([2, 2048, 12, 128], 2 kv heads): dq, dk and dv within
+     2e-2 of max(1, |plain|), a planted control (the kernel given a zero
+     o, so D = 0 and dS = P o dP) failing that,
+     and each timed three times interleaved with SDPA's backward.  (b)
+     granite-3-2b at full width (40 layers, random seeded weights) through
+     ``launch.train.train``: 5 AdamW steps of 4 x 1024 tokens with the
+     BranchyNet joint loss; finite losses and grad norms, 40 forward and
+     40 backward flash launches a step, no plain attention; a step timed
+     by CUDA events and under ``torch.profiler``, the vocab heads and the
+     optimizer timed apart.  (c) a 4-layer cut at full width on
+     2 x 2048: every leaf's gradient through the kernels within 5e-2
+     relative L2 of the same step's through plain attention (a pass that
+     launches no flash kernel), and the planted control (4 backward
+     launches) failing that.  (d)
+     ``examples/torch/train_100m.py``: 200 steps of 8 x 256, the loss
+     below 0.8x its first, the final checkpoint restored bit for bit, and
+     a run resumed from the step-100 checkpoint within 1e-3 of the
+     uninterrupted losses.  (e) ``quickstart.py``,
+     ``resilient_inference.py`` (its assertion holds) and
+     ``collaborative_serving.py`` on the card, with their launch counts.
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
@@ -258,6 +285,17 @@ REPLAY_ACC = 1.25  # a forward's mean deviation from the fp32 forward may
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def depth_cut(cfg, layers, exits, **kw):
+    """``cfg`` at its published widths, cut in depth to ``layers`` layers
+    with exit heads after ``exits`` (and any other field in ``kw``), named
+    ``<name>-<layers>l``.  The serving phases after the main path run such
+    cuts: their host time grows with every layer, and what they check
+    (pools, windows, handoffs, routing) does not depend on depth."""
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}-{layers}l", num_layers=layers,
+        exits=dataclasses.replace(cfg.exits, exit_layers=exits), **kw)
 
 
 def device_ms(torch, fn, args_list, iters=20):
@@ -477,6 +515,7 @@ def main(argv=None):
     ap.add_argument("--json", default="",
                     help="also write the results to this file")
     args = ap.parse_args(argv)
+    t_script = time.time()
 
     import torch
     import torch.nn.functional as F
@@ -516,6 +555,15 @@ def main(argv=None):
                 print(f"  ptxas[{kname}] {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
+    walls = {}
+    t_lap = [t_script]
+
+    def lap(phase):
+        now = time.time()
+        walls[phase] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"phase {phase} wall time {walls[phase]:.1f}s")
+    lap("1")
 
     # ---- phase 2: kernels vs plain at main-path shapes ----------------
     # paged GQA: 16 slots, 32/8 heads of 64, pages of 16, pos up to 2047
@@ -751,6 +799,8 @@ def main(argv=None):
     # ... and each kernel at the shapes of the dense configs phase 8 serves
     slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask)
 
+    lap("2")
+
     # ---- phase 3: small-input references, card vs CPU -----------------
     check_smoke_vs_cpu(torch, "granite-3-2b-smoke")
     check_smoke_vs_cpu(torch, "deepseek-v3-671b-smoke")
@@ -768,6 +818,8 @@ def main(argv=None):
     check_forward_vs_cpu(torch, "whisper-base-smoke", long_mode=False)
     check_forward_vs_cpu(torch, "llama4-maverick-400b-a17b-smoke",
                          long_mode=False, w8a8=True)
+
+    lap("3")
 
     # ---- phase 4: the main path at full width -------------------------
     captured = {}
@@ -856,26 +908,32 @@ def main(argv=None):
     results["paged_gqa_attention"]["live"] = live
     print(f"  live paged_gqa_attention timing: {json.dumps(live)}")
 
+    lap("4")
+
     # ---- phase 4b: async decode windows at full width ----------------
     del captured, a
     gc.collect()
     torch.cuda.empty_cache()
     windows = run_async(torch, ops)
+    lap("4b")
 
     # ---- phase 5: the tiered path at full width ----------------------
     gc.collect()
     torch.cuda.empty_cache()
     tiered, tier_launches = run_tiered(torch, ops, ref, results)
+    lap("5")
 
     # ---- phase 6: deepseek-v3 at full width, 4 layers ---------------
     gc.collect()
     torch.cuda.empty_cache()
     ds, ds_launches = run_deepseek(torch, ops, ref, results, exit_ds)
+    lap("6")
 
     # ---- phase 7: the full-sequence forward at full width ------------
     gc.collect()
     torch.cuda.empty_cache()
     fwd, fwd_launches = run_forward(torch, ops)
+    lap("7")
 
     # ---- phase 8: multi-model pools and speculative pairs -------------
     gc.collect()
@@ -907,6 +965,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     l4, l4_launches = run_llama4(torch, ops, ref, results)
 
+    # ---- phase 14: training with the flash backward kernel ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr, tr_launches = run_training(torch, F, ops, ref, results)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -926,6 +989,10 @@ def main(argv=None):
         # no Pallas kernel: the reference's int8 dot_general (XLA)
         "w8a8_expert_matmul": ("src/repro_torch/kernels/csrc/w8a8_expert.cu",
                                "src/repro/models/ffn.py:164"),
+        # no Pallas kernel: the reference differentiates its jnp _sdpa
+        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
+                                "flash_attention_bwd.cu",
+                                "src/repro/models/attention.py:79"),
     }
     # launches: each kernel's count on the path that carries it (phase 4
     # for GQA attention and the exit probe, phase 5's int8 run for the
@@ -940,6 +1007,8 @@ def main(argv=None):
     path_launches["flash_attention"] = fwd_launches["flash_attention"]
     path_launches["w8a8_expert_matmul"] = \
         l4_launches["serve"]["w8a8_expert_matmul"]
+    path_launches["flash_attention_bwd"] = \
+        tr_launches["train"]["flash_attention_bwd"]
     exit_ds["launches"] = ds_launches["exit_head_entropy"]
     kernels = []
     for kname, r in results.items():
@@ -971,18 +1040,26 @@ def main(argv=None):
             part: n[kname] for part, n in wh_launches.items()}
         kernels[-1]["phase13_launches"] = {
             part: n[kname] for part, n in l4_launches.items()}
-        if kname == "w8a8_expert_matmul":
+        kernels[-1]["phase14_launches"] = {
+            part: n[kname] for part, n in tr_launches.items()}
+        if kname in ("w8a8_expert_matmul", "flash_attention_bwd"):
             kernels[-1]["pallas_counterpart"] = None
+        if kname == "flash_attention_bwd":
+            kernels[-1]["other_shapes"] = r["other_shapes"]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card_line, "kernels": kernels,
+                       "script_s": time.time() - t_script,
+                       "phase_wall_s": walls,
                        "serve": stats, "async_decode": windows,
                        "tiered": tiered, "deepseek": ds, "forward": fwd,
                        "multi": multi, "zamba2": z2, "xlstm": xl,
-                       "qwen2_vl": qv, "whisper": wh, "llama4": l4},
+                       "qwen2_vl": qv, "whisper": wh, "llama4": l4,
+                       "training": tr},
                       f, indent=1)
+    print(f"chip_smoke: every phase passed in {time.time() - t_script:.1f}s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1209,6 +1286,7 @@ def flash_shapes(torch, F, ops, ref, gen, results, make_mask):
 ASYNC_R = 8            # decode steps a window (phase 4b)
 ASYNC_SLOTS = 16
 ASYNC_MAX_NEW = 64     # closed loop; the Poisson run takes 64 too
+ASYNC_LAYERS = 16      # phase 4b's depth cut (exits after 5 and 10)
 
 
 def tie_gap(torch, model, params, prompt, got, want, frames=None):
@@ -1280,7 +1358,7 @@ def run_async(torch, ops):
     from repro_torch.models import Model
     from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
                                                SchedulerConfig)
-    cfg = get_config("granite-3-2b")
+    cfg = depth_cut(get_config("granite-3-2b"), ASYNC_LAYERS, (5, 10))
     model = Model(cfg, device="cuda")
     params = model.init(0)
     layers = cfg.num_layers
@@ -1296,7 +1374,8 @@ def run_async(torch, ops):
             async_decode=async_decode, readback_interval=ASYNC_R, **kw),
             device="cuda")
 
-    print(f"async decode: granite-3-2b, 40 layers, random weights (seed "
+    print(f"async decode: granite-3-2b at full width, cut to {layers} "
+          f"layers, random weights (seed "
           f"0), paged, {ASYNC_SLOTS} slots, monolithic steps, windows of "
           f"{ASYNC_R}; closed loop of {len(prompts)} requests, prompts "
           f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
@@ -1307,7 +1386,7 @@ def run_async(torch, ops):
         want = layers * steps
         got = launches["paged_gqa_attention"]
         print(f"  {label}: {steps} decode steps on the card, paged_gqa "
-              f"launches {got} (40 x steps = {want})")
+              f"launches {got} ({layers} x steps = {want})")
         if got != want:
             fail(f"{label}: {got} paged-attention launches, expected {want}")
 
@@ -1394,7 +1473,7 @@ def run_async(torch, ops):
     for label, kw in (("sync segmented", dict(segmented=True)),
                       ("async", dict(async_decode=True,
                                      readback_interval=ASYNC_R))):
-        st = serve_poisson("granite-3-2b", rate=16.0, n_requests=32,
+        st = serve_poisson(cfg, rate=16.0, n_requests=32,
                            slots=ASYNC_SLOTS, prompt_len=64,
                            max_new=ASYNC_MAX_NEW,
                            threshold=0.5, paged=True, seed=0, params=params,
@@ -1422,7 +1501,7 @@ def run_async(torch, ops):
     for label, kw in (("sync segmented", dict(steps=8)),
                       ("async", dict(steps=32, async_decode=True,
                                      readback_interval=ASYNC_R))):
-        prof = profile_decode("granite-3-2b", slots=ASYNC_SLOTS,
+        prof = profile_decode(cfg, slots=ASYNC_SLOTS,
                               prompt_len=64, params=params, **kw)
         print(f"  profile {label}: host {prof['wall_ms_per_step']:.2f} ms, "
               f"device {prof['device_ms_per_step']:.3f} ms, busy "
@@ -2021,6 +2100,7 @@ def run_deepseek(torch, ops, ref, results, exit_ds):
 
 
 MULTI_ARCHS = ("granite-3-2b", "yi-6b", "mistral-nemo-12b")
+MULTI_LAYERS = 8       # phase 8's depth cut of each (exits after 3, 6)
 MULTI_TRACE = dict(rate=8.0, n_requests=6, slots=8, prompt_len=96,
                    max_new=16, threshold=0.5, prefill_chunk=16,
                    max_prefill_chunks=2, paged=True, page_size=16,
@@ -2044,7 +2124,7 @@ def run_multi(torch, ops):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import Scenario
-    from repro_torch.launch.serve import _build_group, serve_multi_poisson
+    from repro_torch.launch.serve import serve_multi_poisson
     from repro_torch.models import Model
     from repro_torch.serving import (ClusterConfig, ContinuousBatchScheduler,
                                      ModelGroup, Request, SchedulerConfig,
@@ -2058,12 +2138,21 @@ def run_multi(torch, ops):
     tr = MULTI_TRACE
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    group = _build_group(MULTI_ARCHS, tr["seed"], "cuda")
+    cuts = [depth_cut(get_config(a), MULTI_LAYERS, (3, 6))
+            for a in MULTI_ARCHS]
+    names = tuple(c.name for c in cuts)
+    entries = []
+    for i, c in enumerate(cuts):
+        m = Model(c, device="cuda")
+        entries.append((c.name, m, m.init(tr["seed"] + i)))
+    group = ModelGroup(entries)
+    del entries, m
     torch.cuda.synchronize()
     pbytes = {e.name: sum(t.numel() * t.element_size()
                           for t in tree_leaves(e.params)) for e in group}
     print(f"multi-model pool: {', '.join(MULTI_ARCHS)} at their published "
-          f"widths, random weights (seeds 0, 1, 2), params "
+          f"widths, cut to {MULTI_LAYERS} layers each, random weights "
+          f"(seeds 0, 1, 2), params "
           f"{ {k: round(v / gb, 2) for k, v in pbytes.items()} } GB, init "
           f"{time.time() - t0:.1f}s; paged (page {tr['page_size']}) + "
           f"segmented, threshold {tr['threshold']}, {tr['slots']} slots a "
@@ -2072,7 +2161,7 @@ def run_multi(torch, ops):
           f"{tr['rate']} req/s, round-robin, prompts {tr['prompt_len'] // 4}"
           f"-{tr['prompt_len']} tokens, {tr['max_new']} new tokens")
     keys = ("paged_gqa_attention", "exit_head_entropy")
-    per_model = {a: dict.fromkeys(keys, 0) for a in MULTI_ARCHS}
+    per_model = {a: dict.fromkeys(keys, 0) for a in names}
     orig_poll = ContinuousBatchScheduler.poll
 
     def attributed(self, *a, **kw):
@@ -2085,7 +2174,7 @@ def run_multi(torch, ops):
     ops.reset_launches()
     t0 = time.time()
     try:
-        st = serve_multi_poisson(MULTI_ARCHS, group=group, device="cuda",
+        st = serve_multi_poisson(names, group=group, device="cuda",
                                  quiet=True, **tr)
     finally:
         ContinuousBatchScheduler.poll = orig_poll
@@ -2145,7 +2234,7 @@ def run_multi(torch, ops):
 
     # (b) SpecPair at k 4: granite-3-2b drafting for itself
     sp = SPEC_TRACE
-    cfg = get_config("granite-3-2b")
+    cfg = cuts[0]
     model = Model(cfg, device="cuda")
     params = model.init(0)
     rs = np.random.RandomState(5)
@@ -2170,6 +2259,7 @@ def run_multi(torch, ops):
     want = [list(r.out_tokens) for r in reqs]
     del target_only
     print(f"speculative pair: granite-3-2b target and draft at full width, "
+          f"{cfg.num_layers} layers, "
           f"k {sp['k']}, {sp['slots']} slots, {sp['requests']} requests, "
           f"prompts {min(map(len, prompts))}-{max(map(len, prompts))} "
           f"tokens, {sp['max_new']} new tokens, paged, against the "
@@ -2229,7 +2319,8 @@ def run_multi(torch, ops):
     group = ModelGroup([("small", model, params), ("big", model, params)])
     cl = TieredServingCluster(
         group, scenario=Scenario.high_rtt_access(),
-        plan_cfg={"small": cfg, "big": get_config("deepseek-v3-671b")},
+        plan_cfg={"small": get_config("granite-3-2b"),
+                  "big": get_config("deepseek-v3-671b")},
         cfg=ClusterConfig(base_slots=8, max_len=32, prefill_chunk=16,
                           exit_threshold=0.0, paged=True, page_size=16,
                           spec_draft="small", spec_k=bt["k"]))
@@ -2261,7 +2352,8 @@ def run_multi(torch, ops):
                                           list(r.out_tokens)))
     st = cl.stats()
     sp_st = st["speculative"]
-    print(f"tiered speculative bridge: granite-3-2b drafting on the device "
+    print(f"tiered speculative bridge: granite-3-2b ({cfg.num_layers} "
+          f"layers) drafting on the device "
           f"tier for granite-3-2b on the cloud tier (planned as "
           f"granite-3-2b / deepseek-v3-671b), Scenario.high_rtt_access, k "
           f"{bt['k']}, {bt['requests']} requests: routes "
@@ -2366,6 +2458,8 @@ Z2_TRACE = dict(rate=8.0, n_requests=24, slots=16, prompt_len=128,
                 max_new=16, threshold=0.5, paged=True, page_size=16,
                 segmented=True, prefix_share=0.25, prefix_len=64, seed=0)
 Z2_LOOP = dict(requests=24, slots=8, readback_interval=8)
+Z2_LAYERS = 14         # phase 9's depth cut: shared attention after 6 and
+                       # 12 (2 sites), exits there too, as 12 and 24 of 38
 Z2_FWD = (2, 2048)         # phase 9 (c)'s forward; its replay readings take
 Z2_REPLAY = 128            # the first 128 tokens of each row, the SSD check
 Z2_SSD = 512               # the first 512
@@ -2505,7 +2599,7 @@ def run_zamba2(torch, ops, ref, results):
                                      SchedulerConfig, ServeConfig,
                                      ServingEngine)
     t_phase = time.time()
-    cfg = get_config("zamba2-1.2b")
+    cfg = depth_cut(get_config("zamba2-1.2b"), Z2_LAYERS, (6, 12))
     tr = Z2_TRACE
     model = Model(cfg, device="cuda")
     params = model.init(tr["seed"])
@@ -2513,7 +2607,7 @@ def run_zamba2(torch, ops, ref, results):
     slot_state = sum(t[:, 0].numel() * t.element_size() for t in tree_leaves(
         model.init_decode_cache_paged(1, 1, 16)["blocks"]))
     print(f"hybrid path: zamba2-1.2b (arXiv:2411.15242) at its published "
-          f"widths: {cfg.num_layers} Mamba2 layers, d_model {cfg.d_model}, "
+          f"widths, cut in depth: {cfg.num_layers} Mamba2 layers, d_model {cfg.d_model}, "
           f"state {cfg.ssm.state_size}, {cfg.num_heads}/{cfg.num_kv_heads} "
           f"shared-attention heads of {cfg.resolved_head_dim} at "
           f"{len(B.shared_attn_sites(cfg))} sites, vocab {cfg.vocab_size}, "
@@ -2828,6 +2922,8 @@ XL_TRACE = dict(rate=8.0, n_requests=16, slots=16, prompt_len=96,
                 max_new=16, threshold=0.5, paged=True, page_size=16,
                 segmented=True, prefix_share=0.25, prefix_len=32, seed=0)
 XL_LOOP = dict(requests=16, slots=8, readback_interval=8)
+XL_LAYERS = 12         # phase 10's depth cut: sLSTM at 5 and 11, exits
+                       # after 4 and 8 (of 24: sLSTM at 5, 11, 17, 23)
 XL_FWD = (2, 2048)         # phase 10 (c)'s forward (8 chunks of 256)
 XL_GATE = 512              # the mLSTM gate's tokens a row (two chunks)
 MLSTM_TOL = 2e-2   # of max(1, |ref|): bf16 cell outputs of the chunked
@@ -2849,7 +2945,9 @@ def run_xlstm(torch, ops, ref, results):
     from repro_torch.models import Model, xlstm
     from repro_torch.models.common import apply_norm, tree_leaves, tree_map
     t_phase = time.time()
-    cfg = get_config("xlstm-350m")
+    cfg = depth_cut(get_config("xlstm-350m"), XL_LAYERS, (4, 8))
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, slstm_layers=(5, 11)))
     tr = XL_TRACE
     model = Model(cfg, device="cuda")
     params = model.init(tr["seed"])
@@ -2860,7 +2958,7 @@ def run_xlstm(torch, ops, ref, results):
     _, d_in, heads, p = xlstm._dims(cfg)
     n_m = sum(s[2] for s in model.plan if s[0] == "scan" and s[1] == "mlstm")
     print(f"xLSTM path: xlstm-350m (arXiv:2405.04517) at its published "
-          f"widths: {cfg.num_layers} layers ({n_m} mLSTM, sLSTM at "
+          f"widths, cut in depth: {cfg.num_layers} layers ({n_m} mLSTM, sLSTM at "
           f"{cfg.ssm.slstm_layers}), d_model {cfg.d_model}, {heads} heads "
           f"of {p} (d_in {d_in}), vocab {cfg.vocab_size}, exits after "
           f"layers {cfg.exits.exit_layers}; random weights (seed 0, "
@@ -3096,6 +3194,7 @@ QV_TRACE = dict(rate=8.0, n_requests=12, slots=16, prompt_len=96,
                 max_new=12, threshold=0.5, paged=True, page_size=16,
                 segmented=True, prefix_share=0.25, prefix_len=32, seed=0)
 QV_LOOP = dict(requests=12, slots=8, readback_interval=8)
+QV_LAYERS = 10         # phase 11's depth cut (exits after 3 and 6)
 QV_FWD = (2, 2048)         # phase 11 (c)'s forward
 QV_PATCHES = 1024          # ... of which the patch positions a row
 
@@ -3179,13 +3278,13 @@ def run_qwen2_vl(torch, ops, ref, results):
     from repro_torch.models import Model
     from repro_torch.models.common import tree_leaves
     t_phase = time.time()
-    cfg = get_config("qwen2-vl-2b")
+    cfg = depth_cut(get_config("qwen2-vl-2b"), QV_LAYERS, (3, 6))
     tr = QV_TRACE
     model = Model(cfg, device="cuda")
     params = model.init(tr["seed"])
     pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     print(f"vision-language path: qwen2-vl-2b (arXiv:2409.12191) at its "
-          f"published widths, nothing cut: {cfg.num_layers} layers, d_model "
+          f"published widths, cut in depth: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads of "
           f"{cfg.resolved_head_dim} (G {cfg.num_heads // cfg.num_kv_heads}),"
           f" vocab {cfg.vocab_size}, M-RoPE, exits after layers "
@@ -4170,6 +4269,499 @@ def run_forward(torch, ops):
                "profile": profile}
     del model, params
     return summary, launches
+
+
+# ---- phase 14: training with the flash backward kernel -----------------
+BWD_TOL = 2e-2     # of max(1, |plain|): bf16 dq, dk, dv; the kernel feeds
+                   # P and dS to the tensor cores in bf16 (2^-9 relative
+                   # each) and sums in fp32 in another order than the plain
+                   # backward's fp32 einsums
+GRAD_GATE = 5e-2   # relative L2 error per leaf between a step's gradients
+                   # through the kernels and through plain attention (fp32
+                   # scores, autograd): both round every bf16 activation
+                   # and gradient alike except inside attention, where the
+                   # kernel's bf16 P and dS add 2^-9 relative per term; the
+                   # CPU tests hold the port to the reference at the same
+                   # limit (PERF.md §2)
+RESUME_RTOL = 1e-3  # a resumed step's loss against the uninterrupted run's
+BWD_SHAPES = {     # (B, Sq, Skv, Nq, Nkv, H, causal, window)
+    "granite": (4, 1024, 1024, 32, 8, 64, True, 0),
+    "granite window 256": (4, 1024, 1024, 32, 8, 64, True, 256),
+    "whisper cross": (16, 448, 1500, 8, 8, 64, False, 0),
+    "qwen2-vl H 128": (2, 2048, 2048, 12, 2, 128, True, 0),
+}
+TRAIN_BATCH = (4, 1024)    # (b)'s granite-3-2b batch
+TRAIN_STEPS = 5
+GATE_BATCH = (2, 2048)     # (c)'s 4-layer cut
+T100 = dict(steps=200, ckpt_every=100)   # (d): examples/torch/train_100m.py
+
+
+def flash_bwd_bound(make_mask, q, k, causal, window):
+    """Bytes: q, k, v, o and dO read once, dq, dk and dv written once;
+    operations: 10 H per unmasked (query, key) pair (the five products),
+    per sequence and query head, at the bf16 peak.  The kernel's recompute
+    of Q K^T is not counted."""
+    b, sq, nq, h = q.shape
+    pairs = int(make_mask(sq, k.shape[1], causal=causal,
+                          window=window).sum())
+    return bound((4 * q.numel() + 4 * k.numel()) * 2,
+                 10 * h * pairs * b * nq)
+
+
+def sdpa_bwd(torch, F, make_mask, q, k, v, do, causal, window):
+    """The library yardstick for the backward: SDPA's backward alone on
+    the BHSD views of the same tensors (``enable_gqa``; the forward's
+    graph retained, so each call runs only the backward); a window goes
+    in as a boolean mask."""
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    mask = None
+    if window:
+        mask = make_mask(q.shape[1], k.shape[1], causal=causal,
+                         window=window, device=q.device)
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+        enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    return call
+
+
+def check_flash_bwd(torch, F, ops, ref, gen, label, shape):
+    """(a) for one shape: the kernel against the plain backward, the
+    planted control (the kernel given a zero o, so D = rowsum(dO o O) = 0
+    and dS = P o dP) against the same, and the kernel timed three times
+    interleaved with SDPA's backward."""
+    from repro_torch.models.attention import make_mask
+    b, sq, skv, nq, nkv, h, causal, window = shape
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device="cuda").bfloat16()
+    q, k, v = rnd(b, sq, nq, h), rnd(b, skv, nkv, h), rnd(b, skv, nkv, h)
+    do = rnd(b, sq, nq, h)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                  window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window)
+    bad = ops.flash_attention_bwd(q, k, v, torch.zeros_like(o), do,
+                                  causal=causal, window=window)
+    torch.cuda.synchronize()
+
+    def scaled(a, w):
+        return ((a.float() - w.float()).abs()
+                / w.float().abs().clamp(min=1)).max().item()
+    err = max((a.float() - w.float()).abs().max().item()
+              for a, w in zip(got, want))
+    rel = max(scaled(a, w) for a, w in zip(got, want))
+    ctrl = max(scaled(a, w) for a, w in zip(bad, want))
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+    print(f"flash_attention_bwd {label} q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} causal {causal} window {window}: max_abs_err "
+          f"{err:.3e}, of max(1, |plain|) {rel:.3e} (tol {BWD_TOL}); "
+          f"planted control (no D) {ctrl:.3e}")
+    if not finite or not rel <= BWD_TOL:
+        fail(f"flash_attention_bwd disagrees with its plain version "
+             f"({label})")
+    if not ctrl > BWD_TOL:
+        fail(f"the backward check passes a planted fault ({label})")
+    del got, want, bad
+
+    def kernel(q, k, v, o, do):
+        return ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       window=window)
+
+    def plain(q, k, v, o, do):
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                           window=window)
+    lib = sdpa_bwd(torch, F, make_mask, q, k, v, do, causal, window)
+    spread = interleaved_ms(torch, kernel, lambda: lib(),
+                            [(q, k, v, o, do)], lib_args=[()])
+    print_spread(f"flash_attention_bwd {label}", spread)
+    bnd = flash_bwd_bound(make_mask, q, k, causal, window)
+    row = {"shapes": [list(t.shape) for t in (q, k, v, o, do)],
+           "causal": causal, "window": window, "max_abs_err": err,
+           "max_err_of_plain": rel, "control_err": ctrl,
+           "ms": spread["kernel"]["median"],
+           "plain_ms": device_ms(torch, plain, [(q, k, v, o, do)], iters=2),
+           "library_ms": spread["library"]["median"], "bound_ms": bnd[0],
+           "bound_by": bnd[1], "spread": spread}
+    print(f"  {label}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f}"
+          f" ms, SDPA backward {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+          f"{row['bound_ms'] / row['ms'] * 100:.1f} % of it)")
+    return row
+
+
+def rel_l2(torch, got, want):
+    """||got - want|| / ||want|| over one leaf, in fp32."""
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp(min=1e-30)).item()
+
+
+def run_training(torch, F, ops, ref, results):
+    """Phase 14 (see the module docstring).  Returns a summary and the
+    launch counts of each part."""
+    import importlib.util
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import batch_for_model
+    from repro_torch.launch.train import train
+    from repro_torch.models import Model, blocks
+    from repro_torch.models.common import (softmax_cross_entropy,
+                                           tree_leaves, tree_map, unembed)
+    from repro_torch.training import (OptimizerConfig, TrainConfig,
+                                      apply_updates, compute_loss,
+                                      init_optimizer, latest_checkpoint,
+                                      make_train_step, restore_checkpoint)
+    t_phase = time.time()
+    out, launches = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    # (a) the backward kernel against its plain version, timed
+    rows = {label: check_flash_bwd(torch, F, ops, ref, gen, label, shape)
+            for label, shape in BWD_SHAPES.items()}
+    main_row = dict(rows["granite"])
+    main_row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    main_row["other_shapes"] = {k: {kk: r[kk] for kk in (
+        "shapes", "causal", "window", "max_abs_err", "max_err_of_plain",
+        "control_err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")} for k, r in rows.items() if k != "granite"}
+    results["flash_attention_bwd"] = main_row
+    out["bwd_rows"] = {k: {kk: v for kk, v in r.items() if kk != "spread"}
+                       for k, r in rows.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) granite-3-2b at full width: the training entry point, 5 steps
+    cfg = get_config("granite-3-2b")
+    b, s = TRAIN_BATCH
+    plain_calls = [0]
+    orig_plain = (ref.flash_attention_ref, ref.flash_attention_bwd_ref)
+
+    def counting(fn):
+        def wrapper(*a, **kw):
+            plain_calls[0] += 1
+            return fn(*a, **kw)
+        return wrapper
+    print(f"training path: granite-3-2b, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size},"
+          f" exits {cfg.exits.exit_layers}; launch.train.train, "
+          f"{TRAIN_STEPS} AdamW steps of {b} x {s} tokens (BranchyNet "
+          f"joint loss), random weights (seed 0)")
+    ref.flash_attention_ref = counting(orig_plain[0])
+    ref.flash_attention_bwd_ref = counting(orig_plain[1])
+    hist = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.time()
+    params, _ = train("granite-3-2b", TRAIN_STEPS, b, s, device="cuda",
+                      history=hist, log_every=1)
+    torch.cuda.synchronize()
+    launches["train"] = dict(ops.LAUNCHES)
+    train_s = time.time() - t0
+    ref.flash_attention_ref, ref.flash_attention_bwd_ref = orig_plain
+    peak_train = torch.cuda.max_memory_allocated()
+    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    nparams = sum(t.numel() for t in tree_leaves(params))
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    print(f"  {nparams / 1e9:.3f}B params ({pbytes / 1e9:.2f} GB); "
+          f"{train_s:.1f} s including init; per step host ms "
+          f"{[round(h['step_s'] * 1e3, 1) for h in hist]}; losses "
+          f"{[round(h['loss'], 4) for h in hist]}; grad norms "
+          f"{[round(h['grad_norm'], 3) for h in hist]}; peak device memory "
+          f"{peak_train / 1e9:.2f} GB; launches {launches['train']}; plain "
+          f"attention calls {plain_calls[0]}")
+    if not finite or len(hist) != TRAIN_STEPS:
+        fail("phase 14 (b): a loss or grad norm is not finite")
+    for kname in ("flash_attention", "flash_attention_bwd"):
+        if launches["train"][kname] != cfg.num_layers * TRAIN_STEPS:
+            fail(f"phase 14 (b): {kname} launched "
+                 f"{launches['train'][kname]} times, not once a layer a step")
+    if plain_calls[0]:
+        fail("phase 14 (b): plain attention ran on the card")
+    out["train"] = {"params": nparams, "param_bytes": pbytes,
+                    "wall_s": train_s, "history": hist,
+                    "peak_bytes": peak_train}
+
+    # ... each step timed by CUDA events (the same batch again), one step
+    # profiled, and the step's parts: the three vocab heads, the
+    # optimizer, the attention backward
+    model = Model(cfg, device="cuda")
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(model, ocfg)
+    opt = init_optimizer(params)
+    batch = batch_for_model(cfg, InputShape("p14", s, b, "train"), 0,
+                            device="cuda")
+
+    def timed_step():
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        e0.record()
+        step_fn(params, opt, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        return {"host_ms": (time.time() - t0) * 1e3,
+                "device_ms": e0.elapsed_time(e1),
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+    steps = [timed_step() for _ in range(2)]
+    step = steps[-1]
+    step["tokens_per_s"] = b * s / (step["host_ms"] / 1e3)
+    print(f"  a step by CUDA events: {[round(t['device_ms'], 1) for t in steps]}"
+          f" ms device, {[round(t['host_ms'], 1) for t in steps]} ms host, "
+          f"{step['tokens_per_s']:.0f} tokens/s, peak "
+          f"{step['peak_bytes'] / 1e9:.2f} GB")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        prof_s = time.time() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern_ms = sum(e.self_device_time_total for e in events) / 1e3
+
+    def named(*keys):
+        return sum(e.self_device_time_total for e in events
+                   if any(kk in e.key for kk in keys)) / 1e3
+    top = [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
+            "calls": e.count}
+           for e in sorted(events, key=lambda e: -e.self_device_time_total)
+           [:10]]
+    profile = {"wall_ms": prof_s * 1e3, "kernel_ms": kern_ms,
+               "busy": kern_ms / (prof_s * 1e3),
+               "flash_fwd_ms": named("flash_fwd_kernel"),
+               "flash_bwd_ms": named("dq_kernel", "dkv_kernel"),
+               "kernels": sum(e.count for e in events), "top": top}
+    print(f"  torch.profiler step: wall {prof_s * 1e3:.1f} ms, device "
+          f"kernels {kern_ms:.1f} ms (busy {profile['busy'] * 100:.1f} %), "
+          f"{profile['kernels']} kernels; flash forward "
+          f"{profile['flash_fwd_ms']:.2f} ms, flash backward "
+          f"{profile['flash_bwd_ms']:.2f} ms; top "
+          f"{[(t['name'][:40], round(t['ms'], 2), t['calls']) for t in top]}")
+
+    def events_ms(fn, reps=3):
+        fn()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+    hid = (torch.randn(b, s, cfg.d_model, generator=gen, device="cuda")
+           .bfloat16().requires_grad_())
+    labels = batch["labels"]
+    heads = [(lambda x: unembed(x, params["embed"]), [params["embed"]])] + [
+        (lambda x, e=e: blocks.exit_head_logits(cfg, e, x), tree_leaves(e))
+        for e in params["exit_heads"]]
+
+    def vocab_heads():
+        for head, ws in heads:
+            for w in ws:
+                w.requires_grad_(True)
+            ce = softmax_cross_entropy(head(hid), labels)
+            torch.autograd.grad(ce, [hid] + ws)
+            for w in ws:
+                w.requires_grad_(False)
+    vocab_ms = events_ms(vocab_heads)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                           device="cuda").to(p.dtype) * 1e-3,
+                     params)
+    opt_ms = events_ms(lambda: apply_updates(ocfg, params, grads, opt))
+    del grads, hid
+    parts = {"vocab_heads_ms": vocab_ms, "optimizer_ms": opt_ms,
+             "flash_bwd_ms": profile["flash_bwd_ms"],
+             "flash_fwd_ms": profile["flash_fwd_ms"]}
+    print(f"  parts of a step (CUDA events): the 3 vocab heads' forward, "
+          f"CE and backward {vocab_ms:.1f} ms, apply_updates {opt_ms:.1f} "
+          f"ms; attention backward {profile['flash_bwd_ms']:.1f} ms and "
+          f"forward {profile['flash_fwd_ms']:.1f} ms (profiler)")
+    out["train"].update(step=step, steps=steps, profile=profile, parts=parts)
+
+    del params, opt, batch, model, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the gradient gate: a 4-layer cut at full width, kernel vs plain
+    cut = dataclasses.replace(
+        cfg, name="granite-3-2b-4l", num_layers=4,
+        exits=dataclasses.replace(cfg.exits, exit_layers=(2,)))
+    model = Model(cut, device="cuda")
+    params = model.init(0)
+    gb, gs = GATE_BATCH
+    batch = batch_for_model(cut, InputShape("gate", gs, gb, "train"), 0,
+                            device="cuda")
+    leaves = tree_leaves(params)
+    paths = []
+
+    def walk(t, pre):
+        if isinstance(t, dict):
+            for k2 in t:
+                walk(t[k2], f"{pre}/{k2}")
+        elif isinstance(t, (list, tuple)):
+            for i, v2 in enumerate(t):
+                walk(v2, f"{pre}/{i}")
+        else:
+            paths.append(pre)
+    walk(params, "")
+
+    def plain_attention(q, k, v, *, causal=True, window=0):
+        return orig_plain[0](q, k, v, causal=causal, window=window)
+    kernel_fwd, kernel_bwd = ops.flash_attention, ops.flash_attention_bwd
+
+    def bwd_without_d(q, k, v, o, do, **kw):
+        return kernel_bwd(q, k, v, torch.zeros_like(o), do, **kw)
+
+    def gradients(label):
+        for p in leaves:
+            p.requires_grad_(True)
+        ops.reset_launches()
+        loss, _ = compute_loss(model, params, batch, tcfg=TrainConfig())
+        g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        for p in leaves:
+            p.requires_grad_(False)
+        counted = dict(ops.LAUNCHES)
+        print(f"  {label}: loss {loss.item():.5f}, launches "
+              f"{ {k2: counted[k2] for k2 in ('flash_attention', 'flash_attention_bwd')} }")
+        return loss.item(), g, counted
+    loss_k, g_kernel, launches["gate"] = gradients("kernels")
+    ops.flash_attention = plain_attention
+    loss_p, g_plain, counted_p = gradients("plain attention (the yardstick)")
+    ops.flash_attention = kernel_fwd
+    ops.flash_attention_bwd = bwd_without_d
+    loss_c, g_ctrl, counted_c = gradients(
+        "planted control (backward without D)")
+    ops.flash_attention_bwd = kernel_bwd
+    errs = {p: rel_l2(torch, a, w) for p, a, w in zip(paths, g_kernel,
+                                                       g_plain)}
+    ctrl = {p: rel_l2(torch, a, w) for p, a, w in zip(paths, g_ctrl,
+                                                       g_plain)}
+    worst = max(errs, key=errs.get)
+    worst_c = max(ctrl, key=ctrl.get)
+    print(f"  gate over {len(paths)} leaves: worst relative L2 "
+          f"{errs[worst]:.3e} at {worst} (tol {GRAD_GATE}); planted control "
+          f"worst "
+          f"{ctrl[worst_c]:.3e} at {worst_c}; top kernel leaves "
+          f"{sorted(errs.items(), key=lambda kv: -kv[1])[:4]}")
+    for label, counted in (("kernels", launches["gate"]),
+                           ("planted control", counted_c)):
+        if counted["flash_attention_bwd"] != cut.num_layers:
+            fail(f"phase 14 (c): {label}: the backward kernel did not run "
+                 "once a layer")
+    if counted_p["flash_attention"] or counted_p["flash_attention_bwd"]:
+        fail("phase 14 (c): the yardstick ran the flash kernels")
+    if not errs[worst] <= GRAD_GATE:
+        fail("phase 14 (c): the kernels' gradients disagree with plain "
+             "attention's")
+    if not ctrl[worst_c] > GRAD_GATE:
+        fail("phase 14 (c): the gradient gate passes a planted fault")
+    out["gate"] = {"batch": [gb, gs], "losses": [loss_k, loss_p, loss_c],
+                   "worst": [worst, errs[worst]],
+                   "control_worst": [worst_c, ctrl[worst_c]],
+                   "errors": errs}
+    del params, batch, g_kernel, g_plain, g_ctrl, leaves, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) examples/torch/train_100m.py on the card, a checkpoint, a resume
+    def example(name):
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{name}",
+            os.path.join(HERE, "examples", "torch", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    t100 = example("train_100m")
+    ckpt = os.path.join(HERE, "build", "phase14_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    n, half = T100["steps"], T100["ckpt_every"]
+    h1 = []
+    ops.reset_launches()
+    t0 = time.time()
+    params, _ = t100.main(["--steps", str(n), "--ckpt-every", str(half),
+                           "--ckpt", os.path.join(ckpt, "a"), "--device",
+                           "cuda"], history=h1)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches["train_100m"] = dict(ops.LAUNCHES)
+    first, last = h1[0]["loss"], h1[-1]["loss"]
+    print(f"  train_100m: {n} steps in {run_s:.1f} s (two checkpoints "
+          f"written), loss {first:.4f} -> {last:.4f} ({last / first:.3f}x; "
+          f"must be < 0.8), median step "
+          f"{sorted(h['step_s'] for h in h1)[n // 2] * 1e3:.1f} ms host")
+    if not last < 0.8 * first:
+        fail("phase 14 (d): the 100M model's loss did not fall below 0.8x")
+    final = latest_checkpoint(os.path.join(ckpt, "a"))
+    back = restore_checkpoint(final, {"params": params})["params"]
+    same = all(bits_equal(torch, x, y) for x, y in
+               zip(tree_leaves(back), tree_leaves(params)))
+    del back, params
+    os.makedirs(os.path.join(ckpt, "b"))
+    shutil.copy(os.path.join(ckpt, "a", f"ckpt_{half:08d}.npz"),
+                os.path.join(ckpt, "b"))
+    h2 = []
+    t0 = time.time()
+    t100.main(["--steps", str(n), "--ckpt-every", str(10 * n), "--ckpt",
+               os.path.join(ckpt, "b"), "--device", "cuda"], history=h2)
+    resume_s = time.time() - t0
+    dev = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+              for x, y in zip(h2, h1[half:]))
+    print(f"  restored final checkpoint bit-identical: {same}; resumed from "
+          f"step {half}: {len(h2)} steps in {resume_s:.1f} s, losses within "
+          f"{dev:.2e} relative of the uninterrupted run (tol {RESUME_RTOL})")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not same:
+        fail("phase 14 (d): a restored tensor differs from the saved one")
+    if len(h2) != n - half or not dev <= RESUME_RTOL:
+        fail("phase 14 (d): the resumed run departs from the uninterrupted")
+    out["train_100m"] = {"steps": n, "wall_s": run_s, "first_loss": first,
+                         "last_loss": last, "resume_s": resume_s,
+                         "resume_dev": dev,
+                         "losses": [h["loss"] for h in h1],
+                         "step_ms": [h["step_s"] * 1e3 for h in h1]}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the other three examples on the card
+    out["examples"] = {}
+    for name in ("quickstart", "resilient_inference",
+                 "collaborative_serving"):
+        ops.reset_launches()
+        t0 = time.time()
+        res = example(name).main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        launches[name] = dict(ops.LAUNCHES)
+        wall = time.time() - t0
+        print(f"  {name}: {wall:.1f} s; launches "
+              f"{ {k2: v2 for k2, v2 in launches[name].items() if v2} }")
+        out["examples"][name] = {"wall_s": wall}
+        if name == "quickstart":
+            out["examples"][name]["losses"] = [res["losses"][0],
+                                               res["losses"][-1]]
+        if name == "resilient_inference":
+            out["examples"][name]["ce"] = res
+    for name, kname in (("quickstart", "flash_attention_bwd"),
+                        ("resilient_inference", "flash_attention_bwd"),
+                        ("collaborative_serving", "exit_head_entropy")):
+        if launches[name][kname] <= 0:
+            fail(f"phase 14 (e): {name} launched no {kname}")
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 14 wall time {out['wall_s']:.1f}s")
+    return out, launches
 
 
 if __name__ == "__main__":

@@ -13,6 +13,14 @@ from typing import Tuple
 
 
 @dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
 class MoEConfig:
     num_experts: int = 0           # routed experts
     top_k: int = 1

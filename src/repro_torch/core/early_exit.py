@@ -1,10 +1,11 @@
 """Early-exit machinery — BranchyNet [58], Edgent [47,48], SPINN [37].
 
-Runtime side: entropy-threshold exit decisions and the serving exit
-statistics.  Planner side (host): Edgent's joint (exit point, partition
-point) search and SPINN-style progressive-inference expectations over a
-``CostGraph``.  A copy of the parts of the reference package's
-``core/early_exit.py`` that the serving path and the planners use.
+Runtime side: entropy-threshold exit decisions, the serving exit
+statistics and BranchyNet's joint training loss weights.  Planner side
+(host): Edgent's joint (exit point, partition point) search and
+SPINN-style progressive-inference expectations over a ``CostGraph``.  A copy of the parts of the reference package's
+``core/early_exit.py`` that the serving path, training and the planners
+use.
 """
 from __future__ import annotations
 
@@ -16,6 +17,21 @@ import torch
 
 from repro_torch.core.cost_model import (CostGraph, DeviceProfile, LinkProfile,
                                          compute_energy, compute_time)
+
+
+def entropy_of(logits):
+    """Softmax entropy over the last axis, in fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.sum(torch.exp(logp) * logp, dim=-1)
+
+
+def exit_mask(logits, threshold: float):
+    """BranchyNet policy: exit where normalized entropy < threshold.
+
+    Entropy is normalized by log(V) so one threshold works across vocab
+    sizes.  Returns a bool mask with the leading dims of ``logits``."""
+    v = logits.shape[-1]
+    return entropy_of(logits) / math.log(float(v)) < threshold
 
 
 def first_exit_index(exit_entropies, threshold: float, vocab: int):
@@ -36,6 +52,12 @@ def exit_stats_dict(exit_counts, tokens_served) -> dict:
     st["full_depth_frac"] = float(exit_counts[-1]) / total
     st["tokens"] = float(tokens_served)
     return st
+
+
+def branchynet_loss_weights(n_exits: int, final_weight: float = 1.0,
+                            exit_weight: float = 0.3) -> Tuple[float, ...]:
+    """Joint training weights (BranchyNet trains all exits jointly)."""
+    return tuple([exit_weight] * n_exits + [final_weight])
 
 
 # ---------------------------------------------------------------------------

@@ -9,12 +9,11 @@ bypass: a failed block contributes nothing and its input flows through.
 - ``resilient_forward``: the full-sequence forward with a per-block
   ``alive`` mask; failed blocks (and the exit heads attached to them) are
   bypassed.
+- ``failout``: ResiliNet's training-time stage dropout, an iid alive
+  mask that ``training.compute_loss`` hands to ``resilient_forward``.
 - ``resilience_report``: the expected accuracy under node-failure
   probabilities with and without skip hyperconnections (the tiered
   cluster reports it after a tier outage).
-
-The reference's ``failout`` (training-time stage dropout) waits for the
-training slice.
 """
 from __future__ import annotations
 
@@ -50,6 +49,18 @@ def resilient_forward(model, params, batch, alive, *,
                                        enc_out=enc_out)
     h = apply_norm(cfg.norm, x, params["final_norm"])
     return unembed(h, params.get("lm_head", params["embed"])), exit_logits
+
+
+def failout(generator, n_blocks: int, survive_prob: float = 0.9):
+    """ResiliNet failout: an iid Bernoulli(``survive_prob``) alive mask
+    [n_blocks] fp32, drawn from ``generator`` on its device; a draw with
+    every block dead becomes all alive, as in the reference."""
+    probs = torch.full((n_blocks,), survive_prob, dtype=torch.float32,
+                       device=generator.device)
+    alive = torch.bernoulli(probs, generator=generator)
+    if not bool(alive.any()):
+        alive = torch.ones_like(alive)
+    return alive
 
 
 @dataclass(frozen=True)

@@ -27,6 +27,7 @@ SOURCES = {
     "exit_head": CSRC / "exit_head.cu",
     "feature_compress": CSRC / "feature_compress.cu",
     "flash_attention": CSRC / "flash_attention.cu",
+    "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
     "w8a8_expert": CSRC / "w8a8_expert.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,6 +64,11 @@ SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    "flash_attention_bwd": {
+        "repro_flash_attention_bwd": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _I, _I, _F, _P], _I),
     },
     "w8a8_expert": {
         "repro_w8a8_k_step": ([], _I),

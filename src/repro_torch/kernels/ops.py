@@ -22,7 +22,7 @@ from repro_torch.kernels import w8a8_expert as _w8a8
 LAUNCHES = {"paged_gqa_attention": 0, "paged_mla_attention": 0,
             "exit_head_entropy": 0, "quantize_rows": 0,
             "dequantize_rows": 0, "flash_attention": 0,
-            "w8a8_expert_matmul": 0}
+            "flash_attention_bwd": 0, "w8a8_expert_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -66,35 +66,90 @@ def exit_head_entropy(x, w):
     return out.reshape(lead)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Full-sequence GQA attention in the BSHD layout: q [B, Sq, Nq, H],
-    k/v [B, Skv, Nkv, H] (query head n*G + g reads kv head n), causal
-    and/or sliding-window masked -> [B, Sq, Nq, H] in q's dtype.  No head
-    repeat and no transpose copy: the kernel reads the layout as it is."""
-    if not _on_card(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+def _check_flash(q, k, v, window, what):
+    """The flash kernels' conditions on q [B, Sq, Nq, H] and k/v
+    [B, Skv, Nkv, H] on the card; raises on anything else."""
     _require(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
-             f"flash_attention q {tuple(q.shape)} k {tuple(k.shape)} "
+             f"{what} q {tuple(q.shape)} k {tuple(k.shape)} "
              f"v {tuple(v.shape)}")
     b, sq, nq, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     _require(k.shape[0] == b and k.shape[3] == hd and nq % nkv == 0,
-             f"flash_attention k/v {tuple(k.shape)} for q {tuple(q.shape)}")
+             f"{what} k/v {tuple(k.shape)} for q {tuple(q.shape)}")
     _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-             f"flash_attention takes bf16, got {q.dtype} / {k.dtype} / "
-             f"{v.dtype}")
+             f"{what} takes bf16, got {q.dtype} / {k.dtype} / {v.dtype}")
     _require(hd in _flash.HEAD_DIMS,
-             f"flash_attention has no instance for head_dim={hd}")
+             f"{what} has no instance for head_dim={hd}")
     _require(sq > 0 and skv > 0 and 0 < b < 65536 and nq < 65536,
-             f"flash_attention shapes q {tuple(q.shape)} k {tuple(k.shape)}")
-    _require(window >= 0, f"flash_attention window {window}")
+             f"{what} shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    _require(window >= 0, f"{what} window {window}")
     _require(all(t.is_contiguous() for t in (q, k, v)),
-             "flash_attention takes contiguous q, k and v")
+             f"{what} takes contiguous q, k and v")
     _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
-             "flash_attention q, k and v must be 16-byte aligned")
+             f"{what} q, k and v must be 16-byte aligned")
+
+
+def _flash_forward(q, k, v, causal, window):
+    if not _on_card(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _check_flash(q, k, v, window, "flash_attention")
     out = _flash.attention_cuda(q, k, v, causal, window)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+                        window: int = 0):
+    """Gradients (dq, dk, dv) of ``flash_attention`` at output ``o`` for
+    the output gradient ``do`` (both [B, Sq, Nq, H]): the hand-written
+    backward kernel on the card, ``ref.flash_attention_bwd_ref`` on the
+    CPU.  ``do`` may be any layout (it is made contiguous)."""
+    do = do.contiguous()
+    if not _on_card(q, k, v, o, do):
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                           window=window)
+    _check_flash(q, k, v, window, "flash_attention_bwd")
+    _require(o.shape == q.shape and do.shape == q.shape
+             and o.dtype == do.dtype == torch.bfloat16,
+             f"flash_attention_bwd o {tuple(o.shape)} {o.dtype} / do "
+             f"{tuple(do.shape)} {do.dtype} for q {tuple(q.shape)}")
+    _require(o.is_contiguous() and o.data_ptr() % 16 == 0
+             and do.data_ptr() % 16 == 0,
+             "flash_attention_bwd o and do must be contiguous and 16-byte "
+             "aligned")
+    _require(causal or window == 0,
+             "flash_attention_bwd takes a window only with the causal mask")
+    grads = _flash.attention_bwd_cuda(q, k, v, o, do, causal, window)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _flash_forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Full-sequence GQA attention in the BSHD layout: q [B, Sq, Nq, H],
+    k/v [B, Skv, Nkv, H] (query head n*G + g reads kv head n), causal
+    and/or sliding-window masked -> [B, Sq, Nq, H] in q's dtype.  No head
+    repeat and no transpose copy: the kernel reads the layout as it is.
+    Differentiable: a ``torch.autograd.Function`` whose backward is
+    ``flash_attention_bwd`` (the backward kernel on the card)."""
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):

@@ -26,6 +26,31 @@ def exit_head_entropy_ref(x, w):
     return -torch.sum(torch.exp(logp) * logp, dim=-1)
 
 
+def _attention_mask(sq, skv, causal, window, device):
+    """The reference's ``make_mask``: [Sq, Skv] bool, True = visible."""
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    return mask
+
+
+def _attention_probs(q, k, causal, window):
+    """fp32 softmax probabilities [B, Nkv, G, Sq, Skv] of the masked,
+    scaled scores (NEG_INF where a key is masked)."""
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, nkv, nq // nkv, hd)
+    s = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float()) \
+        * (1.0 / math.sqrt(hd))
+    s = s.masked_fill(~_attention_mask(sq, skv, causal, window, q.device),
+                      NEG_INF)
+    return torch.softmax(s, dim=-1)
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """Full-sequence attention, what the reference's ``_sdpa`` computes
     under ``make_mask``: q [B, Sq, Nq, H], k/v [B, Skv, Nkv, H], query
@@ -34,21 +59,35 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     1/sqrt(H), NEG_INF where a key is masked -> [B, Sq, Nq, H] in q's
     dtype."""
     b, sq, nq, hd = q.shape
-    skv, nkv = k.shape[1], k.shape[2]
-    qi = torch.arange(sq, device=q.device)[:, None]
-    kj = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kj <= qi
-    if window:
-        mask &= kj > qi - window
-    qg = q.reshape(b, sq, nkv, nq // nkv, hd)
-    s = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float()) \
-        * (1.0 / math.sqrt(hd))
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = _attention_probs(q, k, causal, window)
     out = torch.einsum("bngst,btnh->bsngh", p, v.float())
     return out.reshape(b, sq, nq, hd).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
+                            window: int = 0):
+    """Gradients of ``flash_attention_ref`` from the textbook formulas, in
+    fp32: P = softmax(masked Q K^T / sqrt(H)), dV = P^T dO, dP = dO V^T,
+    D = rowsum(dO o O), dS = P o (dP - D), dQ = dS K / sqrt(H),
+    dK = dS^T Q / sqrt(H); dK and dV sum over each kv head's G query heads.
+    q, o, do [B, Sq, Nq, H], k/v [B, Skv, Nkv, H] -> (dq, dk, dv) in the
+    inputs' dtypes.  ``o`` is the forward's output as it was returned."""
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    scale = 1.0 / math.sqrt(hd)
+    p = _attention_probs(q, k, causal, window)              # [B,n,g,s,t]
+    dog = do.reshape(b, sq, nkv, g, hd).float()
+    og = o.reshape(b, sq, nkv, g, hd).float()
+    qg = q.reshape(b, sq, nkv, g, hd).float()
+    dv = torch.einsum("bngst,bsngh->btnh", p, dog)
+    dp = torch.einsum("bsngh,btnh->bngst", dog, v.float())
+    dd = (dog * og).sum(-1).permute(0, 2, 3, 1)             # [B,n,g,s]
+    ds = p * (dp - dd[..., None])
+    dq = torch.einsum("bngst,btnh->bsngh", ds, k.float()) * scale
+    dk = torch.einsum("bngst,bsngh->btnh", ds, qg) * scale
+    return (dq.reshape(b, sq, nq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos):

@@ -261,6 +261,22 @@ def forward_layer(cfg, kind: str, lp, x, positions, window, enc_out=None):
     return _ffn_residual(cfg, kind, lp, x + y)
 
 
+def _unbind_layers(tree):
+    """A stacked block's params as one tree per layer, each leaf a view of
+    its stacked leaf.  ``torch.unbind`` takes every layer at once, so under
+    autograd the stacked leaf's gradient is assembled once a block, where
+    ``a[i]`` a layer would make a zero gradient of the whole stack for each
+    layer and add them up."""
+    if isinstance(tree, dict):
+        per = {k: _unbind_layers(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        per = [_unbind_layers(v) for v in tree]
+        return [type(tree)(p[i] for p in per) for i in range(len(per[0]))]
+    return list(torch.unbind(tree, 0))
+
+
 def run_scan_block(cfg, kind: str, bparams, x, positions, window,
                    enc_out=None):
     """A stacked block over the full sequence: a loop over its layer axis.
@@ -270,8 +286,7 @@ def run_scan_block(cfg, kind: str, bparams, x, positions, window,
     _require_ported(kind)
     n = tree_leaves(bparams)[0].shape[0]
     auxs = []
-    for i in range(n):
-        lp = tree_map(lambda a: a[i], bparams)
+    for lp in _unbind_layers(bparams):
         x, aux = forward_layer(cfg, kind, lp, x, positions, window, enc_out)
         auxs.append(aux)
     return x, auxs[0] if n == 1 else sum(auxs[1:], auxs[0])

@@ -109,7 +109,8 @@ def mamba2_forward(cfg, params, x, state=None):
     # intra-chunk (quadratic dual): scores x decays, then the values
     lmat = torch.exp(_segsum(lac.transpose(-1, -2)))           # [B,nc,H,Q,Q]
     scores = torch.einsum("bcin,bcjn->bcij", ccg, bc)          # [B,nc,Q,Q]
-    lmat.mul_(scores[:, :, None])
+    # out of place: exp's backward reads lmat
+    lmat = lmat * scores[:, :, None]
     y = torch.einsum("bchij,bcjhp->bcihp", lmat, dtx)
     del lmat
 

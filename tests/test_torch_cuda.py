@@ -15,7 +15,9 @@ softmax terms, and by P, which the kernel feeds to the tensor cores as a
 bf16 high part plus a bf16 low part (about 2^-16 relative; a single bf16
 P would miss 1e-3 at full width, see tests/test_torch_paged_plan.py):
 1e-3, against outputs that are convex combinations of latents |c| < 5;
-the entropy is fp32 summed in another order (1e-4 at small D,
+the flash backward's bf16 gradients 2e-2 of max(1, |plain|) (P and dS
+enter the tensor cores in bf16); the entropy is fp32 summed in another
+order (1e-4 at small D,
 1e-3 at D >= 2048).  The int8 kernels are held bit for bit: one IEEE division and
 one rounding per element, and a max that no order changes.  So is the
 W8A8 expert GEMM: its int32 sum is exact in any order, and its two scale
@@ -411,6 +413,140 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda):
                             v.transpose(1, 2))
     with pytest.raises(ValueError):             # CPU / CUDA mix
         ops.flash_attention(q, k.cpu(), v)
+
+
+BWD_TOL = 2e-2      # of max(1, |plain|): bf16 gradients; the kernel
+                    # feeds P and dS to the tensor cores in bf16 (2^-9
+                    # relative each) and sums in fp32 in another order
+
+
+def _check_flash_bwd(q, k, v, causal, window, drop_d=False):
+    """dq, dk, dv of the backward kernel against the plain backward on the
+    same o and dO; returns the worst error of max(1, |plain|).  With
+    ``drop_d`` the kernel is handed a zero o, so its D = rowsum(dO o O)
+    is 0 and dS = P o dP: the planted control."""
+    g = torch.Generator(device=q.device).manual_seed(q.shape[1])
+    do = torch.randn(q.shape, generator=g, device=q.device).bfloat16()
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    n0 = ops.LAUNCHES["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v,
+                                  torch.zeros_like(o) if drop_d else o, do,
+                                  causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert torch.isfinite(a.float()).all()
+        err = (a.float() - w.float()).abs() / w.float().abs().clamp(min=1)
+        worst = max(worst, err.max().item())
+    return worst
+
+
+@pytest.mark.parametrize("b,sq,skv,nq,nkv,hd,causal,window", [
+    (2, 256, 256, 32, 8, 64, True, 0),      # granite-3-2b's heads
+    (2, 300, 300, 32, 8, 64, True, 64),     # ragged, sliding window
+    (1, 70, 70, 4, 4, 64, True, 1),         # every row sees one key
+    (1, 5, 5, 2, 1, 64, True, 0),           # shorter than a tile
+    (2, 64, 64, 8, 2, 64, True, 0),         # exactly one tile
+    (2, 65, 65, 8, 2, 64, True, 0),         # one row past it
+    (2, 200, 200, 12, 2, 128, True, 0),     # qwen2-vl's heads of 128, G 6
+    (1, 130, 130, 4, 4, 128, True, 17),
+    (2, 45, 130, 8, 8, 64, False, 0),       # cross-attention, no mask
+    (2, 200, 1500, 8, 8, 64, False, 0),     # whisper's 1,500 frames
+    (1, 130, 100, 4, 2, 128, False, 0)])    # Skv < Sq, both ragged
+def test_flash_bwd_kernel_matches_plain(cuda, b, sq, skv, nq, nkv, hd,
+                                        causal, window):
+    q, k, v = _qkv(cuda, b, sq, skv, nq, nkv, hd, seed=sq + skv + hd)
+    assert _check_flash_bwd(q, k, v, causal, window) <= BWD_TOL
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+def test_flash_bwd_without_d_fails_the_check(cuda, causal, window):
+    """The planted control (D zeroed, dS = P o dP) misses the tolerance."""
+    q, k, v = _qkv(cuda, 2, 200, 200, 8, 2, 64, seed=3)
+    assert _check_flash_bwd(q, k, v, causal, window, drop_d=True) > BWD_TOL
+
+
+def test_flash_function_backward_launches_the_kernel(cuda, monkeypatch):
+    """Autograd through ``ops.flash_attention`` on the card runs the
+    forward and backward kernels once each and no plain version."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+    q, k, v = _qkv(cuda, 2, 100, 100, 8, 2, 64, seed=4)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    monkeypatch.setattr(ref, "flash_attention_ref", refuse)
+    monkeypatch.setattr(ref, "flash_attention_bwd_ref", refuse)
+    n0 = dict(ops.LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=True)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == \
+        n0["flash_attention_bwd"] + 1
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+
+
+def test_flash_bwd_wrapper_raises_instead_of_falling_back(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, 64)
+    o = ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError):             # fp32 dO
+        ops.flash_attention_bwd(q, k, v, o, o.float())
+    with pytest.raises(ValueError):             # a window without causal
+        ops.flash_attention_bwd(q, k, v, o, o, causal=False, window=8)
+    with pytest.raises(ValueError):             # CPU / CUDA mix
+        ops.flash_attention_bwd(q, k, v, o.cpu(), o)
+
+
+def test_smoke_train_step_card_matches_cpu(cuda):
+    """One granite-3-2b-smoke ``compute_loss`` gradient on the card (flash
+    kernels, cuBLAS) against the CPU's (plain versions) on the same
+    weights and batch: every leaf within 5e-2 relative L2 (PERF.md §2,
+    the gradient tolerance), the loss within 1e-3 relative; then a
+    ``train_step`` on each moves the loss the same way."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import batch_for_model
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training import (OptimizerConfig, TrainConfig,
+                                      compute_loss, init_optimizer,
+                                      make_train_step)
+    cfg = get_config("granite-3-2b-smoke")
+    shape = InputShape("t", 128, 4, "train")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev)
+        params = tree_map(lambda t: t.to(dev), Model(cfg, "cpu").init(0))
+        batch = batch_for_model(cfg, shape, 0, device=dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = compute_loss(model, params, batch, tcfg=TrainConfig())
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        step = make_train_step(model, OptimizerConfig(lr=1e-3,
+                                                      warmup_steps=1))
+        opt = init_optimizer(params)
+        losses = []
+        for i in range(3):
+            params, opt, met = step(params, opt, batch_for_model(
+                cfg, shape, i, device=dev))
+            losses.append(float(met["loss"]))
+        runs[dev] = (loss.item(), [g.float().cpu() for g in grads], losses)
+    (l_cpu, g_cpu, s_cpu), (l_card, g_card, s_card) = runs["cpu"], \
+        runs["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-3 * abs(l_cpu)
+    for a, w in zip(g_card, g_cpu):
+        assert (a - w).norm() <= 5e-2 * w.norm()
+    assert s_card[-1] < s_card[0] and s_cpu[-1] < s_cpu[0]
+    for a, w in zip(s_card, s_cpu):
+        assert abs(a - w) <= 1e-2 * abs(w)
 
 
 @pytest.mark.parametrize("long_mode", [False, True])

@@ -1,6 +1,7 @@
-"""The port stands alone: importing every module of ``repro_torch`` and the
-chip smoke script loads no JAX and nothing of the reference package, and
-the entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: importing every module of ``repro_torch``, the
+chip smoke script and the port's examples (``examples/torch/``) loads no
+JAX and nothing of the reference package, and the entry points run on
+the card unless the caller asks for the CPU."""
 import os
 import subprocess
 import sys
@@ -29,12 +30,24 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.configs.xlstm_350m", "repro_torch.configs.qwen2_vl_2b",
         "repro_torch.configs.whisper_base",
         "repro_torch.kernels.w8a8_expert",
-        "repro_torch.configs.llama4_maverick_400b"}}
+        "repro_torch.configs.llama4_maverick_400b",
+        "repro_torch.core.cnn_zoo", "repro_torch.data.pipeline",
+        "repro_torch.training.optimizer", "repro_torch.training.train_loop",
+        "repro_torch.training.checkpoint", "repro_torch.launch.train",
+        "repro_torch.launch.unbind_ab"}}
 assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
 sys.path.insert(0, {repo!r})
 import chip_smoke
+import glob, importlib.util, os
+examples = sorted(glob.glob(os.path.join({repo!r}, "examples", "torch",
+                                         "*.py")))
+assert len(examples) == 4, examples
+for path in examples:
+    spec = importlib.util.spec_from_file_location(
+        "example_" + os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
              or m == "repro")
@@ -48,7 +61,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 45      # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 53      # every submodule walked
 
 
 def test_entry_points_default_to_cuda():
@@ -79,16 +92,24 @@ def test_entry_points_default_to_cuda():
         serve_multi_poisson(["granite-3-2b-smoke"], n_requests=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_multi_tiered_poisson(["granite-3-2b-smoke"], n_requests=1)
+    from repro_torch.launch.train import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train("granite-3-2b-smoke", 1, 1, 8)
 
 
 def test_no_import_line_names_jax_or_reference():
     """Static twin of the subprocess check: no import statement of the
-    port or of chip_smoke.py names jax or the reference package."""
+    port, of chip_smoke.py or of the port's examples names jax or the
+    reference package."""
     import re
     pat = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)")
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "src", "repro_torch")):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for top in (os.path.join(REPO, "src", "repro_torch"),
+                os.path.join(REPO, "examples", "torch")):
+        for root, _, names in os.walk(top):
+            files += [os.path.join(root, n) for n in names
+                      if n.endswith(".py")]
+    assert sum("examples" in f for f in files) == 4
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(open(f, encoding="utf-8"), 1)
             if pat.match(line)]
