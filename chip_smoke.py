@@ -185,10 +185,14 @@ Phases, each fatal on failure:
      granite-3-2b's training shape (q [4, 1024, 32, 64], 8 kv heads,
      causal), the same with window 256, whisper-base's unmasked cross
      shape (q [16, 448, 8, 64] against [16, 1500, 8, 64]) and qwen2-vl-2b's
-     head dim 128 ([2, 2048, 12, 128], 2 kv heads): dq, dk and dv within
-     2e-2 of max(1, |plain|), a planted control (the kernel given a zero
-     o, so D = 0 and dS = P o dP) failing that,
-     and each timed three times interleaved with SDPA's backward.  (b)
+     head dim 128 ([2, 2048, 12, 128], 2 kv heads, G split over blocks):
+     the forward's output the same bits with and without its log-sum-exp,
+     that log-sum-exp within 1e-3 of the plain one, dq, dk and dv within
+     2e-2 of max(1, |plain|), two backward calls the same bits, a planted
+     control (the kernels given a zero o, so D = 0 and dS = P o dP)
+     failing that, and each timed three times interleaved with SDPA's
+     backward (granite's forward also with and without the
+     log-sum-exp).  (b)
      granite-3-2b at full width (40 layers, random seeded weights) through
      ``launch.train.train``: 5 AdamW steps of 4 x 1024 tokens with the
      BranchyNet joint loss; finite losses and grad norms, 40 forward and
@@ -968,7 +972,7 @@ def main(argv=None):
     # ---- phase 14: training with the flash backward kernel ------------
     gc.collect()
     torch.cuda.empty_cache()
-    tr, tr_launches = run_training(torch, F, ops, ref, results)
+    tr, tr_launches = run_training(torch, ops, ref, results)
 
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
@@ -4272,6 +4276,9 @@ def run_forward(torch, ops):
 
 
 # ---- phase 14: training with the flash backward kernel -----------------
+LSE_TOL = 1e-3     # absolute, fp32: the forward's log-sum-exp against the
+                   # plain one (the kernel's exp2 is the MUFU approximation,
+                   # its scores sum in another order)
 BWD_TOL = 2e-2     # of max(1, |plain|): bf16 dq, dk, dv; the kernel feeds
                    # P and dS to the tensor cores in bf16 (2^-9 relative
                    # each) and sums in fp32 in another order than the plain
@@ -4284,12 +4291,6 @@ GRAD_GATE = 5e-2   # relative L2 error per leaf between a step's gradients
                    # CPU tests hold the port to the reference at the same
                    # limit (PERF.md §2)
 RESUME_RTOL = 1e-3  # a resumed step's loss against the uninterrupted run's
-BWD_SHAPES = {     # (B, Sq, Skv, Nq, Nkv, H, causal, window)
-    "granite": (4, 1024, 1024, 32, 8, 64, True, 0),
-    "granite window 256": (4, 1024, 1024, 32, 8, 64, True, 256),
-    "whisper cross": (16, 448, 1500, 8, 8, 64, False, 0),
-    "qwen2-vl H 128": (2, 2048, 2048, 12, 2, 128, True, 0),
-}
 TRAIN_BATCH = (4, 1024)    # (b)'s granite-3-2b batch
 TRAIN_STEPS = 5
 GATE_BATCH = (2, 2048)     # (c)'s 4-layer cut
@@ -4297,44 +4298,26 @@ T100 = dict(steps=200, ckpt_every=100)   # (d): examples/torch/train_100m.py
 
 
 def flash_bwd_bound(make_mask, q, k, causal, window):
-    """Bytes: q, k, v, o and dO read once, dq, dk and dv written once;
-    operations: 10 H per unmasked (query, key) pair (the five products),
-    per sequence and query head, at the bf16 peak.  The kernel's recompute
-    of Q K^T is not counted."""
+    """Bytes: q, k, v, o, dO (bf16) and the forward's log-sum-exp (fp32)
+    read once, dq, dk and dv written once; operations: 10 H per unmasked
+    (query, key) pair (the five products), per sequence and query head,
+    at the bf16 peak.  The kernels' second S and dP (seven products for
+    the work's five) are not counted."""
     b, sq, nq, h = q.shape
     pairs = int(make_mask(sq, k.shape[1], causal=causal,
                           window=window).sum())
-    return bound((4 * q.numel() + 4 * k.numel()) * 2,
+    return bound((4 * q.numel() + 4 * k.numel()) * 2 + 4 * b * nq * sq,
                  10 * h * pairs * b * nq)
 
 
-def sdpa_bwd(torch, F, make_mask, q, k, v, do, causal, window):
-    """The library yardstick for the backward: SDPA's backward alone on
-    the BHSD views of the same tensors (``enable_gqa``; the forward's
-    graph retained, so each call runs only the backward); a window goes
-    in as a boolean mask."""
-    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
-                  for t in (q, k, v))
-    mask = None
-    if window:
-        mask = make_mask(q.shape[1], k.shape[1], causal=causal,
-                         window=window, device=q.device)
-    out = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
-        enable_gqa=True)
-    dot = do.transpose(1, 2)
-
-    def call():
-        return torch.autograd.grad(out, (qt, kt, vt), dot,
-                                   retain_graph=True)
-    return call
-
-
-def check_flash_bwd(torch, F, ops, ref, gen, label, shape):
-    """(a) for one shape: the kernel against the plain backward, the
-    planted control (the kernel given a zero o, so D = rowsum(dO o O) = 0
-    and dS = P o dP) against the same, and the kernel timed three times
-    interleaved with SDPA's backward."""
+def check_flash_bwd(torch, ops, ref, gen, label, shape):
+    """(a) for one shape: the forward's output with and without its
+    log-sum-exp (the same bits) and that log-sum-exp against the plain one
+    (LSE_TOL), the kernels against the plain backward, a second call (the
+    same bits), the planted control (the kernels given a zero o, so D =
+    rowsum(dO o O) = 0 and dS = P o dP) against the same, and the kernels
+    timed three times interleaved with SDPA's backward."""
+    from repro_torch.launch.kernel_ab import sdpa_bwd
     from repro_torch.models.attention import make_mask
     b, sq, skv, nq, nkv, h, causal, window = shape
 
@@ -4342,12 +4325,21 @@ def check_flash_bwd(torch, F, ops, ref, gen, label, shape):
         return torch.randn(*s, generator=gen, device="cuda").bfloat16()
     q, k, v = rnd(b, sq, nq, h), rnd(b, skv, nkv, h), rnd(b, skv, nkv, h)
     do = rnd(b, sq, nq, h)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+    o, lse = ops.flash_attention_with_lse(q, k, v, causal=causal,
+                                          window=window)
+    o_same = torch.equal(o, ops.flash_attention(q, k, v, causal=causal,
+                                                window=window))
+    lse_err = (lse - ref.flash_attention_lse_ref(
+        q, k, causal=causal, window=window)).abs().max().item()
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                   window=window)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                    window=window)
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    del again
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                        window=window)
-    bad = ops.flash_attention_bwd(q, k, v, torch.zeros_like(o), do,
+    bad = ops.flash_attention_bwd(q, k, v, torch.zeros_like(o), do, lse,
                                   causal=causal, window=window)
     torch.cuda.synchronize()
 
@@ -4362,37 +4354,66 @@ def check_flash_bwd(torch, F, ops, ref, gen, label, shape):
     print(f"flash_attention_bwd {label} q {tuple(q.shape)} k "
           f"{tuple(k.shape)} causal {causal} window {window}: max_abs_err "
           f"{err:.3e}, of max(1, |plain|) {rel:.3e} (tol {BWD_TOL}); "
-          f"planted control (no D) {ctrl:.3e}")
+          f"planted control (no D) {ctrl:.3e}; two calls the same bits "
+          f"{same}; the forward's O the same bits with its log-sum-exp "
+          f"{o_same}, which is {lse_err:.3e} from the plain one (tol "
+          f"{LSE_TOL})")
     if not finite or not rel <= BWD_TOL:
         fail(f"flash_attention_bwd disagrees with its plain version "
              f"({label})")
     if not ctrl > BWD_TOL:
         fail(f"the backward check passes a planted fault ({label})")
+    if not same:
+        fail(f"flash_attention_bwd gives other bits on a second call "
+             f"({label})")
+    if not o_same:
+        fail(f"the flash forward's O changes with its log-sum-exp output "
+             f"({label})")
+    if not lse_err <= LSE_TOL:
+        fail(f"the flash forward's log-sum-exp disagrees with the plain "
+             f"one ({label})")
     del got, want, bad
 
-    def kernel(q, k, v, o, do):
-        return ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+    def kernel(q, k, v, o, do, lse):
+        return ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                        window=window)
 
-    def plain(q, k, v, o, do):
-        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                           window=window)
-    lib = sdpa_bwd(torch, F, make_mask, q, k, v, do, causal, window)
+    def plain(q, k, v, o, do, lse):
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                           causal=causal, window=window)
+    lib = sdpa_bwd(q, k, v, do, causal, window)
     spread = interleaved_ms(torch, kernel, lambda: lib(),
-                            [(q, k, v, o, do)], lib_args=[()])
+                            [(q, k, v, o, do, lse)], lib_args=[()])
     print_spread(f"flash_attention_bwd {label}", spread)
     bnd = flash_bwd_bound(make_mask, q, k, causal, window)
     row = {"shapes": [list(t.shape) for t in (q, k, v, o, do)],
            "causal": causal, "window": window, "max_abs_err": err,
            "max_err_of_plain": rel, "control_err": ctrl,
+           "lse_err": lse_err, "same_bits": same,
            "ms": spread["kernel"]["median"],
-           "plain_ms": device_ms(torch, plain, [(q, k, v, o, do)], iters=2),
+           "plain_ms": device_ms(torch, plain, [(q, k, v, o, do, lse)],
+                                 iters=2),
            "library_ms": spread["library"]["median"], "bound_ms": bnd[0],
            "bound_by": bnd[1], "spread": spread}
     print(f"  {label}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f}"
           f" ms, SDPA backward {row['library_ms']:.4f} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
           f"{row['bound_ms'] / row['ms'] * 100:.1f} % of it)")
+    if label == "granite":
+        # the forward at the training shape, with and without the
+        # log-sum-exp, in turns
+        def fwd_lse(q, k, v):
+            return ops.flash_attention_with_lse(q, k, v, causal=causal,
+                                                window=window)
+
+        def fwd(q, k, v):
+            return ops.flash_attention(q, k, v, causal=causal, window=window)
+        fspread = interleaved_ms(torch, fwd_lse, fwd, [(q, k, v)])
+        row["forward_ms"] = {"with_lse": fspread["kernel"]["median"],
+                             "without": fspread["library"]["median"]}
+        print(f"  {label}: the forward {row['forward_ms']['with_lse']:.4f} "
+              f"ms with its log-sum-exp, {row['forward_ms']['without']:.4f}"
+              f" ms without")
     return row
 
 
@@ -4402,7 +4423,7 @@ def rel_l2(torch, got, want):
             / want.float().norm().clamp(min=1e-30)).item()
 
 
-def run_training(torch, F, ops, ref, results):
+def run_training(torch, ops, ref, results):
     """Phase 14 (see the module docstring).  Returns a summary and the
     launch counts of each part."""
     import importlib.util
@@ -4410,6 +4431,7 @@ def run_training(torch, F, ops, ref, results):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.data import batch_for_model
+    from repro_torch.launch.kernel_ab import BWD_SHAPES
     from repro_torch.launch.train import train
     from repro_torch.models import Model, blocks
     from repro_torch.models.common import (softmax_cross_entropy,
@@ -4423,14 +4445,15 @@ def run_training(torch, F, ops, ref, results):
     gen = torch.Generator(device="cuda").manual_seed(14)
 
     # (a) the backward kernel against its plain version, timed
-    rows = {label: check_flash_bwd(torch, F, ops, ref, gen, label, shape)
+    rows = {label: check_flash_bwd(torch, ops, ref, gen, label, shape)
             for label, shape in BWD_SHAPES.items()}
     main_row = dict(rows["granite"])
     main_row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     main_row["other_shapes"] = {k: {kk: r[kk] for kk in (
         "shapes", "causal", "window", "max_abs_err", "max_err_of_plain",
-        "control_err", "ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by")} for k, r in rows.items() if k != "granite"}
+        "control_err", "lse_err", "same_bits", "ms", "plain_ms",
+        "library_ms", "bound_ms", "bound_by")}
+        for k, r in rows.items() if k != "granite"}
     results["flash_attention_bwd"] = main_row
     out["bwd_rows"] = {k: {kk: v for kk, v in r.items() if kk != "spread"}
                        for k, r in rows.items()}
@@ -4541,13 +4564,18 @@ def run_training(torch, F, ops, ref, results):
     profile = {"wall_ms": prof_s * 1e3, "kernel_ms": kern_ms,
                "busy": kern_ms / (prof_s * 1e3),
                "flash_fwd_ms": named("flash_fwd_kernel"),
-               "flash_bwd_ms": named("dq_kernel", "dkv_kernel"),
+               "flash_bwd_ms": named("flash_bwd_"),
+               "flash_bwd_parts_ms": {
+                   part: named(f"flash_bwd_{part}_kernel")
+                   for part in ("prep", "dq", "dkv", "sum")},
                "kernels": sum(e.count for e in events), "top": top}
+    bwd_parts = {k2: round(v2, 3)
+                 for k2, v2 in profile["flash_bwd_parts_ms"].items()}
     print(f"  torch.profiler step: wall {prof_s * 1e3:.1f} ms, device "
           f"kernels {kern_ms:.1f} ms (busy {profile['busy'] * 100:.1f} %), "
           f"{profile['kernels']} kernels; flash forward "
           f"{profile['flash_fwd_ms']:.2f} ms, flash backward "
-          f"{profile['flash_bwd_ms']:.2f} ms; top "
+          f"{profile['flash_bwd_ms']:.2f} ms {bwd_parts}; top "
           f"{[(t['name'][:40], round(t['ms'], 2), t['calls']) for t in top]}")
 
     def events_ms(fn, reps=3):
@@ -4622,8 +4650,8 @@ def run_training(torch, F, ops, ref, results):
         return orig_plain[0](q, k, v, causal=causal, window=window)
     kernel_fwd, kernel_bwd = ops.flash_attention, ops.flash_attention_bwd
 
-    def bwd_without_d(q, k, v, o, do, **kw):
-        return kernel_bwd(q, k, v, torch.zeros_like(o), do, **kw)
+    def bwd_without_d(q, k, v, o, do, lse, **kw):
+        return kernel_bwd(q, k, v, torch.zeros_like(o), do, lse, **kw)
 
     def gradients(label):
         for p in leaves:

@@ -63,12 +63,12 @@ SIGNATURES = {
     },
     "flash_attention": {
         "repro_flash_attention": (
-            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     },
     "flash_attention_bwd": {
         "repro_flash_attention_bwd": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-             _I, _I, _F, _P], _I),
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _I, _I, _F, _I, _P], _I),
     },
     "w8a8_expert": {
         "repro_w8a8_k_step": ([], _I),

@@ -60,6 +60,16 @@
 //    NEG_INF and p = 1 until a tile with a valid key rescales that away by
 //    exp(NEG_INF - m) = 0 (with -inf the same row would give NaN).
 //  The softmax runs in base 2: the scale folds log2(e) in, so exp2 serves.
+//
+// On request (a non-null `lse`, as training asks), the epilogue also writes
+// each stored row's log-sum-exp for the backward
+// (csrc/flash_attention_bwd.cu) in natural-log units:
+//   L_i = log sum_j exp(s_ij) = (m + log2 l) * ln 2,
+// with m and l the row's base-2 running maximum and sum; fp32 [B, Nq, Sq].
+// That is an instance of its own (the LSE template flag), so the instance
+// every call without it runs is the code it was: with the store in one
+// instance for both, the H 128 rows ran 4-8 % slower.  O is computed the
+// same way in both.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,6 +79,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int BM = 128;        // query rows per block (64 per consumer)
 constexpr int BN = 128;        // keys per tile
@@ -285,12 +296,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 // 16w + g + 8 * (i >> 1), column 8j + 2t + (i & 1).  So two neighbouring
 // 8-column groups of S, rounded to bf16, are the register A fragment of P
 // over those 16 keys (a0 row g, a1 row g + 8, a2 / a3 the next 8 keys).
-template <int H>
+// LSE: the instance that also writes the rows' log-sum-exp (training's);
+// the other is the code it was before that output existed.
+template <int H, bool LSE>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  __nv_bfloat16* __restrict__ out,     // [B, Sq, Nq, H]
+                 float* __restrict__ lse,             // [B, Nq, Sq] or null
                  int sq, int skv, int nq, int nkv, int causal, int window,
                  float scale_log2) {
   using C = Cfg<H>;
@@ -526,6 +540,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float denom = fmaxf(l[h], 1e-30f);
       const int row = r0 + h * 8;
       if (row < sq) {
+        if (LSE && t4 == 0)
+          lse[((size_t)blockIdx.y * nq + qh) * sq + row] =
+              (m[h] + log2f(l[h])) * kLn2;
         __nv_bfloat16* orow = ob + (size_t)row * nq * H;
 #pragma unroll
         for (int j = 0; j < H / 8; ++j)
@@ -580,26 +597,25 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int N, int H,
 
 template <int H>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int sq, int skv, int nq, int nkv, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   float* lse, int B, int sq, int skv, int nq, int nkv,
+                   int causal, int window, float scale, cudaStream_t stream) {
   using C = Cfg<H>;
-  static bool attr_set = false;   // one attribute call per instance
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::SMEM);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  const auto kernel = lse != nullptr ? flash_fwd_kernel<H, true>
+                                     : flash_fwd_kernel<H, false>;
+  // set on every call: an attribute set once from one host thread is not
+  // in effect in another (autograd's worker thread, for one)
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, B, sq, nq, H, BM) ||
       !make_map(&mk, k, B, skv, nkv, H, BN) ||
       !make_map(&mv, v, B, skv, nkv, H, BN))
     return cudaErrorInvalidValue;
   dim3 grid(nq, B, (sq + BM - 1) / BM);
-  flash_fwd_kernel<H><<<grid, NT, C::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), sq, skv, nq, nkv, causal,
-      window, scale * kLog2e);
+  kernel<<<grid, NT, C::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, sq, skv, nq, nkv,
+      causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -609,22 +625,23 @@ extern "C" {
 
 // q/out [B, Sq, Nq, H], k/v [B, Skv, Nkv, H], bf16, contiguous, 16-byte
 // aligned; Nq a multiple of Nkv; H 64 or 128; B and ceil(Sq / 128) below
-// 65536.  Launches on `stream` and returns cudaGetLastError() (0 =
-// launched; cudaErrorInvalidValue when a tensor map cannot be made).
+// 65536.  lse: null, or fp32 [B, Nq, Sq] for each row's log-sum-exp.
+// Launches on `stream` and returns cudaGetLastError() (0 = launched;
+// cudaErrorInvalidValue when a tensor map cannot be made).
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int B, int sq, int skv, int nq, int nkv,
-                          int H, int causal, int window, float scale,
-                          void* stream) {
+                          void* out, void* lse, int B, int sq, int skv,
+                          int nq, int nkv, int H, int causal, int window,
+                          float scale, void* stream) {
   if (B <= 0 || B >= 65536 || sq <= 0 || (sq + BM - 1) / BM >= 65536 ||
       skv <= 0 || nkv <= 0 || nq % nkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H == 64)
-    return (int)launch<64>(q, k, v, out, B, sq, skv, nq, nkv, causal, window,
-                           scale, s);
+    return (int)launch<64>(q, k, v, out, static_cast<float*>(lse), B, sq,
+                           skv, nq, nkv, causal, window, scale, s);
   if (H == 128)
-    return (int)launch<128>(q, k, v, out, B, sq, skv, nq, nkv, causal,
-                            window, scale, s);
+    return (int)launch<128>(q, k, v, out, static_cast<float*>(lse), B, sq,
+                            skv, nq, nkv, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

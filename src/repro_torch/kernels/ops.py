@@ -89,25 +89,40 @@ def _check_flash(q, k, v, window, what):
              f"{what} q, k and v must be 16-byte aligned")
 
 
-def _flash_forward(q, k, v, causal, window):
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             window: int = 0):
+    """``flash_attention``'s forward without autograd, also returning each
+    row's log-sum-exp: (out [B, Sq, Nq, H], lse fp32 [B, Nq, Sq], natural
+    log).  One forward launch on the card (counted as
+    ``flash_attention``), the plain versions on the CPU."""
+    return _flash_forward(q, k, v, causal, window, with_lse=True)
+
+
+def _flash_forward(q, k, v, causal, window, with_lse=False):
     if not _on_card(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        out = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        if not with_lse:
+            return out
+        return out, ref.flash_attention_lse_ref(q, k, causal=causal,
+                                                window=window)
     _check_flash(q, k, v, window, "flash_attention")
-    out = _flash.attention_cuda(q, k, v, causal, window)
+    res = _flash.attention_cuda(q, k, v, causal, window, with_lse)
     LAUNCHES["flash_attention"] += 1
-    return out
+    return res
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         window: int = 0):
     """Gradients (dq, dk, dv) of ``flash_attention`` at output ``o`` for
-    the output gradient ``do`` (both [B, Sq, Nq, H]): the hand-written
-    backward kernel on the card, ``ref.flash_attention_bwd_ref`` on the
-    CPU.  ``do`` may be any layout (it is made contiguous)."""
+    the output gradient ``do`` (both [B, Sq, Nq, H]) and the forward's
+    log-sum-exp ``lse`` (fp32 [B, Nq, Sq]): the hand-written backward
+    kernels on the card, ``ref.flash_attention_bwd_ref`` on the CPU.  D =
+    rowsum(do * o) is taken from ``o``.  ``do`` may be any layout (it is
+    made contiguous)."""
     do = do.contiguous()
-    if not _on_card(q, k, v, o, do):
-        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                           window=window)
+    if not _on_card(q, k, v, o, do, lse):
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                           causal=causal, window=window)
     _check_flash(q, k, v, window, "flash_attention_bwd")
     _require(o.shape == q.shape and do.shape == q.shape
              and o.dtype == do.dtype == torch.bfloat16,
@@ -117,29 +132,39 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
              and do.data_ptr() % 16 == 0,
              "flash_attention_bwd o and do must be contiguous and 16-byte "
              "aligned")
+    b, sq, nq, _ = q.shape
+    _require(lse.shape == (b, nq, sq) and lse.dtype == torch.float32
+             and lse.is_contiguous(),
+             f"flash_attention_bwd lse {tuple(lse.shape)} {lse.dtype} for q "
+             f"{tuple(q.shape)}: contiguous fp32 [B, Nq, Sq]")
     _require(causal or window == 0,
              "flash_attention_bwd takes a window only with the causal mask")
-    grads = _flash.attention_bwd_cuda(q, k, v, o, do, causal, window)
+    grads = _flash.attention_bwd_cuda(q, k, v, o, do, lse, causal, window)
     LAUNCHES["flash_attention_bwd"] += 1
     return grads
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, with the backward kernel as its gradient."""
+    """The forward kernel, with the backward kernel as its gradient.  The
+    forward writes the rows' log-sum-exp only when a gradient will be
+    taken (``with_lse``), and saves it with q, k, v and the output."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out = _flash_forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, window, with_lse):
         ctx.causal, ctx.window = causal, window
+        if not with_lse:
+            return _flash_forward(q, k, v, causal, window)
+        out, lse = _flash_forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse,
+                                         causal=ctx.causal,
                                          window=ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -148,8 +173,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     and/or sliding-window masked -> [B, Sq, Nq, H] in q's dtype.  No head
     repeat and no transpose copy: the kernel reads the layout as it is.
     Differentiable: a ``torch.autograd.Function`` whose backward is
-    ``flash_attention_bwd`` (the backward kernel on the card)."""
-    return _FlashAttention.apply(q, k, v, causal, window)
+    ``flash_attention_bwd`` (the backward kernels on the card); the
+    forward writes the log-sum-exp the backward takes only when grad mode
+    is on and an input requires grad."""
+    with_lse = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, window, with_lse)
 
 
 def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):

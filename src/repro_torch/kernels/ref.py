@@ -38,17 +38,22 @@ def _attention_mask(sq, skv, causal, window, device):
     return mask
 
 
-def _attention_probs(q, k, causal, window):
-    """fp32 softmax probabilities [B, Nkv, G, Sq, Skv] of the masked,
-    scaled scores (NEG_INF where a key is masked)."""
+def _attention_scores(q, k, causal, window):
+    """fp32 masked, scaled scores [B, Nkv, G, Sq, Skv] (NEG_INF where a
+    key is masked)."""
     b, sq, nq, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, nkv, nq // nkv, hd)
     s = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float()) \
         * (1.0 / math.sqrt(hd))
-    s = s.masked_fill(~_attention_mask(sq, skv, causal, window, q.device),
-                      NEG_INF)
-    return torch.softmax(s, dim=-1)
+    return s.masked_fill(~_attention_mask(sq, skv, causal, window, q.device),
+                         NEG_INF)
+
+
+def _attention_probs(q, k, causal, window):
+    """fp32 softmax probabilities [B, Nkv, G, Sq, Skv] of the masked,
+    scaled scores."""
+    return torch.softmax(_attention_scores(q, k, causal, window), dim=-1)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
@@ -64,19 +69,33 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return out.reshape(b, sq, nq, hd).to(q.dtype)
 
 
-def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
+def flash_attention_lse_ref(q, k, *, causal: bool = True, window: int = 0):
+    """Each row's log-sum-exp, natural log, of the masked, scaled fp32
+    scores of ``flash_attention_ref``: q [B, Sq, Nq, H], k [B, Skv, Nkv, H]
+    -> fp32 [B, Nq, Sq], what the forward kernel writes for the
+    backward."""
+    b, sq, nq, _ = q.shape
+    s = _attention_scores(q, k, causal, window)
+    return torch.logsumexp(s, dim=-1).reshape(b, nq, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
                             window: int = 0):
     """Gradients of ``flash_attention_ref`` from the textbook formulas, in
-    fp32: P = softmax(masked Q K^T / sqrt(H)), dV = P^T dO, dP = dO V^T,
+    fp32, with P from the forward's log-sum-exp as the kernel takes it:
+    P = exp(masked Q K^T / sqrt(H) - L), dV = P^T dO, dP = dO V^T,
     D = rowsum(dO o O), dS = P o (dP - D), dQ = dS K / sqrt(H),
     dK = dS^T Q / sqrt(H); dK and dV sum over each kv head's G query heads.
-    q, o, do [B, Sq, Nq, H], k/v [B, Skv, Nkv, H] -> (dq, dk, dv) in the
-    inputs' dtypes.  ``o`` is the forward's output as it was returned."""
+    q, o, do [B, Sq, Nq, H], k/v [B, Skv, Nkv, H], ``lse`` fp32
+    [B, Nq, Sq] (``flash_attention_lse_ref``) -> (dq, dk, dv) in the
+    inputs' dtypes.  ``o`` is the forward's output as it was returned; D
+    is taken from it."""
     b, sq, nq, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
     scale = 1.0 / math.sqrt(hd)
-    p = _attention_probs(q, k, causal, window)              # [B,n,g,s,t]
+    lg = lse.float().reshape(b, nkv, g, sq, 1)
+    p = torch.exp(_attention_scores(q, k, causal, window) - lg)  # [B,n,g,s,t]
     dog = do.reshape(b, sq, nkv, g, hd).float()
     og = o.reshape(b, sq, nkv, g, hd).float()
     qg = q.reshape(b, sq, nkv, g, hd).float()

@@ -2,8 +2,8 @@
 one card.
 
     python -m repro_torch.launch.kernel_ab --parent DIR [--kernels exit_head
-        flash_attention paged_attention paged_mla feature_compress]
-        [--json PATH]
+        flash_attention flash_attention_bwd paged_attention paged_mla
+        feature_compress] [--json PATH]
 
 ``DIR`` is a checkout of an earlier commit of this repository (for
 example ``git archive <commit> | tar -x -C DIR``).  Each named kernel's
@@ -17,7 +17,18 @@ shapes:
 
   exit_head        x [16, 2048] / W [2048, 49155] (granite-3-2b) and
                    x [16, 7168] / W [7168, 129280] (deepseek-v3);
-  flash_attention  q [8, 2048, 32, 64], k/v [8, 2048, 8, 64], causal;
+  flash_attention  q [8, 2048, 32, 64], k/v [8, 2048, 8, 64], causal, and
+                   the head dim 128 rows of chip_smoke.py's phase 2:
+                   starcoder2-3b [1, 8192, 24, 128] / 2 heads, window
+                   4096; qwen2-vl-2b [2, 2048, 12, 128] / 2; llama4
+                   [2, 2048, 40, 128] / 8 (the current kernel also with its
+                   log-sum-exp output);
+  flash_attention_bwd  the backward at chip_smoke.py's four shapes: granite
+                   q [4, 1024, 32, 64] / k, v 8 heads, causal, and with
+                   window 256; whisper's cross q [16, 448, 8, 64] / k, v
+                   [16, 1500, 8, 64], no mask; qwen2-vl q [2, 2048, 12,
+                   128] / 2 heads, causal (the parent given the current
+                   forward's o; the library call SDPA's backward alone);
   paged_attention  q [16, 1, 32, 64], pools [2048, 16, 8, 64], positions
                    below 2048 (granite-3-2b decode), and at serving's
                    lengths: 18-page tables, positions below 288 (phase 4
@@ -63,6 +74,13 @@ PARENT_SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    # as the sources before the forward wrote its log-sum-exp declare it:
+    # fp32 scratch for the log-sum-exp and D, which the kernels made
+    "flash_attention_bwd": {
+        "repro_flash_attention_bwd": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _I, _I, _F, _P], _I),
     },
     # as the sources before the split plan moved to the host declare them
     "paged_attention": {
@@ -114,15 +132,68 @@ def parent_exit_head(lib):
     return call
 
 
-def parent_flash(lib):
+def parent_flash(lib, window=0):
     def call(q, k, v):
         b, sq, nq, hd = q.shape
         out = torch.empty_like(q)
         build.check(lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            k.shape[1], nq, k.shape[2], hd, 1, 0, 1.0 / math.sqrt(hd),
+            k.shape[1], nq, k.shape[2], hd, 1, window, 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream), "parent flash")
         return out
+    return call
+
+
+FLASH_SHAPES = {   # (B, S, Nq, Nkv, H, window), causal
+    "": (8, 2048, 32, 8, 64, 0),
+    " starcoder2-3b": (1, 8192, 24, 2, 128, 4096),
+    " qwen2-vl-2b": (2, 2048, 12, 2, 128, 0),
+    " llama4-maverick": (2, 2048, 40, 8, 128, 0),
+}
+
+
+def parent_flash_bwd(lib, causal, window):
+    def call(q, k, v, o, do, lse):   # (the parent recomputes lse)
+        b, sq, nq, hd = q.shape
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        scratch = torch.empty((2, b, nq, sq), dtype=torch.float32,
+                              device=q.device)
+        build.check(lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(), b, sq, k.shape[1],
+            nq, k.shape[2], hd, int(causal), int(window),
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream),
+            "parent flash bwd")
+        return dq, dk, dv
+    return call
+
+
+BWD_SHAPES = {     # (B, Sq, Skv, Nq, Nkv, H, causal, window), as chip_smoke
+    "granite": (4, 1024, 1024, 32, 8, 64, True, 0),
+    "granite window 256": (4, 1024, 1024, 32, 8, 64, True, 256),
+    "whisper cross": (16, 448, 1500, 8, 8, 64, False, 0),
+    "qwen2-vl H 128": (2, 2048, 2048, 12, 2, 128, True, 0),
+}
+
+
+def sdpa_bwd(q, k, v, do, causal, window):
+    """SDPA's backward alone on the BHSD views (the forward's graph
+    retained); a window goes in as a boolean mask."""
+    from repro_torch.models.attention import make_mask
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    mask = None
+    if window:
+        mask = make_mask(q.shape[1], k.shape[1], causal=causal,
+                         window=window, device=q.device)
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+        enable_gqa=True)
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2),
+                                   retain_graph=True)
     return call
 
 
@@ -339,23 +410,75 @@ def run(parent: Path, kernels, rounds: int = 3):
                   f"{json.dumps(r)}", flush=True)
             del x, w
     if "flash_attention" in kernels:
-        old = parent_flash(parent_library(parent, "flash_attention"))
-        q, k, v = (torch.randn(8, 2048, n, 64, generator=gen, device="cuda")
-                   .bfloat16() for n in (32, 8, 8))
-        want = ref.flash_attention_ref(q, k, v).float()
+        lib_fwd = parent_library(parent, "flash_attention")
+        for label, (b, s, nq, nkv, hd, window) in FLASH_SHAPES.items():
+            old = parent_flash(lib_fwd, window)
+            q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
+                       .bfloat16() for n in (nq, nkv, nkv))
 
-        def err(f):
-            diff = (f(q, k, v).float() - want).abs()
-            return (diff / want.abs().clamp(min=1)).max().item()
-        errs = {"parent": err(old), "current": err(
-            lambda *a: ops.flash_attention(*a, causal=True))}
-        r = interleaved({"library": sdpa, "parent": old,
-                         "current": lambda *a: ops.flash_attention(
-                             *a, causal=True)}, [(q, k, v)], rounds, 20)
-        r["max_err_of_max1_plain"] = errs
-        results["flash_attention"] = r
-        print(f"flash_attention q {tuple(q.shape)} k {tuple(k.shape)}: "
-              f"{json.dumps(r)}", flush=True)
+            def cur(*a, window=window):
+                return ops.flash_attention(*a, causal=True, window=window)
+
+            def cur_lse(*a, window=window):
+                return ops.flash_attention_with_lse(*a, causal=True,
+                                                    window=window)
+
+            def lib(q, k, v, window=window):
+                if not window:
+                    return sdpa(q, k, v)
+                from repro_torch.models.attention import make_mask
+                mask = make_mask(q.shape[1], k.shape[1], causal=True,
+                                 window=window, device=q.device)
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True).transpose(1, 2)
+            want = ref.flash_attention_ref(q, k, v, window=window).float()
+
+            def err(f):
+                diff = (f(q, k, v).float() - want).abs()
+                return (diff / want.abs().clamp(min=1)).max().item()
+            errs = {"parent": err(old), "current": err(cur)}
+            r = interleaved({"library": lib, "parent": old, "current": cur,
+                             "current_lse": cur_lse}, [(q, k, v)], rounds,
+                            20)
+            r["max_err_of_max1_plain"] = errs
+            results["flash_attention" + label] = r
+            print(f"flash_attention{label} q {tuple(q.shape)} k "
+                  f"{tuple(k.shape)} window {window}: {json.dumps(r)}",
+                  flush=True)
+            del q, k, v, want
+    if "flash_attention_bwd" in kernels:
+        lib_bwd = parent_library(parent, "flash_attention_bwd")
+        for label, shape in BWD_SHAPES.items():
+            b, sq, skv, nq, nkv, hd, causal, window = shape
+            q, do = (torch.randn(b, sq, nq, hd, generator=gen, device="cuda")
+                     .bfloat16() for _ in range(2))
+            k, v = (torch.randn(b, skv, nkv, hd, generator=gen, device="cuda")
+                    .bfloat16() for _ in range(2))
+            o, lse = ops.flash_attention_with_lse(q, k, v, causal=causal,
+                                                  window=window)
+            args = [(q, k, v, o, do, lse)]
+            old = parent_flash_bwd(lib_bwd, causal, window)
+
+            def cur(*a, causal=causal, window=window):
+                return ops.flash_attention_bwd(*a, causal=causal,
+                                               window=window)
+            want = ref.flash_attention_bwd_ref(*args[0], causal=causal,
+                                               window=window)
+            errs = {n: max(((a.float() - w.float()).abs()
+                            / w.float().abs().clamp(min=1)).max().item()
+                           for a, w in zip(f(*args[0]), want))
+                    for n, f in (("parent", old), ("current", cur))}
+            r = interleaved({"library": sdpa_bwd(q, k, v, do, causal,
+                                                 window),
+                             "parent": old, "current": cur},
+                            {"library": [()], "parent": args,
+                             "current": args}, rounds, 20)
+            r["max_err_of_max1_plain"] = errs
+            results[f"flash_attention_bwd {label}"] = r
+            print(f"flash_attention_bwd {label} q {tuple(q.shape)} k "
+                  f"{tuple(k.shape)}: {json.dumps(r)}", flush=True)
+            del q, k, v, o, do, lse, args, want
     if "paged_attention" in kernels:
         old = parent_paged_gqa(parent_library(parent, "paged_attention"))
         prep, lib = sdpa_gathered()
@@ -429,8 +552,8 @@ def run(parent: Path, kernels, rounds: int = 3):
     return results
 
 
-KERNELS = ["exit_head", "flash_attention", "paged_attention", "paged_mla",
-           "feature_compress"]
+KERNELS = ["exit_head", "flash_attention", "flash_attention_bwd",
+           "paged_attention", "paged_mla", "feature_compress"]
 
 
 def main(argv=None):

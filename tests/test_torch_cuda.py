@@ -421,19 +421,21 @@ BWD_TOL = 2e-2      # of max(1, |plain|): bf16 gradients; the kernel
 
 
 def _check_flash_bwd(q, k, v, causal, window, drop_d=False):
-    """dq, dk, dv of the backward kernel against the plain backward on the
-    same o and dO; returns the worst error of max(1, |plain|).  With
-    ``drop_d`` the kernel is handed a zero o, so its D = rowsum(dO o O)
-    is 0 and dS = P o dP: the planted control."""
+    """dq, dk, dv of the backward kernels against the plain backward on the
+    same o, dO and log-sum-exp (the forward kernel's); returns the worst
+    error of max(1, |plain|).  With ``drop_d`` the kernels are handed a
+    zero o, so their D = rowsum(dO o O) is 0 and dS = P o dP: the planted
+    control."""
     g = torch.Generator(device=q.device).manual_seed(q.shape[1])
     do = torch.randn(q.shape, generator=g, device=q.device).bfloat16()
-    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    o, lse = ops.flash_attention_with_lse(q, k, v, causal=causal,
+                                          window=window)
     n0 = ops.LAUNCHES["flash_attention_bwd"]
     got = ops.flash_attention_bwd(q, k, v,
                                   torch.zeros_like(o) if drop_d else o, do,
-                                  causal=causal, window=window)
+                                  lse, causal=causal, window=window)
     assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                        window=window)
     torch.cuda.synchronize()
     worst = 0.0
@@ -456,11 +458,83 @@ def _check_flash_bwd(q, k, v, causal, window, drop_d=False):
     (1, 130, 130, 4, 4, 128, True, 17),
     (2, 45, 130, 8, 8, 64, False, 0),       # cross-attention, no mask
     (2, 200, 1500, 8, 8, 64, False, 0),     # whisper's 1,500 frames
-    (1, 130, 100, 4, 2, 128, False, 0)])    # Skv < Sq, both ragged
+    (1, 130, 100, 4, 2, 128, False, 0),     # Skv < Sq, both ragged
+    (1, 256, 256, 16, 1, 64, True, 0),      # G 16 split over blocks, H 64
+    (1, 77, 93, 8, 2, 64, True, 0)])        # no length a tile's multiple
 def test_flash_bwd_kernel_matches_plain(cuda, b, sq, skv, nq, nkv, hd,
                                         causal, window):
     q, k, v = _qkv(cuda, b, sq, skv, nq, nkv, hd, seed=sq + skv + hd)
     assert _check_flash_bwd(q, k, v, causal, window) <= BWD_TOL
+
+
+@pytest.mark.parametrize("b,sq,skv,nq,nkv,hd", [
+    (2, 200, 200, 12, 2, 128),      # qwen2-vl's heads: G 6 in 6 shares
+    (1, 256, 256, 16, 1, 64)])      # G 16 in 16 shares
+def test_flash_bwd_takes_the_g_split(cuda, b, sq, skv, nq, nkv, hd):
+    """These shapes give fewer dK/dV blocks than SMs, so the kernel splits
+    G over blocks and sums fp32 partials (held in the test above)."""
+    from repro_torch.kernels import flash_attention as flash
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert flash.bwd_splits(b, skv, nkv, nq // nkv, sms) > 1
+
+
+@pytest.mark.parametrize("b,sq,skv,nq,nkv,hd,causal,window", [
+    (2, 300, 300, 32, 8, 64, True, 64),
+    (2, 200, 200, 12, 2, 128, True, 0),
+    (2, 45, 1500, 8, 8, 64, False, 0),
+    (1, 77, 93, 8, 2, 128, True, 0)])
+def test_flash_forward_lse(cuda, b, sq, skv, nq, nkv, hd, causal, window):
+    """The forward's output is the same bits with and without the
+    log-sum-exp output, and the kernel's log-sum-exp is the plain one's
+    within 1e-3 (fp32; the kernel's exp2 is the MUFU approximation and
+    its scores sum in another order)."""
+    q, k, v = _qkv(cuda, b, sq, skv, nq, nkv, hd, seed=sq + hd)
+    n0 = ops.LAUNCHES["flash_attention"]
+    out, lse = ops.flash_attention_with_lse(q, k, v, causal=causal,
+                                            window=window)
+    plain = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_lse_ref(q, k, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0 + 2
+    assert torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (b, nq, sq)
+    assert (lse - want).abs().max().item() <= 1e-3
+
+
+def test_flash_kernels_launch_from_another_thread(cuda):
+    """The kernels' shared-memory attribute is set on every launch: one set
+    from the main thread is not in effect on another host thread, where
+    autograd runs the backward (the launch was refused there)."""
+    import threading
+    q, k, v = _qkv(cuda, 2, 100, 100, 8, 2, 64, seed=7)
+    o, lse = ops.flash_attention_with_lse(q, k, v)
+    errors = []
+
+    def work():
+        try:
+            ops.flash_attention(q, k, v)
+            ops.flash_attention_bwd(q, k, v, o, o, lse)
+            torch.cuda.synchronize()
+        except Exception as exc:       # reported on the main thread below
+            errors.append(exc)
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join()
+    assert errors == []
+
+
+def test_flash_bwd_is_deterministic(cuda):
+    """No atomics: two backward calls give the same bits, at a shape that
+    splits G over blocks and at one that does not."""
+    for shape in ((2, 200, 200, 12, 2, 128), (2, 300, 300, 32, 8, 64)):
+        q, k, v = _qkv(cuda, *shape, seed=5)
+        g = torch.Generator(device=cuda).manual_seed(6)
+        do = torch.randn(q.shape, generator=g, device=cuda).bfloat16()
+        o, lse = ops.flash_attention_with_lse(q, k, v, causal=True)
+        first = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+        second = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
@@ -493,13 +567,15 @@ def test_flash_function_backward_launches_the_kernel(cuda, monkeypatch):
 
 def test_flash_bwd_wrapper_raises_instead_of_falling_back(cuda):
     q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, 64)
-    o = ops.flash_attention(q, k, v)
+    o, lse = ops.flash_attention_with_lse(q, k, v)
     with pytest.raises(ValueError):             # fp32 dO
-        ops.flash_attention_bwd(q, k, v, o, o.float())
+        ops.flash_attention_bwd(q, k, v, o, o.float(), lse)
     with pytest.raises(ValueError):             # a window without causal
-        ops.flash_attention_bwd(q, k, v, o, o, causal=False, window=8)
+        ops.flash_attention_bwd(q, k, v, o, o, lse, causal=False, window=8)
     with pytest.raises(ValueError):             # CPU / CUDA mix
-        ops.flash_attention_bwd(q, k, v, o.cpu(), o)
+        ops.flash_attention_bwd(q, k, v, o.cpu(), o, lse)
+    with pytest.raises(ValueError):             # a bf16 log-sum-exp
+        ops.flash_attention_bwd(q, k, v, o, o, lse.bfloat16())
 
 
 def test_smoke_train_step_card_matches_cpu(cuda):

@@ -68,7 +68,8 @@ def test_bwd_ref_matches_jax_vjp_of_reference_sdpa(causal, window, g, sq,
     o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(o.numpy(), np.asarray(out), rtol=0,
                                atol=FP32_TOL)
-    got = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+    lse = ref.flash_attention_lse_ref(q, k, causal=causal, window=window)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                       window=window)
     for name, a, w in zip("qkv", got, want):
         assert a.shape == w.shape and a.dtype == torch.float32, name
@@ -114,8 +115,9 @@ def test_bwd_without_d_is_far_from_the_gradient():
     dK by far more than the tolerance, and leaves dV as it is."""
     q, k, v, do = _inputs(torch.float32, 4, 24, 24, seed=2)
     o = ref.flash_attention_ref(q, k, v, causal=True)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True)
-    bad = ref.flash_attention_bwd_ref(q, k, v, torch.zeros_like(o), do,
+    lse = ref.flash_attention_lse_ref(q, k, causal=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=True)
+    bad = ref.flash_attention_bwd_ref(q, k, v, torch.zeros_like(o), do, lse,
                                       causal=True)
     assert _rel(bad[0], want[0]) > 10 * BF16_TOL
     assert _rel(bad[1], want[1]) > 10 * BF16_TOL
