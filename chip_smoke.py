@@ -209,6 +209,30 @@ Phases, each fatal on failure:
      uninterrupted losses.  (e) ``quickstart.py``,
      ``resilient_inference.py`` (its assertion holds) and
      ``collaborative_serving.py`` on the card, with their launch counts.
+ 15. the analyzer's runtime guards and cost check (``repro_torch.
+     analysis``).  (a) granite-3-2b at full width cut to 16 layers,
+     paged with the prefix cache, 16 slots, async windows of 8: two waves
+     of 8 requests over two shared 32-token prefixes (the second wave
+     hits them) under ``SlotAudit`` after every poll, and the second
+     wave's decode polls, after the first wave's capture, under
+     ``no_recompile`` (bound 0), ``guard_polling`` (sync debug mode
+     "error") and ``guard_sync_budget`` (bound 1); tokens equal to an
+     unguarded pool's.  (b) granite-3-2b cut to 8 layers as the draft and
+     the target of a tiered cluster whose device tier dies mid-trace (a
+     slot migrates, a request completes through the speculative bridge,
+     the drain requeues the rest) under ``SlotAudit``.  (c) the CST001 cost check at full width (40
+     layers, 16 slots, max_len 256; a paged segmented and a contiguous
+     monolithic arena, paged attention launching): each arena's
+     measured and analytic FLOPs per token and their ratio, inside
+     ``costcheck.TOLERANCE``; and the smoke audit stack counting the
+     same FLOPs on the card as on the CPU.  (d) planted controls that
+     must fail: a live page's refcount bumped (``SlotAudit``), an extra
+     ``.item()`` in a poll (``guard_sync_budget``), a cache leaf rebound
+     under the built window (``no_recompile``), the analytic cost scaled
+     by 4 (CST001).  (e) paged GQA, paged MLA and both exit-head
+     instances launched from a second host thread (each sets its
+     shared-memory attribute on every launch) with the main thread's
+     bits.
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
@@ -974,6 +998,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     tr, tr_launches = run_training(torch, ops, ref, results)
 
+    # ---- phase 15: the analyzer's guards and cost check ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    guards, guard_launches = run_guards(torch, ops)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -1046,6 +1075,8 @@ def main(argv=None):
             part: n[kname] for part, n in l4_launches.items()}
         kernels[-1]["phase14_launches"] = {
             part: n[kname] for part, n in tr_launches.items()}
+        kernels[-1]["phase15_launches"] = {
+            part: n[kname] for part, n in guard_launches.items()}
         if kname in ("w8a8_expert_matmul", "flash_attention_bwd"):
             kernels[-1]["pallas_counterpart"] = None
         if kname == "flash_attention_bwd":
@@ -1061,7 +1092,7 @@ def main(argv=None):
                        "tiered": tiered, "deepseek": ds, "forward": fwd,
                        "multi": multi, "zamba2": z2, "xlstm": xl,
                        "qwen2_vl": qv, "whisper": wh, "llama4": l4,
-                       "training": tr},
+                       "training": tr, "guards": guards},
                       f, indent=1)
     print(f"chip_smoke: every phase passed in {time.time() - t_script:.1f}s")
     print(card_line)
@@ -4789,6 +4820,298 @@ def run_training(torch, ops, ref, results):
             fail(f"phase 14 (e): {name} launched no {kname}")
     out["wall_s"] = time.time() - t_phase
     print(f"phase 14 wall time {out['wall_s']:.1f}s")
+    return out, launches
+
+
+GUARD_LAYERS = 16      # phase 15 (a)'s depth cut (exits after 5 and 10)
+GUARD_WAVES = 2        # ... two waves of 8 requests on 16 slots
+GUARD_MAX_NEW = 48     # six windows of 8 a request
+BRIDGE_LAYERS = 8      # phase 15 (b)'s draft/target cut (exits after 3, 6)
+# phase 15 (b)'s trace: granite-3-2b as the draft ("small") and the target
+# ("big") behind a high-RTT access link, the routes priced with
+# granite-3-2b's and deepseek-v3's published configs, paged arenas and a
+# bridge at k 4; two requests for the target first (routed to the
+# speculative bridge), then four for the draft model on the device tier,
+# which dies at 1.6 s of virtual time with a slot in flight (prompts of
+# 8-16 tokens from seed 3, max_new 10, 0.05 s apart: a slot migrates, the
+# bridge completes one request and the drain requeues the rest onto the
+# surviving tiers)
+BRIDGE_MODELS = ("big", "big", "small", "small", "small", "small")
+BRIDGE_OUTAGE = ("device", 1.6)
+BRIDGE_SEED = 3
+
+
+def run_guards(torch, ops):
+    """Phase 15: the analyzer's runtime guards and cost check on the card
+    (see the module docstring).  Returns its summary and the launch counts
+    of (a), (b) and (c)."""
+    import numpy as np
+    from repro_torch.analysis import (TOLERANCE, GuardError, SlotAudit,
+                                      build_audit_stack, check_cost_graphs,
+                                      guard_polling, guard_sync_budget,
+                                      no_recompile)
+    from repro_torch.configs import get_config
+    from repro_torch.core import Scenario, TierOutage, paradigms
+    from repro_torch.launch import kernel_ab as ab
+    from repro_torch.models import Model
+    from repro_torch.serving import (ClusterConfig, ContinuousBatchScheduler,
+                                     ModelGroup, Request, SchedulerConfig,
+                                     TieredServingCluster)
+    t_phase = time.time()
+    out, launches = {}, {}
+
+    # (a) granite at full width, cut in depth, paged with the prefix cache,
+    # async windows of 8, two waves of 8 requests sharing two prefixes
+    cfg = depth_cut(get_config("granite-3-2b"), GUARD_LAYERS, (5, 10))
+    model = Model(cfg, device="cuda")
+    params = model.init(0)
+    rs = np.random.RandomState(15)
+    prefixes = [rs.randint(0, cfg.vocab_size, 32) for _ in range(2)]
+    waves = [[np.concatenate([prefixes[j % 2], rs.randint(
+        0, cfg.vocab_size, int(rs.randint(8, 33)))]) for j in range(8)]
+        for _ in range(GUARD_WAVES)]
+
+    def pool():
+        return ContinuousBatchScheduler(model, params, SchedulerConfig(
+            n_slots=16, max_len=112, prefill_chunk=16, exit_threshold=0.5,
+            segmented=False, paged=True, page_size=16, prefix_cache=True,
+            async_decode=True, readback_interval=8, flush_every=10 ** 9),
+            device="cuda")
+
+    def admit(s, w):
+        reqs = [Request(tokens=p, max_new=GUARD_MAX_NEW, req_id=8 * w + j)
+                for j, p in enumerate(waves[w])]
+        for r in reqs:
+            s.submit(r)
+        while s.queue or s._pending is not None:
+            s.prefill_poll()
+        return reqs
+
+    print(f"guards: granite-3-2b at full width cut to {cfg.num_layers} "
+          f"layers, paged + prefix cache, 16 slots, windows of 8; "
+          f"{GUARD_WAVES} waves of 8 requests over two 32-token prefixes, "
+          f"max_new {GUARD_MAX_NEW}")
+    plain = pool()
+    want = []
+    for w in range(GUARD_WAVES):
+        reqs = admit(plain, w)
+        while plain.has_work:
+            plain.poll()
+        want += [list(r.out_tokens) for r in reqs]
+    del plain
+    s = pool()
+    controls = {}
+    ops.reset_launches()
+    t0 = time.time()
+    with SlotAudit(s) as audit:
+        got = admit(s, 0)
+        while s.has_work:              # the first window's capture
+            s.poll()
+        got += admit(s, 1)
+        stats = []
+        with no_recompile(s), guard_polling(s), \
+                guard_sync_budget(s, bound=1) as st:
+            s.poll()                   # a fresh dispatch
+            s.poll()                   # one from the carry, the first ring
+        stats.append(dict(st))
+        # (d) planted: one live page's refcount bumped
+        slot = int(np.nonzero(s.active)[0][0])
+        pg = int(s._tbl[slot, 0])
+        s.page_alloc.refcount[pg] += 1
+        try:
+            audit.check()
+            fail("phase 15 (d): SlotAudit passed a bumped page refcount")
+        except GuardError as e:
+            controls["refcount"] = str(e).splitlines()[1].strip()
+        finally:
+            s.page_alloc.refcount[pg] -= 1
+        # (d) planted: one .item() more in a poll that reads a ring
+        served = s.poll
+
+        def planted(*a, **kw):
+            rep = served(*a, **kw)
+            s._counters.sum().item()
+            return rep
+        s.poll = planted
+        try:
+            with guard_sync_budget(s, bound=1):
+                s.poll()
+            fail("phase 15 (d): guard_sync_budget passed a poll with an "
+                 "extra .item()")
+        except GuardError as e:
+            controls["item"] = str(e)
+        finally:
+            s.poll = served
+        with no_recompile(s), guard_polling(s), \
+                guard_sync_budget(s, bound=1) as st:
+            while s.has_work:
+                s.poll()
+        stats.append(dict(st))
+    torch.cuda.synchronize()
+    launches["serve"] = dict(ops.LAUNCHES)
+    wall = time.time() - t0
+    # (d) planted: layer 0's K pool rebound under the built window
+    blocks = s.cache["blocks"]
+    first = blocks[0]
+    try:
+        with no_recompile(s):
+            blocks[0] = (first[0].clone(),) + tuple(first[1:])
+        fail("phase 15 (d): no_recompile passed a rebound cache leaf")
+    except GuardError as e:
+        controls["rebind"] = str(e)[:160]
+    finally:
+        blocks[0] = first
+    toks = [list(r.out_tokens) for r in got]
+    polls = sum(x["polls"] for x in stats)
+    out["serve"] = {"wall_s": wall, "audited_polls": audit.polls,
+                    "guarded_polls": polls,
+                    "syncs": sum(x["syncs"] for x in stats),
+                    "max_per_poll": max(x["max_per_poll"] for x in stats),
+                    "prefix_hit_tokens": s.prefix_hit_tokens,
+                    "builds": s.jit_cache_sizes()}
+    print(f"  (a) {json.dumps(out['serve'])}; launches "
+          f"{ {k: v for k, v in launches['serve'].items() if v} }")
+    if toks != want:
+        fail("phase 15 (a): the guarded run's tokens differ from an "
+             "unguarded pool's")
+    if any(len(t) != GUARD_MAX_NEW for t in toks):
+        fail("phase 15 (a): a request is short")
+    if audit.polls <= 0 or polls <= 0 or out["serve"]["syncs"] < 1 \
+            or out["serve"]["max_per_poll"] > 1:
+        fail("phase 15 (a): the guards saw no poll or no ring readback")
+    if s.prefix_hit_tokens <= 0:
+        fail("phase 15 (a): the second wave hit no shared prefix")
+    if s.jit_cache_sizes() != {"decode_window": 1}:
+        fail(f"phase 15 (a): builds {s.jit_cache_sizes()}")
+    if launches["serve"]["paged_gqa_attention"] <= 0:
+        fail("phase 15 (a): paged attention was not launched")
+    del s, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the tiered cluster with a migration and the speculative bridge
+    cut = depth_cut(get_config("granite-3-2b"), BRIDGE_LAYERS, (3, 6))
+    bm = Model(cut, device="cuda")
+    bp = bm.init(0)
+    sc = dataclasses.replace(Scenario.high_rtt_access(),
+                             outages=(TierOutage(*BRIDGE_OUTAGE),))
+    cl = TieredServingCluster(
+        ModelGroup([("small", bm, bp), ("big", bm, bp)]), scenario=sc,
+        plan_cfg={"small": get_config("granite-3-2b"),
+                  "big": get_config("deepseek-v3-671b")},
+        cfg=ClusterConfig(base_slots=2, max_len=48, prefill_chunk=8,
+                          exit_threshold=0.0, spec_draft="small", spec_k=4,
+                          paged=True, page_size=16))
+    rs = np.random.RandomState(BRIDGE_SEED)
+    lens = rs.randint(8, 17, len(BRIDGE_MODELS))
+    crs = [cl.submit(rs.randint(0, cut.vocab_size, int(n)), max_new=10,
+                     arrival=0.05 * i, model=m)
+           for i, (n, m) in enumerate(zip(lens, BRIDGE_MODELS))]
+    ops.reset_launches()
+    t0 = time.time()
+    with SlotAudit(cl) as audit_b:
+        cl.run()
+    torch.cuda.synchronize()
+    launches["cluster"] = dict(ops.LAUNCHES)
+    st_b = cl.stats()
+    spec = st_b.get("speculative", {})
+    out["cluster"] = {"wall_s": time.time() - t0,
+                      "audited_polls": audit_b.polls,
+                      "routes": st_b["route_counts"],
+                      "dead": st_b.get("dead_tiers"),
+                      "migrations": st_b["migration"]["outage_migrations"],
+                      "requeued": st_b["migration"]["requeued"],
+                      "speculative_completed": spec.get(
+                          "requests_completed", 0)}
+    print(f"  (b) granite-3-2b cut to {cut.num_layers} layers as draft and "
+          f"target, device outage at {BRIDGE_OUTAGE[1]} s: "
+          f"{json.dumps(out['cluster'])}")
+    if not all(cr.done and len(cr.req.out_tokens) == 10 for cr in crs):
+        fail("phase 15 (b): a cluster request did not complete")
+    if out["cluster"]["migrations"] < 1 \
+            or out["cluster"]["speculative_completed"] < 1 \
+            or audit_b.polls <= 0:
+        fail("phase 15 (b): no migration, no bridge request or no audit")
+    if launches["cluster"]["paged_gqa_attention"] <= 0:
+        fail("phase 15 (b): paged attention was not launched")
+    del cl, bm, bp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the cost check at full width, kernels launching
+    full = get_config("granite-3-2b")
+    fm = Model(full, device="cuda")
+    fp = fm.init(0)
+
+    def arena(**kw):
+        return ContinuousBatchScheduler(fm, fp, SchedulerConfig(
+            n_slots=16, max_len=256, prefill_chunk=16, **kw), device="cuda")
+    stack = {"paged": arena(paged=True, page_size=16, prefix_cache=True),
+             "monolithic": arena(segmented=False), "_model": fm}
+    ops.reset_launches()
+    findings, ratios = check_cost_graphs(stack)
+    torch.cuda.synchronize()
+    launches["cost"] = dict(ops.LAUNCHES)
+    for key, r in ratios.items():
+        print(f"  (c) {key}: measured {r['measured_flops_per_token']:.6e} "
+              f"FLOPs/token (kernels {r['kernel_flops_per_token']:.6e}), "
+              f"analytic {r['analytic_flops_per_token']:.6e}, ratio "
+              f"{r['ratio']:.4f}")
+    out["cost"] = ratios
+    if findings or not all(TOLERANCE[0] <= r["ratio"] <= TOLERANCE[1]
+                           for r in ratios.values()):
+        fail(f"phase 15 (c): cost ratios outside {TOLERANCE}")
+    if launches["cost"]["paged_gqa_attention"] != full.num_layers:
+        fail(f"phase 15 (c): {launches['cost']['paged_gqa_attention']} "
+             f"paged-attention launches, not {full.num_layers}")
+    # (d) planted: the analytic cost scaled by 4
+    real = paradigms.analytic_step_cost
+
+    def scaled(c, b, n):
+        a = real(c, b, n)
+        return dataclasses.replace(a, flops_per_token=4 * a.flops_per_token)
+    paradigms.analytic_step_cost = scaled
+    try:
+        tripped, _ = check_cost_graphs(stack)
+    finally:
+        paradigms.analytic_step_cost = real
+    if sorted({f.rule for f in tripped}) != ["CST001"] \
+            or len(tripped) != len(ratios):
+        fail("phase 15 (d): CST001 did not fire on every arena of a "
+             "scaled analytic cost")
+    controls["cost"] = tripped[0].message
+    del stack, fm, fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ... and the smoke audit stack counts the same on the card as here
+    # on the CPU (each kernel's formula against its plain version's aten
+    # products)
+    card = check_cost_graphs(build_audit_stack("cuda"))[1]
+    host = check_cost_graphs(build_audit_stack("cpu"))[1]
+    same = {k: card[k]["measured_flops_per_token"]
+            == host[k]["measured_flops_per_token"] for k in host}
+    print(f"  (c) smoke audit stack, card vs CPU FLOPs/token equal: {same}")
+    if set(card) != set(host) or not all(same.values()):
+        fail("phase 15 (c): a stage counts differently on the card")
+    out["controls"] = controls
+    print(f"  (d) planted controls all failed as they must: "
+          f"{json.dumps(controls)[:600]}")
+
+    # (e) the serving kernels launched from a second host thread
+    calls = ab.serving_calls(torch.Generator(device="cuda").manual_seed(15))
+    main_out = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    thread_out, errors = ab.launch_in_thread(calls)
+    if errors:
+        fail(f"phase 15 (e): a launch from a second thread failed: {errors}")
+    bits = {k: bool(torch.equal(thread_out[k], main_out[k])) for k in calls}
+    print(f"  (e) launched from a second host thread, bits equal to the "
+          f"main thread's: {bits}")
+    if not all(bits.values()):
+        fail("phase 15 (e): a second thread's launch gave other bits")
+    out["second_thread"] = bits
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 15 wall time {out['wall_s']:.1f}s")
     return out, launches
 
 

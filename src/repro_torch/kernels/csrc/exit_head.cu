@@ -426,11 +426,10 @@ exit_head_finish(const float* __restrict__ part_m,
 }
 
 // Dynamic shared memory above 48 KB, and all of L1 as shared memory so
-// MIN_BLOCKS blocks fit on an SM; once per instance.
+// MIN_BLOCKS blocks fit on an SM; on every launch: an attribute set once
+// from one host thread is not in effect in another.
 template <bool ALIGNED>
 cudaError_t set_attributes() {
-  static bool done = false;
-  if (done) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
       exit_head_partial<ALIGNED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM);
@@ -438,7 +437,6 @@ cudaError_t set_attributes() {
     err = cudaFuncSetAttribute(exit_head_partial<ALIGNED>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
-  done = err == cudaSuccess;
   return err;
 }
 

@@ -484,13 +484,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* part_ml, int B, int nkv, int G, int n_pages,
                    int pps, int split_pages, float scale,
                    cudaStream_t stream) {
-  static bool attr_set = false;   // one attribute call per instance
-  if (!attr_set) {
+  // set on every call: an attribute set once from one host thread is not
+  // in effect in another
+  {
     cudaError_t err = cudaFuncSetAttribute(
         paged_gqa_partial<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         max_smem<H>());
     if (err != cudaSuccess) return err;
-    attr_set = true;
   }
   CUtensorMap mk, mv;
   if (!make_map(&mk, k, n_pages, nkv, H) || !make_map(&mv, v, n_pages, nkv, H))

@@ -641,13 +641,13 @@ cudaError_t launch(const void* q_lat, const void* q_rope, const void* ckv,
                    int n_pages, int pps, int split_pages, float scale,
                    cudaStream_t stream) {
   using C = Cfg<R, HR>;
-  static bool attr_set = false;   // one attribute call per instance
-  if (!attr_set) {
+  // set on every call: an attribute set once from one host thread is not
+  // in effect in another
+  {
     cudaError_t err = cudaFuncSetAttribute(
         paged_mla_partial<R, HR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::SMEM);
     if (err != cudaSuccess) return err;
-    attr_set = true;
   }
   const int S = (pps + split_pages - 1) / split_pages;
   const cuuint64_t ql_dims[3] = {(cuuint64_t)R, (cuuint64_t)N, (cuuint64_t)B};

@@ -6,10 +6,25 @@ tensor launches the hand-written kernel, or raises — there is no fallback.
 Each wrapper checks device, dtype, shape and contiguity before it launches,
 and adds one to ``LAUNCHES[<kernel>]`` for every kernel launch (CPU calls
 never count).
+
+Inside ``count_flops()`` each wrapper also adds its kernel's matmul FLOPs,
+from the formula of its own arguments (``*_flops`` below), on either
+device.  The cost check (``repro_torch.analysis.costcheck``) counts the
+rest of a stage with ``FlopCounterMode``, which cannot see a kernel
+launched through ctypes; so inside ``count_flops()`` a wrapper hides its
+call, kernel or plain version, from the dispatch modes, and a stage
+counts the same on both devices.  Each formula equals what
+``FlopCounterMode`` counts of the plain version (2 x M x N x K a
+product); the int8 kernels do no product and add nothing.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+from typing import Dict, Iterator, Optional
+
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.kernels import exit_head as _exit
 from repro_torch.kernels import feature_compress as _fc
@@ -30,6 +45,74 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+_FLOPS: Optional[Dict[str, float]] = None
+
+
+@contextlib.contextmanager
+def count_flops() -> Iterator[Dict[str, float]]:
+    """Count the kernels' matmul FLOPs in the block: yields
+    ``{kernel: flops}``, filled by every wrapper call from its formula."""
+    global _FLOPS
+    outer, _FLOPS = _FLOPS, {}
+    try:
+        yield _FLOPS
+    finally:
+        _FLOPS = outer
+
+
+def _counts(name: str, formula):
+    """Decorate kernel ``name``'s wrapper: inside ``count_flops`` each call
+    adds ``formula(*positional args)`` and runs hidden from the dispatch
+    modes (``FlopCounterMode``)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            if _FLOPS is None:
+                return fn(*args, **kw)
+            _FLOPS[name] = _FLOPS.get(name, 0.0) + float(formula(*args))
+            with _disable_current_modes():
+                return fn(*args, **kw)
+        return call
+    return wrap
+
+
+def exit_head_flops(x, w) -> float:
+    """x [..., D] @ w [D, V]."""
+    return 2.0 * x.numel() * w.shape[1]
+
+
+def flash_attention_flops(q, k, *_) -> float:
+    """S = Q K^T and O = P V over every (query, key) pair, masked or not:
+    q [B, Sq, Nq, H], k [B, Skv, Nkv, H]."""
+    b, sq, nq, hd = q.shape
+    return 4.0 * b * sq * nq * k.shape[1] * hd
+
+
+def flash_attention_bwd_flops(q, k, *_) -> float:
+    """The backward's five products: S again, dV, dP, dQ and dK."""
+    return 2.5 * flash_attention_flops(q, k)
+
+
+def paged_gqa_flops(q, pool_k, pool_v, tbl, pos) -> float:
+    """Q K^T and P V over the whole table (pps pages of P tokens a row)."""
+    b, _, nq, hd = q.shape
+    return 4.0 * b * nq * tbl.shape[1] * pool_k.shape[1] * hd
+
+
+def paged_mla_flops(q_lat, q_rope, pool_ckv, pool_krope, tbl, pos) -> float:
+    """The latent and rope scores and the latent context over the whole
+    table."""
+    b, _, n, r = q_lat.shape
+    t = tbl.shape[1] * pool_ckv.shape[1]
+    return 2.0 * b * n * t * (2 * r + q_rope.shape[3])
+
+
+def w8a8_expert_flops(aq, a_scale, wq, w_scale) -> float:
+    """aq [E, C, K] @ wq [E, K, N], every capacity row."""
+    e, c, k = aq.shape
+    return 2.0 * e * c * k * wq.shape[2]
+
+
 def _on_card(*tensors) -> bool:
     """True when every tensor is on a CUDA device, False when every one is
     on the CPU; anything else raises."""
@@ -48,6 +131,7 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"repro_torch kernels: {msg}")
 
 
+@_counts("exit_head_entropy", exit_head_flops)
 def exit_head_entropy(x, w):
     """x [..., D], w [D, V] -> entropy of softmax(x @ w) [...] fp32."""
     lead = x.shape[:-1]
@@ -98,6 +182,7 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     return _flash_forward(q, k, v, causal, window, with_lse=True)
 
 
+@_counts("flash_attention", flash_attention_flops)
 def _flash_forward(q, k, v, causal, window, with_lse=False):
     if not _on_card(q, k, v):
         out = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -111,6 +196,7 @@ def _flash_forward(q, k, v, causal, window, with_lse=False):
     return res
 
 
+@_counts("flash_attention_bwd", flash_attention_bwd_flops)
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         window: int = 0):
     """Gradients (dq, dk, dv) of ``flash_attention`` at output ``o`` for
@@ -181,6 +267,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return _FlashAttention.apply(q, k, v, causal, window, with_lse)
 
 
+@_counts("paged_gqa_attention", paged_gqa_flops)
 def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):
     """Paged GQA decode attention: q [B, 1, Nq, H], pools
     [n_pages, P, Nkv, H], tbl [B, pps] int32 (sentinel entries allowed —
@@ -214,6 +301,7 @@ def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):
     return out
 
 
+@_counts("paged_mla_attention", paged_mla_flops)
 def paged_mla_attention(q_lat, q_rope, pool_ckv, pool_krope, tbl, pos, *,
                         scale: float):
     """Paged MLA decode attention with matrix absorption: q_lat
@@ -305,6 +393,7 @@ def decompress_rows(q, scale, dtype=torch.bfloat16):
     return out.reshape(*lead, d)
 
 
+@_counts("w8a8_expert_matmul", w8a8_expert_flops)
 def w8a8_expert_matmul(aq, a_scale, wq, w_scale):
     """W8A8 grouped expert GEMM: aq [E, C, K] int8 with a_scale [E, C, 1]
     fp32, wq [E, K, N] int8 with w_scale [E, 1, N] fp32 -> fp32 [E, C, N]

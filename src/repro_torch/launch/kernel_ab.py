@@ -4,12 +4,16 @@ one card.
     python -m repro_torch.launch.kernel_ab --parent DIR [--kernels exit_head
         flash_attention flash_attention_bwd paged_attention paged_mla
         feature_compress] [--json PATH]
+    python -m repro_torch.launch.kernel_ab --parent DIR --second-thread
+        [--json PATH]
 
 ``DIR`` is a checkout of an earlier commit of this repository (for
 example ``git archive <commit> | tar -x -C DIR``).  Each named kernel's
 CUDA source under ``DIR/src/repro_torch/kernels/csrc/`` is compiled with
 the current build flags and called through its C entry point as that
-commit declared it; the current kernel is called through ``kernels.ops``.
+commit declared it (the exit head and the paged kernels, whose C interface
+is the current one, through the current wrapper with the parent's library
+swapped in); the current kernel is called through ``kernels.ops``.
 Both are checked against the plain version on the same inputs, then timed
 with CUDA events in turns over three rounds (the order reversed every
 other round), with the library call beside them, at the main path's
@@ -45,7 +49,16 @@ shapes:
 
 The paged kernels' library call is one scaled_dot_product_attention on
 the gathered view (gathered beforehand, not timed).  Prints each timing's
-median and spread (max - min over the rounds).  The card is required.
+median and spread (max - min over the rounds).
+
+``--second-thread`` times nothing: it launches paged GQA, paged MLA and
+both exit-head instances at chip_smoke.py phase 15 (e)'s shapes
+(``serving_calls``) once on the main thread and then from a new host
+thread, first through the parent's libraries and then through the current
+ones, and reports for each launch whether the second thread's was refused
+and, where it ran, whether its bits equal the main thread's.
+
+The card is required.
 """
 from __future__ import annotations
 
@@ -55,22 +68,23 @@ import json
 import math
 import statistics
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, exit_head, ops, ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-# the C entry points as the earlier sources declare them: the exit head's
-# before its instance flag
+# the C entry points as the earlier sources declare them; the exit head
+# and the paged kernels: as the current ones (the parent is called through
+# the current wrapper with its library swapped in, ``swapped``)
 PARENT_SIGNATURES = {
-    "exit_head": {
-        "repro_exit_head_block_v": ([], _I),
-        "repro_exit_head_entropy": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    },
+    "exit_head": build.SIGNATURES["exit_head"],
+    "paged_attention": build.SIGNATURES["paged_attention"],
+    "paged_mla": build.SIGNATURES["paged_mla"],
     "flash_attention": {
         "repro_flash_attention": (
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
@@ -82,21 +96,10 @@ PARENT_SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _I, _I, _F, _P], _I),
     },
-    # as the sources before the split plan moved to the host declare them
-    "paged_attention": {
-        "repro_paged_gqa_attention": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
-    },
     # as the sources before the host plan picked an instance declare them
     "feature_compress": {
         "repro_quantize_rows": ([_P, _I, _P, _P, _L, _I, _P], _I),
         "repro_dequantize_rows": ([_P, _P, _P, _I, _L, _I, _P], _I),
-    },
-    "paged_mla": {
-        "repro_paged_mla_split_pages": ([], _I),
-        "repro_paged_mla_attention": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _F, _P], _I),
     },
 }
 
@@ -117,18 +120,17 @@ def parent_library(parent: Path, name: str) -> ctypes.CDLL:
     return lib
 
 
-def parent_exit_head(lib):
-    def call(x, w):
-        t, d = x.shape
-        v = w.shape[1]
-        n_tiles = -(-v // lib.repro_exit_head_block_v())
-        part = torch.empty(3 * t * n_tiles, dtype=torch.float32,
-                           device=x.device)
-        out = torch.empty(t, dtype=torch.float32, device=x.device)
-        build.check(lib.repro_exit_head_entropy(
-            x.data_ptr(), w.data_ptr(), part.data_ptr(), out.data_ptr(), t,
-            d, v, torch.cuda.current_stream().cuda_stream), "parent exit")
-        return out
+def swapped(name, lib, fn):
+    """``fn``, a current wrapper, launching the parent's library ``lib`` of
+    kernel ``name`` in place of the current one (a parent whose C
+    interface is the current one)."""
+    def call(*a, **kw):
+        cur = build.library(name)
+        build._LIBS[name] = lib
+        try:
+            return fn(*a, **kw)
+        finally:
+            build._LIBS[name] = cur
     return call
 
 
@@ -194,41 +196,6 @@ def sdpa_bwd(q, k, v, do, causal, window):
     def call():
         return torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2),
                                    retain_graph=True)
-    return call
-
-
-def parent_paged_gqa(lib):
-    def call(q, pk, pv, tbl, pos):
-        b, _, nq, hd = q.shape
-        n_pages, page, nkv, _ = pk.shape
-        out = torch.empty_like(q)
-        build.check(lib.repro_paged_gqa_attention(
-            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), tbl.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), b, nkv, nq // nkv, hd, page,
-            n_pages, tbl.shape[1], 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream().cuda_stream), "parent paged gqa")
-        return out
-    return call
-
-
-def parent_paged_mla(lib, scale):
-    def call(ql, qr, pc, pk, tbl, pos):
-        b, _, n, r = ql.shape
-        pps = tbl.shape[1]
-        splits = -(-pps // lib.repro_paged_mla_split_pages())
-        out = torch.empty((b, 1, n, r), dtype=torch.float32,
-                          device=ql.device)
-        acc = torch.empty((b, splits, n, r), dtype=torch.float32,
-                          device=ql.device)
-        ml = torch.empty((b, splits, n, 2), dtype=torch.float32,
-                         device=ql.device)
-        build.check(lib.repro_paged_mla_attention(
-            ql.data_ptr(), qr.data_ptr(), pc.data_ptr(), pk.data_ptr(),
-            tbl.data_ptr(), pos.data_ptr(), out.data_ptr(), acc.data_ptr(),
-            ml.data_ptr(), b, n, r, qr.shape[3], pc.shape[1], pc.shape[0],
-            pps, scale, torch.cuda.current_stream().cuda_stream),
-            "parent paged mla")
-        return out
     return call
 
 
@@ -392,7 +359,8 @@ def run(parent: Path, kernels, rounds: int = 3):
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     if "exit_head" in kernels:
-        old = parent_exit_head(parent_library(parent, "exit_head"))
+        old = swapped("exit_head", parent_library(parent, "exit_head"),
+                      ops.exit_head_entropy)
         for label, d, v in (("granite", 2048, 49155),
                             ("deepseek", 7168, 129280)):
             x = torch.randn(16, d, generator=gen, device="cuda").bfloat16()
@@ -480,7 +448,9 @@ def run(parent: Path, kernels, rounds: int = 3):
                   f"{tuple(k.shape)}: {json.dumps(r)}", flush=True)
             del q, k, v, o, do, lse, args, want
     if "paged_attention" in kernels:
-        old = parent_paged_gqa(parent_library(parent, "paged_attention"))
+        old = swapped("paged_attention",
+                      parent_library(parent, "paged_attention"),
+                      ops.paged_gqa_attention)
         prep, lib = sdpa_gathered()
         for label, pps, max_pos in (("", 128, 2048), ("_serving", 18, 288)):
             sets = paged_inputs(gen, 16, 32, 8, 64, 16, pps, max_pos, 4)
@@ -500,10 +470,9 @@ def run(parent: Path, kernels, rounds: int = 3):
             del sets
     if "paged_mla" in kernels:
         scale = 1.0 / math.sqrt(128 + 64)
-        old = parent_paged_mla(parent_library(parent, "paged_mla"), scale)
-
         def cur(*a):
             return ops.paged_mla_attention(*a, scale=scale)
+        old = swapped("paged_mla", parent_library(parent, "paged_mla"), cur)
         prep, lib = sdpa_mla_gathered(scale)
         for label, pps, max_pos in (("", 128, 2048), ("_serving", 9, 144)):
             sets = mla_inputs(gen, 16, 128, 512, 64, 16, pps, max_pos, 4)
@@ -552,6 +521,73 @@ def run(parent: Path, kernels, rounds: int = 3):
     return results
 
 
+def serving_calls(gen, wrap=lambda name, fn: fn):
+    """Phase 15 (e)'s launches: paged GQA at serving's 18-page tables
+    (positions below 288), paged MLA at 9 pages (below 144), and the exit
+    head's two instances at x [16, 2048] (granite's vocab 49155, odd pitch;
+    32000, aligned).  ``name -> () -> output``; ``wrap(kernel, fn)`` may
+    swap another library in (``swapped``)."""
+    (pa,) = paged_inputs(gen, 16, 32, 8, 64, 16, 18, 288, 1)
+    (ma,) = mla_inputs(gen, 16, 128, 512, 64, 16, 9, 144, 1)
+    x = torch.randn(16, 2048, generator=gen, device="cuda").bfloat16()
+    heads = {}
+    for v in (49155, 32000):
+        w = (torch.randn(2048, v, generator=gen, device="cuda")
+             / math.sqrt(2048)).bfloat16()
+        heads[exit_head.plan(16, 2048, v, w.data_ptr())["instance"]] = w
+    if sorted(heads) != ["aligned", "odd_pitch"]:
+        raise RuntimeError(f"exit head instances {sorted(heads)}")
+    scale = 1.0 / math.sqrt(192)
+    gqa = wrap("paged_attention", ops.paged_gqa_attention)
+    mla = wrap("paged_mla", ops.paged_mla_attention)
+    ent = wrap("exit_head", ops.exit_head_entropy)
+    return {"paged_gqa_attention": lambda: gqa(*pa),
+            "paged_mla_attention": lambda: mla(*ma, scale=scale),
+            "exit_head_entropy odd_pitch": lambda: ent(x, heads["odd_pitch"]),
+            "exit_head_entropy aligned": lambda: ent(x, heads["aligned"])}
+
+
+def launch_in_thread(calls):
+    """Each call once, in order, on a new host thread.  Returns
+    ``(outputs, errors)``: a refused launch is in ``errors`` by name, and
+    the thread goes on to the next call."""
+    outs, errors = {}, {}
+
+    def work():
+        for k, fn in calls.items():
+            try:
+                outs[k] = fn()
+                torch.cuda.synchronize()
+            except Exception as exc:     # reported to the caller
+                errors[k] = repr(exc)
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join()
+    return outs, errors
+
+
+def second_thread(parent: Path):
+    """The parent's and the current serving kernels, each launched on the
+    main thread and then from a second host thread (``--second-thread``)."""
+    libs = {n: parent_library(parent, n)
+            for n in ("paged_attention", "paged_mla", "exit_head")}
+    results = {}
+    for label, wrap in (("parent", lambda n, fn: swapped(n, libs[n], fn)),
+                        ("current", lambda n, fn: fn)):
+        calls = serving_calls(torch.Generator(device="cuda").manual_seed(15),
+                              wrap)
+        main_out = {k: fn() for k, fn in calls.items()}
+        torch.cuda.synchronize()
+        outs, errors = launch_in_thread(calls)
+        results[label] = {
+            k: {"refused": errors.get(k),
+                "bits_equal": (bool(torch.equal(outs[k], main_out[k]))
+                               if k in outs else None)}
+            for k in calls}
+        print(f"{label}: {json.dumps(results[label])}", flush=True)
+    return results
+
+
 KERNELS = ["exit_head", "flash_attention", "flash_attention_bwd",
            "paged_attention", "paged_mla", "feature_compress"]
 
@@ -562,7 +598,12 @@ def main(argv=None):
     ap.add_argument("--kernels", nargs="+", default=KERNELS,
                     choices=KERNELS)
     ap.add_argument("--json", default="")
+    ap.add_argument("--second-thread", action="store_true",
+                    help="launch the serving kernels from a second host "
+                         "thread, parent and current, instead of timing")
     args = ap.parse_args(argv)
+    if args.second_thread:
+        args.kernels = ["exit_head", "paged_attention", "paged_mla"]
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -574,7 +615,8 @@ def main(argv=None):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
-    results = run(args.parent, args.kernels)
+    results = (second_thread(args.parent) if args.second_thread
+               else run(args.parent, args.kernels))
     results["card"] = smi.stdout.strip()
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

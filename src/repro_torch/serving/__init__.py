@@ -14,7 +14,7 @@ from repro_torch.serving.multipool import (ModelEntry, ModelGroup,
 from repro_torch.serving.router import AdmissionRouter
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
                                            SchedulerConfig, SlotSnapshot,
-                                           StepReport)
+                                           StageSpec, StepReport)
 from repro_torch.serving.traces import (diurnal_trace, flash_crowd_trace,
                                         make_trace, mixed_slo_trace,
                                         poisson_trace)
@@ -23,7 +23,7 @@ __all__ = ["AdaptiveExitController", "AdmissionRouter", "ClusterConfig",
            "ClusterRequest", "ContinuousBatchScheduler", "ModelEntry",
            "ModelGroup", "MultiModelScheduler", "Request", "SchedulerConfig",
            "ServeConfig", "ServingEngine", "SlotSnapshot", "SpecPair",
-           "StepReport", "TieredServingCluster", "derive_tier_slots",
+           "StageSpec", "StepReport", "TieredServingCluster", "derive_tier_slots",
            "diurnal_trace", "flash_crowd_trace", "make_serve_step",
            "make_trace", "mixed_slo_trace", "poisson_trace",
            "prime_whisper_cross_cache"]

@@ -82,7 +82,8 @@ from repro_torch.serving.multipool import (ModelGroup, MultiModelScheduler,
                                            SpecPair)
 from repro_torch.serving.router import AdmissionRouter
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
-                                           SchedulerConfig, SlotSnapshot)
+                                           SchedulerConfig, SlotSnapshot,
+                                           StageSpec)
 
 KV_HANDOFFS = ("auto", "raw", "int8")
 
@@ -1014,6 +1015,15 @@ class TieredServingCluster:
                for n, tr in self.tiers.items()}
         for m, pair in self._spec_pairs.items():
             out[f"spec:{m}"] = pair.jit_cache_sizes()
+        return out
+
+    def audit_stages(self) -> Dict[str, Dict[str, StageSpec]]:
+        """Each tier pool's stage registry, plus a ``"spec:<model>"`` entry
+        per speculative pair built (the key scheme of
+        ``jit_cache_sizes``)."""
+        out = {n: tr.sched.audit_stages() for n, tr in self.tiers.items()}
+        for m, pair in self._spec_pairs.items():
+            out[f"spec:{m}"] = pair.audit_stages()
         return out
 
     def stats(self) -> Dict[str, object]:

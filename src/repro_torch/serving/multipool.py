@@ -45,7 +45,8 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
-                                           SchedulerConfig, StepReport)
+                                           SchedulerConfig, StageSpec,
+                                           StepReport)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -319,6 +320,14 @@ class MultiModelScheduler:
         """``"model/stage" -> builds``, each bounded by 1."""
         return {f"{name}/{stage}": v for name, pool in self.pools.items()
                 for stage, v in pool.jit_cache_sizes().items()}
+
+    def audit_stages(self) -> Dict[str, StageSpec]:
+        """``"model/stage" -> StageSpec`` over every arena (the key scheme
+        of ``jit_cache_sizes``)."""
+        return {f"{name}/{stage}": dataclasses.replace(
+                    spec, name=f"{name}/{stage}")
+                for name, pool in self.pools.items()
+                for stage, spec in pool.audit_stages().items()}
 
 
 class SpecPair(MultiModelScheduler):

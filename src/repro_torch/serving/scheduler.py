@@ -83,7 +83,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Dict, FrozenSet, List, Optional
+from typing import Any, Callable, Dict, FrozenSet, List, Optional
 
 import numpy as np
 import torch
@@ -265,6 +265,18 @@ class _PendingPrefill:
     n_chunks: int = 0
     start: Any = None                  # np [n_slots] replay start (paged)
     start_d: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    """One stage that ``poll`` dispatches, described for the analyzer
+    (``repro_torch.analysis``): ``fn(*make_args())`` runs it once on
+    example inputs at the arena's own shapes, and ``batch`` is the rows
+    one call decodes (the cost check's divisor to FLOPs per token)."""
+    name: str
+    fn: Callable[..., Any]
+    make_args: Callable[[], tuple]
+    batch: int
 
 
 class ContinuousBatchScheduler:
@@ -789,28 +801,13 @@ class ContinuousBatchScheduler:
         compute garbage as in the monolithic step; counters are masked by
         ``active`` and the short-circuit consults active rows only."""
         model = self.model
-        lm = self.cfg.long_mode
         alive = self._alive0
         first_exit = self._first_exit0
         x = model.embed_decode_tokens(self.params, tokens)
         layers_run = segs_run = 0
         probing = thr > 0.0            # normalized entropy >= 0: no exits
         for seg in self._segments:
-            if self.page_alloc is not None:
-                # writes gate on alive & active (stale slots own no pages),
-                # but the hidden passthrough keeps the plain alive mask:
-                # every row's compute must match the reference's, because
-                # MoE expert capacity couples batch rows (a changed garbage
-                # row could evict a live row's token from an expert queue)
-                wm = alive & active_d
-                x, self.cache = model.decode_segment(
-                    self.params, self.cache, x, seg, positions, wm,
-                    long_mode=lm, paged=PagedKV(self._tbl_dev(), wm),
-                    passthrough=alive)
-            else:
-                x, self.cache = model.decode_segment(
-                    self.params, self.cache, x, seg, positions, alive,
-                    long_mode=lm)
+            x = self._segment(seg, x, positions, alive, active_d)
             self.stage_calls[f"segment{seg.index}"] += 1
             layers_run += seg.layers
             segs_run += 1
@@ -820,12 +817,37 @@ class ContinuousBatchScheduler:
                                             first_exit, thr)
             self.stage_calls[f"probe{seg.exit_index}"] += 1
             # the intended per-probe read: stop once every active slot exited
-            if not bool((alive & active_d).any()):
+            if not bool((alive & active_d).any().cpu()):
                 break
-        logits = model.finalize_decode(self.params, x)
         self.stage_calls["finalize"] += 1
         self._last_segments_run = segs_run
         self._last_depth_frac = layers_run / max(1, model.cfg.num_layers)
+        return self._finalize(x, first_exit, active_d, tick)
+
+    def _segment(self, seg, x, positions, alive, active_d):
+        """One depth segment over the arena's cache; returns the hidden
+        state."""
+        model, lm = self.model, self.cfg.long_mode
+        if self.page_alloc is not None:
+            # writes gate on alive & active (stale slots own no pages), but
+            # the hidden passthrough keeps the plain alive mask: every
+            # row's compute must match the reference's, because MoE expert
+            # capacity couples batch rows (a changed garbage row could
+            # evict a live row's token from an expert queue)
+            wm = alive & active_d
+            x, self.cache = model.decode_segment(
+                self.params, self.cache, x, seg, positions, wm,
+                long_mode=lm, paged=PagedKV(self._tbl_dev(), wm),
+                passthrough=alive)
+        else:
+            x, self.cache = model.decode_segment(
+                self.params, self.cache, x, seg, positions, alive,
+                long_mode=lm)
+        return x
+
+    def _finalize(self, x, first_exit, active_d, tick):
+        """The final norm and LM head, then ``_count_exits``."""
+        logits = self.model.finalize_decode(self.params, x)
         return self._count_exits(logits, first_exit, active_d, tick)
 
     def _step_monolithic(self, tokens, positions, active_d, thr, tick):
@@ -1119,16 +1141,18 @@ class ContinuousBatchScheduler:
         dev = self._upload(np.stack([
             self.current_tok.astype(np.int64), self.positions,
             run.astype(np.int64), win_len.astype(np.int64)]))
-        cur = dev[0][:, None]
-        pos0 = dev[1].to(torch.int32)
-        active_d = dev[2].bool()
+        return self._spec_readback(self._propose_window(
+            dev[0][:, None], dev[1].to(torch.int32), dev[2].bool(), dev[3]))
+
+    def _propose_window(self, cur, pos0, active_d, win):
+        """The draft's k steps on the device: [B, k] greedy drafts."""
         drafts = []
         for j in range(self._spec_k):
-            act = active_d & (j < dev[3])
+            act = active_d & (j < win)
             greedy = self._spec_step(cur, pos0 + j, act)
             cur = torch.where(act[:, None], greedy[:, None], cur)
             drafts.append(greedy)
-        return self._spec_readback(torch.stack(drafts, 1))
+        return torch.stack(drafts, 1)
 
     def spec_verify(self, drafts: np.ndarray,
                     win_len: np.ndarray) -> np.ndarray:
@@ -1154,20 +1178,9 @@ class ContinuousBatchScheduler:
         host[:, k + 1] = run
         host[:, k + 2] = win_len
         dev = self._upload(host)
-        tokens = dev[:, :k]
-        pos0 = dev[:, k].to(torch.int32)
-        active_d = dev[:, k + 1].bool()
-        ok = torch.ones_like(active_d)
-        gs, acts = [], []
-        for i in range(k):
-            act = active_d & ok & (i < dev[:, k + 2])
-            greedy = self._spec_step(tokens[:, i:i + 1], pos0 + i, act)
-            ok = ok & (greedy == tokens[:, min(i + 1, k - 1)])
-            gs.append(greedy)
-            acts.append(act)
-        out = self._spec_readback(torch.cat(
-            [torch.stack(gs, 1), torch.stack(acts, 1).sum(1, keepdim=True)],
-            1))
+        out = self._spec_readback(self._verify_window(
+            dev[:, :k], dev[:, k].to(torch.int32), dev[:, k + 1].bool(),
+            dev[:, k + 2]))
         committed = np.zeros(b, np.int64)
         for slot in np.nonzero(run)[0]:
             r = self.slot_req[slot]
@@ -1196,6 +1209,21 @@ class ContinuousBatchScheduler:
         self._step_idx += 1
         self._maybe_flush()
         return committed
+
+    def _verify_window(self, tokens, pos0, active_d, win):
+        """The target's k steps on the device: [B, k + 1], the greedy
+        tokens and each row's count of steps that ran."""
+        k = self._spec_k
+        ok = torch.ones_like(active_d)
+        gs, acts = [], []
+        for i in range(k):
+            act = active_d & ok & (i < win)
+            greedy = self._spec_step(tokens[:, i:i + 1], pos0 + i, act)
+            ok = ok & (greedy == tokens[:, min(i + 1, k - 1)])
+            gs.append(greedy)
+            acts.append(act)
+        return torch.cat([torch.stack(gs, 1),
+                          torch.stack(acts, 1).sum(1, keepdim=True)], 1)
 
     def spec_resync_from(self, slot: int, src, src_slot: int):
         """Align this (draft) arena's slot with the target's commit state
@@ -1635,3 +1663,118 @@ class ContinuousBatchScheduler:
         if self._spec_k:
             sizes["propose"] = sizes["verify"] = 1
         return sizes
+
+    def _on_cache(self, cache, fn, *args):
+        """``fn(*args)`` with the arena's cache swapped for ``cache`` and
+        its exit counters for zeroed ones; both, and ``stage_calls``, are
+        restored after."""
+        saved = self.cache, self._counters, dict(self.stage_calls)
+        self.cache = cache
+        self._counters = torch.zeros_like(self._counters)
+        try:
+            return fn(*args)
+        finally:
+            self.cache, self._counters = saved[0], saved[1]
+            self.stage_calls.update(saved[2])
+
+    def audit_stages(self) -> Dict[str, StageSpec]:
+        """The stages ``poll`` dispatches, by name: the prefill chunk,
+        every ``segment*``, ``probe*`` and ``finalize`` (segmented), the
+        monolithic ``decode``, the window step ``decode_window`` (async),
+        and ``propose`` / ``verify`` (after ``ensure_spec``).  Each runs
+        the arena's own method on example inputs: token 0 at position 0
+        in every row, every row live, and a fresh cache from
+        ``_init_cache`` in place of the arena's (paged stages read the
+        arena's block table), so running a stage leaves an idle arena as
+        it was."""
+        cfg, b, dev = self.cfg, self.cfg.n_slots, self.device
+        model, params = self.model, self.params
+        thr = self._threshold()
+        i64 = torch.int64
+
+        def rows(dtype=i64, fill=0):
+            return torch.full((b,), fill, dtype=dtype, device=dev)
+
+        def hidden():
+            return model.embed_decode_tokens(
+                params, torch.zeros((b, 1), dtype=i64, device=dev))
+
+        def pending():
+            chunk = cfg.prefill_chunk
+            lengths = np.full(b, chunk, np.int32)
+            start = np.zeros(b, np.int32)
+            cache = self._init_cache()
+            return (cache, _PendingPrefill(
+                reqs=[], slots=list(range(b)),
+                tokens=np.zeros((b, chunk), np.int32), lengths=lengths,
+                lengths_d=self._upload(lengths), admit=np.ones(b, bool),
+                cache=None if self.page_alloc is not None else cache,
+                last=torch.zeros((b, self._vocab), dtype=torch.float32,
+                                 device=dev),
+                n_chunks=1, start=start, start_d=self._upload(start)))
+
+        def spec(name, fn, make_args):
+            return StageSpec(name, fn, make_args, b)
+
+        stages = {"prefill": spec(
+            "prefill", lambda cache, p: self._on_cache(
+                cache, self._prefill_chunk, p, 0, cfg.prefill_chunk),
+            pending)}
+        step_args = (lambda: (self._init_cache(), hidden(), rows(torch.int32),
+                              rows(torch.bool, True), rows(torch.bool, True)))
+        if cfg.segmented:
+            for seg in self._segments:
+                stages[f"segment{seg.index}"] = spec(
+                    f"segment{seg.index}",
+                    lambda cache, x, pos, alive, act, seg=seg:
+                        self._on_cache(cache, self._segment, seg, x, pos,
+                                       alive, act),
+                    step_args)
+                if seg.exit_index is not None:
+                    e = seg.exit_index
+                    stages[f"probe{e}"] = spec(
+                        f"probe{e}",
+                        lambda x, alive, first, e=e: self._probe(
+                            e, x, alive, first, thr),
+                        lambda: (hidden(), rows(torch.bool, True),
+                                 rows(fill=self._n_exits)))
+            stages["finalize"] = spec(
+                "finalize", lambda x, first, act: self._on_cache(
+                    self.cache, self._finalize, x, first, act, None),
+                lambda: (hidden(), rows(fill=self._n_exits),
+                         rows(torch.bool, True)))
+        else:
+            stages["decode"] = spec(
+                "decode", lambda cache, tok, pos, act: self._on_cache(
+                    cache, self._step_monolithic, tok, pos, act, thr, None),
+                lambda: (self._init_cache(),
+                         torch.zeros((b, 1), dtype=i64, device=dev),
+                         rows(torch.int32), rows(torch.bool, True)))
+        if cfg.async_decode:
+            def window():
+                w = DecodeWindow(self)
+                w.set_threshold(thr)
+                w.load(np.zeros(b), np.zeros(b), np.ones(b),
+                       np.full(b, cfg.max_len), np.full(b, -1), 0, False)
+                return self._init_cache(), w
+
+            stages["decode_window"] = spec(
+                "decode_window",
+                lambda cache, w: self._on_cache(cache, w._step), window)
+        if self._spec_k:
+            k = self._spec_k
+            stages["propose"] = spec(
+                "propose", lambda cache, *a: self._on_cache(
+                    cache, self._propose_window, *a),
+                lambda: (self._init_cache(),
+                         torch.zeros((b, 1), dtype=i64, device=dev),
+                         rows(torch.int32), rows(torch.bool, True),
+                         rows(fill=k)))
+            stages["verify"] = spec(
+                "verify", lambda cache, *a: self._on_cache(
+                    cache, self._verify_window, *a),
+                lambda: (self._init_cache(),
+                         torch.zeros((b, k), dtype=i64, device=dev),
+                         rows(torch.int32), rows(torch.bool, True),
+                         rows(fill=k)))
+        return stages

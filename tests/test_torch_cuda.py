@@ -523,6 +523,31 @@ def test_flash_kernels_launch_from_another_thread(cuda):
     assert errors == []
 
 
+def test_serving_kernels_launch_from_another_thread(cuda):
+    """Paged GQA, paged MLA and both exit-head instances set their
+    shared-memory attribute on every launch too: launched first from the
+    main thread, then from a second host thread, each gives the same
+    bits there."""
+    from repro_torch.launch.kernel_ab import launch_in_thread
+    paged = _paged(cuda, 4, 8, 2, 64, pps=18, seed=11)
+    mla = _paged_mla(cuda, 4, 128, 512, 64, pps=9, seed=12)
+    scale = 1.0 / math.sqrt(192)
+    odd = _exit_inputs(cuda, 16, 512, 4099)
+    aligned = _exit_inputs(cuda, 16, 512, 4096)
+    calls = {
+        "paged_gqa_attention": lambda: ops.paged_gqa_attention(*paged),
+        "paged_mla_attention": lambda: ops.paged_mla_attention(
+            *mla, scale=scale),
+        "exit_head odd_pitch": lambda: ops.exit_head_entropy(*odd),
+        "exit_head aligned": lambda: ops.exit_head_entropy(*aligned)}
+    main = {name: fn() for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    got, errors = launch_in_thread(calls)
+    assert errors == {}
+    for name in calls:
+        assert torch.equal(got[name], main[name]), name
+
+
 def test_flash_bwd_is_deterministic(cuda):
     """No atomics: two backward calls give the same bits, at a shape that
     splits G over blocks and at one that does not."""

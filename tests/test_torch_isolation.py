@@ -34,7 +34,11 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.core.cnn_zoo", "repro_torch.data.pipeline",
         "repro_torch.training.optimizer", "repro_torch.training.train_loop",
         "repro_torch.training.checkpoint", "repro_torch.launch.train",
-        "repro_torch.launch.unbind_ab"}}
+        "repro_torch.launch.unbind_ab", "repro_torch.analysis",
+        "repro_torch.analysis.__main__", "repro_torch.analysis.callgraph",
+        "repro_torch.analysis.costcheck", "repro_torch.analysis.guards",
+        "repro_torch.analysis.lint", "repro_torch.analysis.report",
+        "repro_torch.analysis.rules", "repro_torch.launch.analyze"}}
 assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
@@ -95,6 +99,12 @@ def test_entry_points_default_to_cuda():
     from repro_torch.launch.train import train
     with pytest.raises(RuntimeError, match="CUDA"):
         train("granite-3-2b-smoke", 1, 1, 8)
+    from repro_torch.analysis import build_audit_stack
+    from repro_torch.launch.analyze import main as analyze
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_audit_stack()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analyze([])
 
 
 def test_no_import_line_names_jax_or_reference():
