@@ -233,6 +233,28 @@ Phases, each fatal on failure:
      instances launched from a second host thread (each sets its
      shared-memory attribute on every launch) with the main thread's
      bits.
+ 16. collaborative execution over a world of ranks (``launch.mesh``:
+     gloo, one process a rank, both on this card; every kernel built by
+     phase 1 before any rank starts).  (a) Staged execution
+     (``core.hierarchy.staged_forward``) of granite-3-2b at full width
+     and depth (40 layers, its exit moved to layer 20 so the two scan
+     blocks split 20/20; staged execution runs no exit), random seeded
+     weights, on two ranks (pod 2): each rank makes only its stage's
+     blocks (and the embedding and head its stage reads); a batch of 4 x
+     1024 tokens, one warm-up, then a raw and an int8 boundary run.  Raw:
+     the logits equal the parent's one-process ``Model.forward`` on the
+     same weights bit for bit (sha256 of the bytes).  Int8: the
+     boundary's (q, scale) equal ``ref.quantize_rows_ref`` and the landed
+     activation ``ref.dequantize_rows_ref`` bit for bit, and the logits
+     differ from the raw ones by more than 0 and less than 1.0 (the
+     reference's own bounds).  (b) The expert-parallel MoE
+     (``moe_ffn(..., ShardCtx(mesh))``) of one llama4-maverick layer at
+     full width (128 experts of 8192, d_model 5120, W8A8) on two ranks
+     (model 2), each making and quantizing only its 64 experts, on 2 x
+     2048 tokens, against the parent's single-device layer made after
+     the ranks exit (y within 2e-2 of max(1, |ref|), aux within 1e-3).
+     Each rank's launches, wall time (after a warm-up call) and peak
+     memory are printed.
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
@@ -1003,6 +1025,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     guards, guard_launches = run_guards(torch, ops)
 
+    # ---- phase 16: staged pods and the expert-parallel MoE ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    collab, collab_launches = run_collab(torch, card_line)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -1077,6 +1104,8 @@ def main(argv=None):
             part: n[kname] for part, n in tr_launches.items()}
         kernels[-1]["phase15_launches"] = {
             part: n[kname] for part, n in guard_launches.items()}
+        kernels[-1]["phase16_launches"] = {
+            part: n[kname] for part, n in collab_launches.items()}
         if kname in ("w8a8_expert_matmul", "flash_attention_bwd"):
             kernels[-1]["pallas_counterpart"] = None
         if kname == "flash_attention_bwd":
@@ -1092,7 +1121,8 @@ def main(argv=None):
                        "tiered": tiered, "deepseek": ds, "forward": fwd,
                        "multi": multi, "zamba2": z2, "xlstm": xl,
                        "qwen2_vl": qv, "whisper": wh, "llama4": l4,
-                       "training": tr, "guards": guards},
+                       "training": tr, "guards": guards,
+                       "collab": collab},
                       f, indent=1)
     print(f"chip_smoke: every phase passed in {time.time() - t_script:.1f}s")
     print(card_line)
@@ -2071,7 +2101,7 @@ def run_deepseek(torch, ops, ref, results, exit_ds):
     # one live MoE input's routing, recomputed on the host
     if "moe_ffn" not in captured:
         fail("no live MoE call was captured")
-    (lp_moe, h, _), _ = captured["moe_ffn"]
+    (lp_moe, h, *_), _ = captured["moe_ffn"]
     x2d = h.reshape(-1, h.shape[-1])
     t_tok = x2d.shape[0]
     cap = ffn._capacity(t_tok, m.num_experts, m.top_k, m.capacity_factor)
@@ -3938,11 +3968,11 @@ def run_llama4(torch, ops, ref, results):
                      "w8a8_expert_matmul"), 97)
     orig_moe, moe_calls, moe_live = ffn.moe_ffn, [0], []
 
-    def moe_capture(lp_moe, h, c):
+    def moe_capture(lp_moe, h, c, *rest):
         moe_calls[0] += 1
         if moe_calls[0] == 97:
             moe_live.append((lp_moe, h.clone()))
-        return orig_moe(lp_moe, h, c)
+        return orig_moe(lp_moe, h, c, *rest)
     ffn.moe_ffn = moe_capture
     ops.reset_launches()
     t0 = time.time()
@@ -5112,6 +5142,197 @@ def run_guards(torch, ops):
     out["second_thread"] = bits
     out["wall_s"] = time.time() - t_phase
     print(f"phase 15 wall time {out['wall_s']:.1f}s")
+    return out, launches
+
+
+COLLAB_TOKENS = (4, 1024)      # phase 16 (a)'s batch
+COLLAB_SPLIT = 20              # ... its exit (block boundary) layer
+COLLAB_MOE_TOKENS = (2, 2048)  # phase 16 (b)'s x
+COLLAB_MOE_TOL = 2e-2          # PERF.md section 2's W8A8 MoE gate
+COLLAB_AUX_TOL = 1e-3
+
+
+def _sum_launches(counts):
+    total = {}
+    for c in counts:
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def run_collab(torch, card_line):
+    """Phase 16 (see the module docstring).  Returns a summary and the
+    launch counts each part's ranks report, summed over the ranks."""
+    import hashlib
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models import Model, ffn
+    t_phase = time.time()
+    out, launches = {"card": card_line}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_collab_")
+
+    def world(job):
+        path = os.path.join(tmp, f"{job['name']}_jobs.pt")
+        torch.save([job], path)
+        t0 = time.time()
+        run_world(2, "repro_torch.launch.collab:run_jobs", path, tmp,
+                  threads=0)
+        wall = time.time() - t0
+        return [torch.load(os.path.join(tmp, f"{job['name']}.{r}.pt"),
+                           weights_only=False) for r in (0, 1)], wall
+
+    # (a) staged granite-3-2b, 20/20 over two pods
+    cfg = depth_cut(get_config("granite-3-2b"), 40, (COLLAB_SPLIT,))
+    tokens = torch.randint(0, cfg.vocab_size, COLLAB_TOKENS,
+                           generator=torch.Generator().manual_seed(16))
+    ranks, world_s = world(dict(
+        kind="staged", name="staged", mesh=dict(pod=2), device="cuda",
+        cfg=cfg, stages=[0, 1], seed=0, batch={"tokens": tokens},
+        runs=[False, True], warmup=True))
+    for o in ranks:
+        raw, comp = o["runs"]
+        print(f"  (a) rank {o['rank']} (pod {o['coords']['pod']}): blocks "
+              f"{o['blocks']}, {o['param_bytes'] / 1e9:.2f} GB of weights "
+              f"made in {o['init_s']:.1f}s, peak {o['peak_bytes'] / 1e9:.2f}"
+              f" GB; raw run {raw['wall_ms']:.1f} ms, int8 run "
+              f"{comp['wall_ms']:.1f} ms")
+        for label, run in (("raw", raw), ("int8", comp)):
+            for h in run["handoffs"]:
+                print(f"      {label} boundary after block {h['block']}: "
+                      f"{h['side']} {h['bytes']} bytes in {h['ms']:.2f} ms")
+            print(f"      {label} launches {run['launches']}")
+    model = Model(cfg, device="cuda")
+    params = model.init(0)
+    t0 = time.time()
+    want = model.forward(params, {"tokens": tokens.cuda()}).logits
+    torch.cuda.synchronize()
+    fwd_ms = (time.time() - t0) * 1e3
+    digest = hashlib.sha256(want.cpu().contiguous().view(torch.uint8)
+                            .numpy().tobytes()).hexdigest()
+    del model, params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    raw_equal = all(o["runs"][0]["digest"] == digest for o in ranks)
+    d_int8 = [o["compressed_vs_raw"] for o in ranks]
+    sends = [h for o in ranks for h in o["runs"][1]["handoffs"]
+             if h["side"] == "send"]
+    recvs = [h for o in ranks for h in o["runs"][1]["handoffs"]
+             if h["side"] == "recv"]
+    raw_h = {h["side"]: h for o in ranks for h in o["runs"][0]["handoffs"]
+             if h["side"] != "head"}
+    heads = [h["ms"] for o in ranks for r in o["runs"]
+             for h in r["handoffs"] if h["side"] == "head"]
+    print(f"  (a) staged granite-3-2b ({cfg.num_layers} layers, blocks "
+          f"{COLLAB_SPLIT}/{cfg.num_layers - COLLAB_SPLIT}) on "
+          f"{COLLAB_TOKENS[0]} x {COLLAB_TOKENS[1]} tokens, world of 2 in "
+          f"{world_s:.1f}s: raw logits == one-process forward "
+          f"({fwd_ms:.1f} ms) bit for bit: {raw_equal}; boundary raw "
+          f"{raw_h['send']['bytes']} bytes (send {raw_h['send']['ms']:.2f} "
+          f"+ land {raw_h['recv']['ms']:.2f} ms), int8 {sends[0]['bytes']} "
+          f"bytes (quantize + send {sends[0]['ms']:.2f} + land and "
+          f"dequantize {recvs[0]['ms']:.2f} ms); logits broadcast "
+          f"{min(heads):.1f}-{max(heads):.1f} ms; int8 vs raw logits max "
+          f"{max(d_int8):.4f}")
+    if not all(r["finite"] for o in ranks for r in o["runs"]):
+        fail("phase 16 (a): staged logits are not finite")
+    if not raw_equal:
+        fail("phase 16 (a): the raw staged logits differ from the "
+             "one-process forward")
+    if not (len(sends) == len(recvs) == 1 and sends[0]["q_equal"]
+            and sends[0]["scale_equal"] and recvs[0]["x_equal"]):
+        fail("phase 16 (a): the int8 boundary differs from the plain "
+             "quantizer / dequantizer")
+    if not all(0.0 < d < 1.0 for d in d_int8):
+        fail(f"phase 16 (a): int8 vs raw logits {d_int8} outside (0, 1)")
+    launches["staged_raw"] = _sum_launches(o["runs"][0]["launches"]
+                                           for o in ranks)
+    launches["staged_int8"] = _sum_launches(o["runs"][1]["launches"]
+                                            for o in ranks)
+    for part in ("staged_raw", "staged_int8"):
+        if launches[part]["flash_attention"] != cfg.num_layers:
+            fail(f"phase 16 (a): {launches[part]['flash_attention']} flash "
+                 f"launches in {part}, not {cfg.num_layers}")
+    if (launches["staged_int8"]["quantize_rows"] != 1
+            or launches["staged_int8"]["dequantize_rows"] != 1):
+        fail("phase 16 (a): the int8 boundary did not launch the int8 pair")
+    out["staged"] = {
+        "world_s": world_s, "forward_ms": fwd_ms, "raw_equal": raw_equal,
+        "broadcast_ms": heads,
+        "int8_vs_raw": d_int8,
+        "ranks": [dict({k: o[k] for k in (
+            "rank", "coords", "blocks", "param_bytes", "init_s",
+            "peak_bytes", "compressed_vs_raw")}, runs=[
+                {k: r[k] for k in ("compress", "wall_ms", "launches",
+                                   "handoffs")} for r in o["runs"]])
+            for o in ranks]}
+
+    # (b) one llama4-maverick MoE layer, W8A8, 64 experts a rank
+    lcfg = get_config("llama4-maverick-400b-a17b")
+    x = (0.5 * torch.randn(*COLLAB_MOE_TOKENS, lcfg.d_model,
+                           generator=torch.Generator().manual_seed(17))
+         ).bfloat16()
+    ranks, world_s = world(dict(
+        kind="moe", name="moe", mesh=dict(model=2), device="cuda",
+        cfg=lcfg, x=x, seed=13, w8a8=True, warmup=True))
+    for o in ranks:
+        print(f"  (b) rank {o['rank']} (model {o['coords']['model']}): "
+              f"{o['local_experts']} experts made and quantized in "
+              f"{o['init_s']:.1f}s, peak {o['peak_bytes'] / 1e9:.2f} GB; "
+              f"layer {o['wall_ms']:.1f} ms after a warm-up call, its "
+              f"bf16 combine all_reduce alone {o['combine_ms']:.1f} ms; "
+              f"launches {o['launches']}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    full = ffn.init_moe_layer(lcfg, 13, "cuda", w8a8=True)
+    torch.cuda.synchronize()
+    full_init_s = time.time() - t0
+    ffn.moe_ffn(full, x.cuda(), lcfg)                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    y1, aux1 = ffn.moe_ffn(full, x.cuda(), lcfg)
+    torch.cuda.synchronize()
+    full_ms = (time.time() - t0) * 1e3
+    parent_peak = torch.cuda.max_memory_allocated()
+    y1, aux1 = y1.float().cpu(), float(aux1)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = [float((o["y"].float() - y1).abs().max()) for o in ranks]
+    within = all(bool(((o["y"].float() - y1).abs()
+                       <= COLLAB_MOE_TOL * y1.abs().clamp(min=1.0)).all())
+                 for o in ranks)
+    aux_err = max(abs(float(o["aux"]) - aux1) for o in ranks)
+    print(f"  (b) expert-parallel llama4 MoE layer ({lcfg.moe.num_experts} "
+          f"experts of {lcfg.moe.d_ff_expert}, W8A8) on "
+          f"{COLLAB_MOE_TOKENS[0]} x {COLLAB_MOE_TOKENS[1]} tokens, world "
+          f"of 2 in {world_s:.1f}s; single-device layer made in "
+          f"{full_init_s:.1f}s, {full_ms:.1f} ms, parent peak "
+          f"{parent_peak / 1e9:.2f} GB: y max abs err {max(errs):.3e}, aux "
+          f"err {aux_err:.3e}")
+    if not within or aux_err >= COLLAB_AUX_TOL:
+        fail(f"phase 16 (b): the expert-parallel layer is off the "
+             f"single-device one: y {errs}, aux {aux_err}")
+    if not all(o["local_experts"] == lcfg.moe.num_experts // 2
+               and o["launches"]["w8a8_expert_matmul"] == 3 for o in ranks):
+        fail("phase 16 (b): a rank did not hold half the experts or did "
+             "not launch the W8A8 GEMM for its three products")
+    launches["moe_ep"] = _sum_launches(o["launches"] for o in ranks)
+    out["moe"] = {"world_s": world_s, "full_init_s": full_init_s,
+                  "full_ms": full_ms, "parent_peak_bytes": parent_peak,
+                  "y_max_abs_err": errs, "aux_err": aux_err,
+                  "ranks": [{k: o[k] for k in (
+                      "rank", "coords", "local_experts", "init_s",
+                      "wall_ms", "combine_ms", "peak_bytes", "launches")}
+                      for o in ranks]}
+    shutil.rmtree(tmp, ignore_errors=True)
+    for kname in ("quantize_rows", "dequantize_rows", "flash_attention",
+                  "w8a8_expert_matmul"):
+        by_part = {p: n[kname] for p, n in launches.items()}
+        print(f"  launches of {kname} by part: {by_part}")
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 16 wall time {out['wall_s']:.1f}s")
     return out, launches
 
 

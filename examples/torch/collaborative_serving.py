@@ -14,7 +14,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import Scenario, build_cost_graph, plan_all
 from repro_torch.core.cnn_zoo import CNN_ZOO
-from repro_torch.core.offload import compression_decision
+from repro_torch.core.offload import (compress_boundary, compression_decision,
+                                      decompress_boundary)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import Model
 from repro_torch.serving import (ClusterConfig, ContinuousBatchScheduler,
@@ -147,10 +148,18 @@ def main(argv=None):
     q, s = kops.compress_rows(x)           # int8 kernel on the card
     x2 = kops.decompress_rows(q, s)
     err = float((x2.float() - x.float()).abs().max())
+    # the runtime ops of core.offload: the same int8 pair, and int4 (in
+    # int8) on the same rows
+    q8, s8 = compress_boundary(x)
+    same = bool(torch.equal(q8, q) and torch.equal(s8, s))
+    q4, s4 = compress_boundary(x, bits=4)
+    err4 = float((decompress_boundary(q4, s4).float() - x.float())
+                 .abs().max())
     dec = compression_decision(float(x.numel() * 2), sc.device, sc.dev_edge)
-    out["compress_err"] = err
+    out.update(compress_err=err, compress_ops_equal=same, int4_err=err4)
     print(f"\nboundary compression: 2 bytes -> 1 byte/el, max abs err "
-          f"{err:.4f}, planner says compress={dec.compress} "
+          f"{err:.4f} (int4: {err4:.4f}; runtime op == kernel pair: "
+          f"{same}), planner says compress={dec.compress} "
           f"(speedup {dec.speedup:.2f}x)")
     return out
 

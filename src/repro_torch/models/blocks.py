@@ -170,11 +170,12 @@ _STATE_FWD = {"mamba": ssm_mod.mamba2_forward,
               "slstm": xlstm_mod.slstm_forward}
 
 
-def init_scan_block(gen, cfg, kind: str, n_units: int, device="cpu"):
+def init_scan_block(gen, cfg, kind: str, n_units: int, device="cpu",
+                    keep=True):
     """Stacked params [n_units, ...] for a block of one kind, made in
-    place leaf by leaf (``common.materialize``)."""
+    place leaf by leaf (``common.materialize``, whose ``keep`` this is)."""
     _require_ported(kind)
-    return materialize(gen, _INIT[kind](cfg), device, n_units)
+    return materialize(gen, _INIT[kind](cfg), device, n_units, keep)
 
 
 def init_shared_attn(cfg):
@@ -219,24 +220,27 @@ def exit_head_logits(cfg, p, x):
 # Forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def _ffn_residual(cfg, kind: str, lp, x):
+def _ffn_residual(cfg, kind: str, lp, x, ctx=ffn_mod.SINGLE):
     """The second half of a ``dense`` or ``moe`` layer: x + FFN(norm(x)).
-    Returns (x, aux): the MoE load-balance loss, 0.0 for a dense layer."""
+    Returns (x, aux): the MoE load-balance loss, 0.0 for a dense layer.
+    ``ctx`` is the mesh an expert-parallel MoE runs over."""
     h = apply_norm(cfg.norm, x, lp["ln2"])
     if kind == "moe":
-        y, aux = ffn_mod.moe_ffn(lp["moe"], h, cfg)
+        y, aux = ffn_mod.moe_ffn(lp["moe"], h, cfg, ctx)
         return x + y, aux
     return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), 0.0
 
 
-def forward_layer(cfg, kind: str, lp, x, positions, window, enc_out=None):
+def forward_layer(cfg, kind: str, lp, x, positions, window, enc_out=None,
+                  ctx=ffn_mod.SINGLE):
     """One layer over the full sequence (the reference's ``_dense_fwd`` /
     ``_moe_fwd`` / ``_pair_fwd`` / ``_mamba_fwd`` / ``_mlstm_fwd`` /
     ``_slstm_fwd`` / ``_enc_fwd`` and ``_make_decx_fwd(enc_out)``).
     Returns (x, aux); a pair unit's aux is its MoE layer's."""
     if kind == "pair":
         x, _ = forward_layer(cfg, "dense", lp["a"], x, positions, window)
-        return forward_layer(cfg, "moe", lp["b"], x, positions, window)
+        return forward_layer(cfg, "moe", lp["b"], x, positions, window,
+                             ctx=ctx)
     if kind in _STATE_FWD:
         h = apply_norm(cfg.norm, x, lp["ln"])
         y, _ = _STATE_FWD[kind](cfg, lp[kind], h)
@@ -258,7 +262,7 @@ def forward_layer(cfg, kind: str, lp, x, positions, window, enc_out=None):
     else:
         y, _ = attn.gqa_forward(cfg, lp["attn"], h, positions,
                                 causal=kind != "enc", window=window)
-    return _ffn_residual(cfg, kind, lp, x + y)
+    return _ffn_residual(cfg, kind, lp, x + y, ctx)
 
 
 def _unbind_layers(tree):
@@ -278,16 +282,18 @@ def _unbind_layers(tree):
 
 
 def run_scan_block(cfg, kind: str, bparams, x, positions, window,
-                   enc_out=None):
+                   enc_out=None, ctx=ffn_mod.SINGLE):
     """A stacked block over the full sequence: a loop over its layer axis.
-    ``enc_out`` is the encoder output a ``decx`` block attends to.
+    ``enc_out`` is the encoder output a ``decx`` block attends to; ``ctx``
+    the mesh of its expert-parallel MoE layers.
     Returns (x, aux): one layer's aux as it is, the sum over layers
     otherwise (the reference's rule)."""
     _require_ported(kind)
     n = tree_leaves(bparams)[0].shape[0]
     auxs = []
     for lp in _unbind_layers(bparams):
-        x, aux = forward_layer(cfg, kind, lp, x, positions, window, enc_out)
+        x, aux = forward_layer(cfg, kind, lp, x, positions, window, enc_out,
+                               ctx)
         auxs.append(aux)
     return x, auxs[0] if n == 1 else sum(auxs[1:], auxs[0])
 
@@ -399,7 +405,7 @@ def _store_rows(dst, new, mask):
 
 
 def decode_layer(cfg, kind: str, lp, x, cache, position, window,
-                 paged=None, write_mask=None):
+                 paged=None, write_mask=None, ctx=ffn_mod.SINGLE):
     """One-token decode through one layer; the layer's cache is updated in
     place.  Returns (x, cache, aux): ``aux`` is the MoE load-balance loss
     (0 for dense layers), which decode callers drop.  ``paged`` (an
@@ -416,7 +422,7 @@ def decode_layer(cfg, kind: str, lp, x, cache, position, window,
         x, _, _ = decode_layer(cfg, "dense", lp["a"], x, cache["a"],
                                position, window, paged, write_mask)
         x, _, aux = decode_layer(cfg, "moe", lp["b"], x, cache["b"],
-                                 position, window, paged, write_mask)
+                                 position, window, paged, write_mask, ctx)
         return x, cache, aux
     if kind == "decx":
         if paged is not None:
@@ -448,12 +454,12 @@ def decode_layer(cfg, kind: str, lp, x, cache, position, window,
     h = apply_norm(cfg.norm, x, lp["ln1"])
     y, new = _attn_decode_dispatch(cfg, lp["attn"], h, cache, position,
                                    window, paged, write_mask)
-    x, aux = _ffn_residual(cfg, kind, lp, x + y)
+    x, aux = _ffn_residual(cfg, kind, lp, x + y, ctx)
     return x, new, aux
 
 
 def decode_scan_block(cfg, kind: str, bparams, x, caches, position, window,
-                      paged=None, write_mask=None):
+                      paged=None, write_mask=None, ctx=ffn_mod.SINGLE):
     """Decode through a stacked block: a loop over its layer axis.  Layer
     i's params and cache are views ``[i]`` of the stacked tensors, so the
     in-place cache writes land in the stacked caches."""
@@ -462,7 +468,7 @@ def decode_scan_block(cfg, kind: str, bparams, x, caches, position, window,
         lp = tree_map(lambda a: a[i], bparams)
         cc = tree_map(lambda a: a[i], caches)
         x, _, _ = decode_layer(cfg, kind, lp, x, cc, position, window, paged,
-                               write_mask)
+                               write_mask, ctx)
     return x, caches
 
 

@@ -75,23 +75,55 @@ def scaled_init(shape, fan_in: int) -> Leaf:
     return Leaf(tuple(shape), std=1.0 / math.sqrt(max(1, fan_in)))
 
 
-def materialize(gen, tree, device, n_units: Optional[int] = None):
+def materialize(gen, tree, device, n_units: Optional[int] = None,
+                keep=True):
     """Make every ``Leaf`` of ``tree`` on ``device``, stacked
     [n_units, ...] when ``n_units`` is given.  dtype follows the
     reference's cast, applied after stacking: bf16 where the made tensor
-    has rank >= 2 (stacked norm scales included), fp32 otherwise."""
+    has rank >= 2 (stacked norm scales included), fp32 otherwise.
+
+    ``keep`` says what of each leaf this process holds: True, all of it;
+    False, none (its draws are made and dropped, so the leaves after it
+    get the numbers they get in a full init; the leaf becomes None); or
+    (dim, lo, hi), the part [lo, hi) of the made tensor's dimension
+    ``dim`` (a rank's experts), equal to that part of the full leaf.  On
+    the "meta" device nothing is drawn."""
     def make(leaf: Leaf):
         shape = leaf.shape if n_units is None else (n_units, *leaf.shape)
         dtype = torch.bfloat16 if len(shape) >= 2 else torch.float32
+        numel = math.prod(shape)
+        if keep is False:
+            if leaf.std and torch.device(device).type != "meta":
+                for a in range(0, numel, DRAW_CHUNK):
+                    torch.randn(min(DRAW_CHUNK, numel - a), generator=gen,
+                                dtype=torch.float32, device=device)
+            return None
+        # kept runs of the full leaf's flat draw: (start, length, out start)
+        if keep is True:
+            runs = [(0, numel, 0)]
+        else:
+            dim, lo, hi = keep
+            pre = math.prod(shape[:dim])
+            post = math.prod(shape[dim + 1:])
+            n = shape[dim]
+            runs = [((a * n + lo) * post, (hi - lo) * post,
+                     a * (hi - lo) * post) for a in range(pre)]
+            shape = (*shape[:dim], hi - lo, *shape[dim + 1:])
         out = torch.empty(shape, dtype=dtype, device=device)
         if not leaf.std:
             return out.fill_(leaf.fill)
+        if out.is_meta:
+            return out
         flat = out.view(-1)
-        for a in range(0, flat.numel(), DRAW_CHUNK):
-            b = min(a + DRAW_CHUNK, flat.numel())
+        for a in range(0, numel, DRAW_CHUNK):
+            b = min(a + DRAW_CHUNK, numel)
             draw = torch.randn(b - a, generator=gen, dtype=torch.float32,
-                               device=device)
-            flat[a:b].copy_(draw.mul_(leaf.std))
+                               device=device).mul_(leaf.std)
+            for start, length, dst in runs:
+                lo_, hi_ = max(a, start), min(b, start + length)
+                if lo_ < hi_:
+                    flat[dst + lo_ - start:dst + hi_ - start].copy_(
+                        draw[lo_ - a:hi_ - a])
         return out
     return tree_map(make, tree)
 

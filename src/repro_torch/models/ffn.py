@@ -4,8 +4,16 @@ The MoE is the reference's single-device form (``moe_ffn_reference``):
 route every token to its top-k experts, give each expert ``capacity``
 rows, drop the assignments past it (in the row-major order of the (token,
 k) assignments), run every expert over its rows as one batched product,
-and combine the expert outputs weighted by the gates.  The expert-parallel
-form across devices is not ported.
+and combine the expert outputs weighted by the gates.
+
+Expert parallel (``moe_ffn(params, x, cfg, ShardCtx(mesh))``, the
+reference's ``shard_map`` form over a world of ranks): tokens are sharded
+over the ("pod", "data") axes and replicated over "model"; each rank holds
+only its own experts (``local_experts``), dispatches the tokens it sees
+into capacity-bounded buffers for them, runs them, and one ``all_reduce``
+over "model" in the activation dtype combines the expert shards (the
+reference's ``psum``); the result is gathered back to the global batch on
+every rank.
 
 Serving-time W8A8 experts (the reference's ``quantize_model_moe``): the
 expert weights are stored int8 with one fp32 scale per (expert, output
@@ -25,15 +33,73 @@ under ``jax.jit``, bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import INV127
-from repro_torch.models.common import activation, scaled_init
+from repro_torch.models.common import activation, materialize, scaled_init
+from repro_torch.sharding import comm
+from repro_torch.sharding.specs import ShardingRules, local_slice
+
+
+# ---------------------------------------------------------------------------
+# Mesh context threaded through the model
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Ambient mesh info: a ``torch.distributed.device_mesh.DeviceMesh``
+    over the world of ranks (``launch.mesh.make_host_mesh``), or ``None``
+    for one device (serving, training, tests)."""
+    mesh: Optional[Any] = None
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return () if self.mesh is None else tuple(self.mesh.mesh_dim_names)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        if self.mesh is None:
+            return {}
+        return dict(zip(self.axis_names, self.mesh.mesh.shape))
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in ("pod", "data") if a in self.axis_names)
+
+    @property
+    def model_axis(self) -> Optional[str]:
+        return "model" if "model" in self.axis_names else None
+
+    @property
+    def model_size(self) -> int:
+        ax = self.model_axis
+        return self.shape[ax] if ax else 1
+
+    @property
+    def data_size(self) -> int:
+        return math.prod(self.shape[a] for a in self.data_axes)
+
+    def group(self, axis: str):
+        """The process group of the ranks that differ only along ``axis``."""
+        return self.mesh.get_group(axis)
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return self.mesh.get_local_rank(axis)
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return {a: self.coord(a) for a in self.axis_names}
+
+
+SINGLE = ShardCtx(None)
 
 
 def init_ffn(d: int, ff: int, act: str):
@@ -156,6 +222,25 @@ def quantize_expert_weights(moe_params):
     return out
 
 
+def init_moe_layer(cfg, seed: int, device, experts=None,
+                   w8a8: bool = False):
+    """One MoE layer's params made from ``seed`` on ``device``, holding
+    experts [e0, e1) = ``experts`` (all of them by default) of the layer
+    that the full init from the same seed makes: the other experts'
+    draws are made and dropped (``common.materialize``'s ``keep``).  With
+    ``w8a8`` each expert leaf is quantized as soon as it is made and its
+    bf16 form dropped, so one bf16 expert leaf exists at a time."""
+    e0, e1 = experts if experts is not None else (0, cfg.moe.num_experts)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, leaf in init_moe(cfg).items():
+        keep = (0, e0, e1) if k in _EXPERT_KEYS else True
+        out[k] = materialize(gen, leaf, device, keep=keep)
+        if w8a8 and k in _EXPERT_KEYS:
+            out[k + "_q"], out[k + "_s"] = _quantize_weight(out.pop(k))
+    return out
+
+
 def quantize_model_moe(params):
     """Every MoE expert set of a model params tree (a dict holding "wg"
     next to a "router") in its W8A8 form; the rest untouched.  IN PLACE,
@@ -258,9 +343,79 @@ def moe_ffn_reference(params, x, cfg,
     return y.reshape(b, s, d), aux
 
 
-def moe_ffn(params, x, cfg):
-    """The MoE layer on one device, as the reference runs it without a
-    mesh (``ShardCtx(None)``, what serving builds): the reference oracle,
-    bf16 or W8A8 experts by the keys of ``params``.
-    x [B,S,D] -> (y [B,S,D], aux_loss scalar)."""
-    return moe_ffn_reference(params, x, cfg)
+def moe_ffn(params, x, cfg, ctx: ShardCtx = SINGLE):
+    """The MoE layer, bf16 or W8A8 experts by the keys of ``params``.
+    x [B,S,D] -> (y [B,S,D], aux_loss scalar).
+
+    Without a mesh (``SINGLE``, what serving builds): the reference
+    oracle.  With one: ``params`` holds this rank's experts only (E / model
+    of them, ``local_experts``), ``x`` is the global batch and so is the
+    returned ``y``, on every rank.  The rank routes its data shard (the
+    whole batch when the data axes do not divide it), sizes capacity from
+    its own token count, runs experts ``e0 = model_rank * e_loc`` onward,
+    sums the shards' partial ``y`` over "model" in x's dtype, averages aux
+    over the data axes and adds the shared expert outside, as the
+    reference does."""
+    m = cfg.moe
+    if ctx.mesh is None:
+        return moe_ffn_reference(params, x, cfg)
+    b, s, d = x.shape
+    # batch not divisible by the data axes (e.g. long_500k batch=1):
+    # replicate tokens over data instead of sharding them
+    dax = ctx.data_axes if b % max(ctx.data_size, 1) == 0 else ()
+    dsize = ctx.data_size if dax else 1
+    bl = b // dsize
+    t_local = bl * s
+    cap = _capacity(t_local, m.num_experts, m.top_k, m.capacity_factor)
+    e_loc = params["wg_q" if "wg_q" in params else "wg"].shape[0]
+    if e_loc * ctx.model_size != m.num_experts:
+        raise ValueError(f"moe_ffn: {e_loc} local experts x model "
+                         f"{ctx.model_size} != {m.num_experts} experts")
+    row = 0
+    for a in dax:                         # the data axes, first one major
+        row = row * ctx.shape[a] + ctx.coord(a)
+    x2d = x[row * bl:(row + 1) * bl].reshape(t_local, d)
+    gates, idx, probs = _route(x2d, params["router"], m.top_k)
+    e0 = ctx.coord(ctx.model_axis) * e_loc if ctx.model_axis else 0
+    y = _dispatch_compute_combine(x2d, gates, idx, params, e0, cap, cfg.act)
+    if ctx.model_axis:
+        dist.all_reduce(y, group=ctx.group(ctx.model_axis))  # the shards
+    aux = _aux_loss(probs, idx, m.num_experts).reshape(1)
+    for a in dax:
+        dist.all_reduce(aux, group=ctx.group(a))
+    aux = (aux / dsize if dax else aux).reshape(())
+    y = y.reshape(bl, s, d)
+    if dax:
+        y = comm.all_gather_axes(y, [ctx.group(a) for a in dax])
+    if "shared" in params:
+        y = y + ffn_forward(params["shared"], x, cfg.act)
+    return y, aux
+
+
+_LOCAL_KEYS = _EXPERT_KEYS + tuple(k + sfx for k in _EXPERT_KEYS
+                                   for sfx in ("_q", "_s"))
+
+
+def local_experts(params, ctx: ShardCtx):
+    """``params`` (a model's tree or one MoE layer's) with every expert
+    leaf (wg/wu/wd, bf16 or W8A8) cut to this rank's shard over "model"
+    under the reference's partition rule (``sharding.specs``: the expert
+    dimension over "model"); every other leaf as it is."""
+    if ctx.mesh is None:
+        return params
+    rules = ShardingRules(ctx.mesh, "tp")
+    coords = ctx.coords
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            moe = "router" in node
+            return {k: (local_slice(v, rules.param_spec(
+                        path + (k,), tuple(v.shape)), rules.mesh, coords)
+                        if moe and k in _LOCAL_KEYS
+                        else walk(v, path + (str(k),)))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (str(i),))
+                              for i, v in enumerate(node))
+        return node
+    return walk(params, ())

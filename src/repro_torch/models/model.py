@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import blocks as B
+from repro_torch.models.ffn import SINGLE, ShardCtx
 from repro_torch.models.common import (Leaf, apply_norm, embed, init_norm,
                                        materialize, normal_init,
                                        resolve_device, tree_map, unembed)
@@ -86,8 +87,13 @@ def _row_where(mask, axis):
 
 
 class Model:
-    def __init__(self, cfg, device="cuda"):
+    def __init__(self, cfg, device="cuda", ctx: ShardCtx = SINGLE):
+        """``ctx``: the mesh of the expert-parallel MoE layers
+        (``ShardCtx(device_mesh)``; their params then hold each rank's
+        experts only, ``ffn.local_experts``), or ``SINGLE`` for one
+        device, as serving and training run."""
         self.cfg = cfg
+        self.ctx = ctx
         self.device = resolve_device(device)
         self.plan = B.build_plan(cfg)
         self.n_exits = sum(1 for s in self.plan if s[0] == "exit")
@@ -96,49 +102,76 @@ class Model:
     # ------------------------------------------------------------------
     # Init
     # ------------------------------------------------------------------
-    def init(self, seed: int = 0) -> Dict[str, Any]:
+    def init(self, seed: int = 0, keep=None) -> Dict[str, Any]:
         """Random params from a seeded ``torch.Generator`` on the model's
         device, with the reference's tree and distributions: embed
         N(0, 0.02), matmul weights N(0, 1/fan_in), bf16 for rank >= 2
         after stacking, fp32 otherwise.  Every tensor is made in place in
-        its final dtype (``common.materialize``)."""
-        cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        its final dtype (``common.materialize``).
+
+        ``keep(part)`` (None: every part) picks the parts this process
+        holds: "embed", "lm_head", "final_norm", "shared_attn",
+        "exit_heads", "encoder", "enc_norm", "mtp", and ("blocks", i) for
+        scan block i.  A part not kept is left out of the tree (a block
+        becomes None in ``params["blocks"]``); its draws are made and
+        dropped, so every kept part equals the full init's."""
+        return self._init(torch.Generator(device=self.device)
+                          .manual_seed(seed), self.device, keep)
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The params tree on the "meta" device: every leaf's shape and
+        dtype, no storage and no draws (what the partition rules read)."""
+        return self._init(None, torch.device("meta"), None)
+
+    def _init(self, gen, dev, keep):
+        cfg = self.cfg
+
+        def part(name, fn):
+            if keep is None or keep(name):
+                return fn(True)
+            fn(False)                         # draw and drop
+            return None
         top = {"embed": normal_init((cfg.vocab_size, cfg.d_model), 0.02),
                "final_norm": init_norm(cfg.norm, cfg.d_model)}
         if not cfg.tie_embeddings:
             top["lm_head"] = normal_init((cfg.vocab_size, cfg.d_model), 0.02)
-        params: Dict[str, Any] = materialize(gen, top, dev)
+        params: Dict[str, Any] = {}
+        for name, leaf in top.items():
+            params[name] = part(name, lambda k, leaf=leaf: materialize(
+                gen, leaf, dev, keep=k))
         params["blocks"] = [
-            B.init_scan_block(gen, cfg, kind, n, dev)
-            for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]
+            part(("blocks", bi), lambda k, kind=kind, n=n: B.init_scan_block(
+                gen, cfg, kind, n, dev, keep=k))
+            for bi, (_, kind, n, _) in enumerate(
+                s for s in self.plan if s[0] == "scan")]
         if cfg.shared_attn_period:
-            params["shared_attn"] = materialize(
-                gen, B.init_shared_attn(cfg), dev)
+            params["shared_attn"] = part("shared_attn", lambda k: materialize(
+                gen, B.init_shared_attn(cfg), dev, keep=k))
         if self.n_exits:
-            params["exit_heads"] = [
-                materialize(gen, B.init_exit_head(cfg), dev)
-                for _ in range(self.n_exits)]
+            params["exit_heads"] = part("exit_heads", lambda k: [
+                materialize(gen, B.init_exit_head(cfg), dev, keep=k)
+                for _ in range(self.n_exits)])
         if cfg.family == "encdec":
-            params["encoder"] = B.init_scan_block(
-                gen, cfg, "enc", cfg.encdec.num_encoder_layers, dev)
-            params["enc_norm"] = materialize(
-                gen, init_norm(cfg.norm, cfg.d_model), dev)
+            params["encoder"] = part("encoder", lambda k: B.init_scan_block(
+                gen, cfg, "enc", cfg.encdec.num_encoder_layers, dev, keep=k))
+            params["enc_norm"] = part("enc_norm", lambda k: materialize(
+                gen, init_norm(cfg.norm, cfg.d_model), dev, keep=k))
         if cfg.mtp_depth:
-            params["mtp"] = self._init_mtp(gen)
-        return params
+            params["mtp"] = part("mtp", lambda k: self._init_mtp(gen, dev, k))
+        return {k: v for k, v in params.items() if v is not None}
 
-    def _init_mtp(self, gen):
+    def _init_mtp(self, gen, dev, keep=True):
         """DeepSeek-V3's multi-token-prediction head, as the reference
         builds it.  It feeds ``forward`` (``mtp_logits``), never decode."""
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         kind = "moe" if cfg.family == "moe" and cfg.moe.num_experts \
             else "dense"
         mtp = materialize(gen, {
             "combine": normal_init((2 * cfg.d_model, cfg.d_model), 0.02),
             "norm": init_norm(cfg.norm, cfg.d_model),
-            "kind_is_moe": Leaf((), fill=float(kind == "moe"))}, dev)
-        mtp["layer"] = B.init_scan_block(gen, cfg, kind, 1, dev)
+            "kind_is_moe": Leaf((), fill=float(kind == "moe"))}, dev,
+            keep=keep)
+        mtp["layer"] = B.init_scan_block(gen, cfg, kind, 1, dev, keep=keep)
         return mtp
 
     # ------------------------------------------------------------------
@@ -238,7 +271,8 @@ class Model:
         for step in self.plan:
             if step[0] == "scan":
                 y, a = B.run_scan_block(cfg, step[1], params["blocks"][bi],
-                                        x, positions, window, enc_out)
+                                        x, positions, window, enc_out,
+                                        self.ctx)
                 if alive is None:
                     x = y
                 else:
@@ -272,7 +306,8 @@ class Model:
                          mp["combine"].to(h.dtype))
         kind = "moe" if cfg.family == "moe" and cfg.moe.num_experts \
             else "dense"
-        x, _ = B.run_scan_block(cfg, kind, mp["layer"], x, positions, window)
+        x, _ = B.run_scan_block(cfg, kind, mp["layer"], x, positions, window,
+                                ctx=self.ctx)
         x = apply_norm(cfg.norm, x, mp["norm"])
         return unembed(x, params.get("lm_head", params["embed"]))
 
@@ -394,7 +429,8 @@ class Model:
             if step[0] == "scan":
                 x, _ = B.decode_scan_block(
                     cfg, step[1], params["blocks"][bi], x,
-                    cache["blocks"][bi], position, window, paged, write_mask)
+                    cache["blocks"][bi], position, window, paged, write_mask,
+                    self.ctx)
                 bi += 1
             elif step[0] == "shared_attn":
                 x, _ = B.run_shared_attn_decode(
@@ -463,7 +499,8 @@ class Model:
                 _, kind, bi = st
                 x, _ = B.decode_scan_block(
                     self.cfg, kind, params["blocks"][bi], x,
-                    cache["blocks"][bi], position, window, paged, wm)
+                    cache["blocks"][bi], position, window, paged, wm,
+                    self.ctx)
             else:
                 x, _ = B.run_shared_attn_decode(
                     self.cfg, params["shared_attn"], x,

@@ -61,6 +61,8 @@ def test_collaborative_serving_runs():
     assert sum(out["cluster"]["route_counts"].values()) == 6
     assert out["pool_tokens"] == {"yi": 24, "xlstm": 24}
     assert out["compress_err"] < 0.05
+    assert out["compress_ops_equal"]       # core.offload == the kernel pair
+    assert out["compress_err"] < out["int4_err"] < 1.0
 
 
 def test_train_100m_config_and_steps(tmp_path):

@@ -38,7 +38,10 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.analysis.__main__", "repro_torch.analysis.callgraph",
         "repro_torch.analysis.costcheck", "repro_torch.analysis.guards",
         "repro_torch.analysis.lint", "repro_torch.analysis.report",
-        "repro_torch.analysis.rules", "repro_torch.launch.analyze"}}
+        "repro_torch.analysis.rules", "repro_torch.launch.analyze",
+        "repro_torch.sharding", "repro_torch.sharding.mesh_compat",
+        "repro_torch.sharding.specs", "repro_torch.sharding.comm",
+        "repro_torch.launch.mesh", "repro_torch.launch.collab"}}
 assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
@@ -65,7 +68,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 53      # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 59      # every submodule walked
 
 
 def test_entry_points_default_to_cuda():
@@ -124,3 +127,41 @@ def test_no_import_line_names_jax_or_reference():
             for i, line in enumerate(open(f, encoding="utf-8"), 1)
             if pat.match(line)]
     assert not hits, hits
+
+
+def test_rank_programs_import_no_jax_and_no_reference(tmp_path):
+    """A world of 2 gloo ranks runs the rank programs
+    (``launch.collab.run_jobs``: a staged forward across 2 pods, the
+    expert-parallel MoE, an expert-parallel model forward) with ``jax``
+    and ``repro`` shadowed by packages that raise on import: every rank
+    finishes, so none of them imports either."""
+    import torch
+    from repro_torch.configs import get_config
+    for name in ("jax", "repro"):
+        (tmp_path / "poison" / name).mkdir(parents=True)
+        (tmp_path / "poison" / name / "__init__.py").write_text(
+            f"raise ImportError('a rank imported {name}')\n")
+    granite = get_config("granite-3-2b-smoke")
+    llama = get_config("llama4-maverick-400b-a17b-smoke")
+    toks = torch.randint(0, 256, (2, 8), generator=torch.Generator()
+                         .manual_seed(0))
+    x = torch.randn(2, 4, llama.d_model).bfloat16()
+    jobs = [dict(kind="staged", name="staged", mesh=dict(pod=2),
+                 device="cpu", cfg=granite, stages=[0, 1], seed=0,
+                 batch={"tokens": toks}, runs=[False, True]),
+            dict(kind="moe", name="moe", mesh=dict(model=2), device="cpu",
+                 cfg=llama, x=x, seed=1, w8a8=True)]
+    torch.save(jobs, tmp_path / "jobs.pt")
+    path = os.pathsep.join([str(tmp_path / "poison"),
+                            os.path.join(REPO, "src")])
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; from repro_torch.launch.mesh import run_world; "
+         "run_world(2, 'repro_torch.launch.collab:run_jobs', sys.argv[1], "
+         "sys.argv[2])", str(tmp_path / "jobs.pt"), str(tmp_path)],
+        env=dict(os.environ, PYTHONPATH=path), capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for name in ("staged", "moe"):
+        for r in range(2):
+            assert (tmp_path / f"{name}.{r}.pt").exists()
