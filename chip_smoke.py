@@ -255,6 +255,21 @@ Phases, each fatal on failure:
      the ranks exit (y within 2e-2 of max(1, |ref|), aux within 1e-3).
      Each rank's launches, wall time (after a warm-up call) and peak
      memory are printed.
+ 17. the tooling (``launch.dryrun``, ``op_cost``, ``profile_pair``): (a)
+     ``dryrun_one`` on meta for granite-3-2b decode_32k on the 256-chip
+     mesh and deepseek-v3-671b train_4k on the 512-chip mesh: status,
+     per-device argument GB, ``fits_80gb``, counted flops and bytes a
+     device, bottleneck; (b) ``profile_pair`` granite-3-2b prefill_32k
+     on this card at 8 x 2048 (phase 7's forward, every output kept), (c)
+     its decode step at 16 rows over a cache of 4,096: each counted
+     under ``op_cost``, timed warm by CUDA events, its busy share by
+     ``torch.profiler``, its bound and ``mfu``; every share at most 1.05
+     (a count above what the card did fails); (d) ``profile_pair
+     --staged`` raw and int8 at phase 16 (a)'s 4 x 1024 (40 layers split
+     20/20) on two gloo ranks: each rank's collective bytes equal phase
+     16's (boundary 16,777,216 raw and 8,404,992 int8, the logits'
+     broadcast 805,355,520), and rows 4-6 launch.  The phase stays under
+     90 s.
 Phase 2 also holds the flash-attention kernel against its plain version,
 and phase 3 the smoke-width ``Model.forward`` on the card against the CPU.
 Phase 2 times the paged GQA and paged MLA kernels, the exit head (at
@@ -282,11 +297,15 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
+sys.path.insert(0, SRC)
+# one H100 SXM's published peaks at 700 W (NVIDIA data sheet, dense), one
+# source for the port: HBM bytes/s and bf16 tensor-core FLOP/s, and int8
+# tensor-core OP/s.  Without the port beside this file the import fails
+# and the script exits non-zero before it prints a result.
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW, INT8_PEAK, PEAK_FLOPS)
 
-# published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense):
-# HBM bytes/s and bf16 tensor-core FLOP/s
-PEAKS = (3.35e12, 989e12)
-INT8_PEAK = 1979e12   # dense int8 tensor-core OP/s, the same data sheet
+PEAKS = (HBM_BW, PEAK_FLOPS)
 
 PAGED_TOL = 1e-2   # bf16 output: both accumulate in fp32 and round once;
                    # one bf16 ulp of |out| < 2 is at most 2^-7 = 0.0078
@@ -1030,6 +1049,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     collab, collab_launches = run_collab(torch, card_line)
 
+    # ---- phase 17: the dry run, operation counts and profiles ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tooling, tooling_launches = run_tooling(torch, card_line)
+
     replaces = {
         "paged_gqa_attention": ("src/repro_torch/kernels/csrc/"
                                 "paged_attention.cu",
@@ -1106,6 +1130,8 @@ def main(argv=None):
             part: n[kname] for part, n in guard_launches.items()}
         kernels[-1]["phase16_launches"] = {
             part: n[kname] for part, n in collab_launches.items()}
+        kernels[-1]["phase17_launches"] = {
+            part: n[kname] for part, n in tooling_launches.items()}
         if kname in ("w8a8_expert_matmul", "flash_attention_bwd"):
             kernels[-1]["pallas_counterpart"] = None
         if kname == "flash_attention_bwd":
@@ -1122,7 +1148,7 @@ def main(argv=None):
                        "multi": multi, "zamba2": z2, "xlstm": xl,
                        "qwen2_vl": qv, "whisper": wh, "llama4": l4,
                        "training": tr, "guards": guards,
-                       "collab": collab},
+                       "collab": collab, "tooling": tooling},
                       f, indent=1)
     print(f"chip_smoke: every phase passed in {time.time() - t_script:.1f}s")
     print(card_line)
@@ -5333,6 +5359,103 @@ def run_collab(torch, card_line):
         print(f"  launches of {kname} by part: {by_part}")
     out["wall_s"] = time.time() - t_phase
     print(f"phase 16 wall time {out['wall_s']:.1f}s")
+    return out, launches
+
+
+TOOLING_MAX_SHARE = 1.05    # profile_pair's: a count above the card's work
+TOOLING_WALL_S = 90.0       # phase 17's time budget
+# phase 16's per-rank bytes at 4 x 1024 tokens of granite-3-2b: the
+# boundary [4, 1024, 2048] bf16 raw, int8 rows plus fp32 row scales, and
+# the logits [4, 1024, 49,155] fp32
+TOOLING_BOUNDARY = {"raw": 4 * 1024 * 2048 * 2,
+                    "int8": 4 * 1024 * (2048 + 4)}
+TOOLING_BROADCAST = 4 * 1024 * 49155 * 4
+
+
+def run_tooling(torch, card_line):
+    """Phase 17 (see the module docstring).  Returns a summary and the
+    kernel launches of each part's counted run."""
+    from repro_torch.launch import dryrun, profile_pair
+    t_phase = time.time()
+    out, launches = {"card": card_line}, {}
+
+    # (a) the dry run on meta
+    out["dryrun"] = []
+    for arch, shape, mesh in (("granite-3-2b", "decode_32k", "single"),
+                              ("deepseek-v3-671b", "train_4k", "multi")):
+        t0 = time.time()
+        r = dryrun.dryrun_one(arch, shape, mesh, save=False)
+        if r["status"] != "ok":
+            fail(f"phase 17 (a): dry run of {arch} {shape} {mesh}: {r}")
+        rl = r["roofline"]
+        print(f"  (a) dryrun {arch} {shape} {mesh} ({r['chips']} chips, "
+              f"{time.time() - t0:.1f}s on meta): {r['status']}, arguments "
+              f"{r['argument_bytes'] / 1e9:.2f} GB a device "
+              f"{r['argument_bytes_per_device']}, fits_80gb "
+              f"{r['fits_80gb']} (arguments only); a device: flops "
+              f"{rl['hlo_flops']:.4e}, bytes {rl['hlo_bytes']:.4e}, "
+              f"bottleneck {rl['bottleneck']}, model/counted "
+              f"{rl['useful_flops_ratio']:.3f}")
+        out["dryrun"].append({k: r[k] for k in (
+            "arch", "shape", "mesh", "status", "chips", "argument_bytes",
+            "argument_bytes_per_device", "fits_80gb", "roofline")})
+
+    # (b) the forward and (c) the decode step, on this card
+    for part, shape, batch, seq in (("prefill", "prefill_32k", 8, 2048),
+                                    ("decode", "decode_32k", 16, 4096)):
+        r = profile_pair.profile_step("granite-3-2b", shape, batch=batch,
+                                      seq=seq)
+        label = "(b)" if part == "prefill" else "(c)"
+        print(f"  {label} {card_line}: device {r['device_ms']:.3f} ms, "
+              f"busy {r['busy']:.3f}, bound {r['bound_ms']:.3f} ms by "
+              f"{r['bound_by']}, share {r['share']:.4f}, mfu "
+              f"{r['mfu']:.4f}, peak {r['peak_bytes'] / 1e9:.2f} GB")
+        if not (math.isfinite(r["share"]) and 0 < r["share"]
+                <= TOOLING_MAX_SHARE):
+            fail(f"phase 17 {label}: share {r['share']} outside (0, "
+                 f"{TOOLING_MAX_SHARE}]")
+        launches[part] = r["launches"]
+        out[part] = {k: v for k, v in r.items() if k != "top_bytes"}
+        out[part]["top_bytes"] = [[label_, b] for label_, (b, _) in
+                                  r["top_bytes"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if launches["prefill"]["flash_attention"] != 40:
+        fail(f"phase 17 (b): {launches['prefill']['flash_attention']} flash "
+             "launches in the counted forward, not 40")
+
+    # (d) staged raw and int8 on two ranks
+    st = profile_pair.profile_staged("granite-3-2b", "prefill_32k",
+                                     ["raw", "int8"], batch=4, seq=1024)
+    for o in st["ranks"]:
+        for run in o["runs"]:
+            got = (run["collective"]["collective-permute"],
+                   run["collective"]["broadcast"])
+            want = (TOOLING_BOUNDARY[run["mode"]], TOOLING_BROADCAST)
+            print(f"  (d) rank {o['rank']} {run['mode']}: boundary "
+                  f"{got[0]:.0f} B, broadcast {got[1]:.0f} B (phase 16: "
+                  f"{want[0]}, {want[1]}); flops {run['flops']:.4e}, bytes "
+                  f"{run['bytes']:.4e}, {run['wall_ms']:.1f} ms")
+            if got != want:
+                fail(f"phase 17 (d): rank {o['rank']} {run['mode']} "
+                     f"collective bytes {got}, phase 16 recorded {want}")
+    for i, mode in enumerate(("raw", "int8")):
+        launches["staged_" + mode] = _sum_launches(
+            o["runs"][i]["launches"] for o in st["ranks"])
+    out["staged"] = st
+    int8 = launches["staged_int8"]
+    rows = {"quantize_rows": int8["quantize_rows"],
+            "dequantize_rows": int8["dequantize_rows"],
+            "flash_attention": launches["prefill"]["flash_attention"]}
+    print(f"  rows 4-6 launched: {rows}; staged launches "
+          f"{launches['staged_raw']} / {int8}")
+    if rows["quantize_rows"] != 1 or rows["dequantize_rows"] != 1:
+        fail(f"phase 17 (d): the int8 boundary launched {rows}")
+    out["wall_s"] = time.time() - t_phase
+    print(f"phase 17 wall time {out['wall_s']:.1f}s")
+    if out["wall_s"] > TOOLING_WALL_S:
+        fail(f"phase 17 took {out['wall_s']:.1f}s, over "
+             f"{TOOLING_WALL_S}s")
     return out, launches
 
 

@@ -1,12 +1,13 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-Only the architectures whose model family the port runs are registered;
-``"<arch>-smoke"`` returns the mechanically reduced variant.
+Every architecture of the reference's registry; ``"<arch>-smoke"`` returns
+the mechanically reduced variant.  ``shape_applicable`` is the reference's
+skip rule over ``INPUT_SHAPES``.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import (EncDecConfig, ExitConfig, ModelConfig,
-                                      SSMConfig)
+from repro_torch.configs.base import (INPUT_SHAPES, EncDecConfig, ExitConfig,
+                                      InputShape, ModelConfig, SSMConfig)
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _dsv3
 from repro_torch.configs.granite_3_2b import CONFIG as _granite
 from repro_torch.configs.llama4_maverick_400b import CONFIG as _llama4
@@ -34,5 +35,15 @@ def resolve_config(arch) -> ModelConfig:
     return arch if isinstance(arch, ModelConfig) else get_config(arch)
 
 
-__all__ = ["ARCHS", "EncDecConfig", "ExitConfig", "ModelConfig", "SSMConfig",
-           "get_config", "resolve_config"]
+def shape_applicable(config: ModelConfig, shape_name: str) -> bool:
+    """Whether an (arch, input-shape) pair is runnable: long_500k only on
+    an arch with sub-quadratic long decode."""
+    shape = INPUT_SHAPES[shape_name]
+    if shape.name == "long_500k" and not config.supports_long_context:
+        return False
+    return True
+
+
+__all__ = ["ARCHS", "EncDecConfig", "ExitConfig", "INPUT_SHAPES",
+           "InputShape", "ModelConfig", "SSMConfig", "get_config",
+           "resolve_config", "shape_applicable"]

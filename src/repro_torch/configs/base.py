@@ -1,9 +1,13 @@
 """Model configuration for the PyTorch port.
 
-A copy of the reference package's ``configs/base.py`` dataclasses, trimmed
-to what the ported decode path reads.  Field names, defaults and the
-``reduced()`` smoke derivation are kept identical, so a config built here
-describes the same model as the reference config of the same name.
+A copy of the reference package's ``configs/base.py``: the dataclasses,
+the four assigned input shapes (``INPUT_SHAPES``) and the analytic
+arithmetic the dry run and the roofline read (``param_count``,
+``active_param_count``, ``flops_per_token``, ``supports_long_context``).
+Field names, defaults, the ``reduced()`` smoke derivation and every
+formula are kept identical, so a config built here describes the same
+model, and counts the same parameters, as the reference config of the
+same name.
 """
 from __future__ import annotations
 
@@ -18,6 +22,14 @@ class InputShape:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -97,6 +109,19 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic long decode: SSM/hybrid state, or a sliding window."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        if self.family == "encdec":
+            return False  # whisper: pure full-attention enc-dec, skip long_500k
+        return self.sliding_window > 0 or self.long_context_window > 0
+
+    @property
+    def is_decoder(self) -> bool:
+        return True  # all assigned archs have a decode step
+
     def segment_boundaries(self) -> Tuple[int, ...]:
         """Sorted exit layers plus the final layer."""
         bounds = sorted(set(self.exits.exit_layers) | {self.num_layers})
@@ -160,3 +185,108 @@ class ModelConfig:
                              if self.frontend_tokens else 0),
             mtp_depth=min(self.mtp_depth, 1),
         )
+
+    # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        """Analytic parameter count (used for Table-1 benchmark + roofline N)."""
+        d, v = self.d_model, self.vocab_size
+        hd = self.resolved_head_dim
+        nq, nkv = self.num_heads, self.num_kv_heads
+        emb = v * d * (1 if self.tie_embeddings else 2)
+
+        def attn_params() -> int:
+            if self.attention == "mla":
+                qr, kvr = self.q_lora_rank, self.kv_lora_rank
+                qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+                p = d * qr + qr * nq * qk              # q down + up
+                p += d * (kvr + self.qk_rope_head_dim)  # kv down (+ shared rope k)
+                p += kvr * nq * (self.qk_nope_head_dim + self.v_head_dim)
+                p += nq * self.v_head_dim * d          # o proj
+                return p
+            return d * nq * hd + 2 * d * nkv * hd + nq * hd * d
+
+        def ffn_params(ff: int) -> int:
+            mult = 3 if self.act == "silu" else 2  # gated vs plain
+            return mult * d * ff
+
+        def moe_layer_params() -> int:
+            m = self.moe
+            p = d * m.num_experts  # router
+            p += m.num_experts * ffn_params(m.d_ff_expert)
+            p += m.num_shared_experts * ffn_params(m.d_ff_expert)
+            return p
+
+        def ssm_layer_params() -> int:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = max(1, d_in // s.head_dim)
+            p = d * (2 * d_in + 2 * s.state_size + nheads)  # in_proj(x,z)+B,C,dt
+            p += s.conv_width * (d_in + 2 * s.state_size)
+            p += d_in * d + nheads  # out proj + A
+            return p
+
+        def xlstm_layer_params(layer_idx: int) -> int:
+            s = self.ssm
+            d_in = int(s.proj_factor * d)
+            p = 2 * d * d_in + d_in * d  # up (x,z) + down
+            p += 3 * d_in * d_in + 3 * d_in  # q,k,v / gates
+            return p
+
+        total = emb
+        layers = self.num_layers
+        for i in range(layers):
+            if self.family in ("dense", "vlm"):
+                total += attn_params() + ffn_params(self.d_ff)
+            elif self.family == "moe":
+                total += attn_params()
+                m = self.moe
+                if i < m.first_dense_layers or (m.layer_period > 1 and (i % m.layer_period) != (m.layer_period - 1)):
+                    total += ffn_params(self.d_ff)
+                else:
+                    total += moe_layer_params()
+            elif self.family == "ssm":
+                if i in self.ssm.slstm_layers:
+                    total += xlstm_layer_params(i)
+                else:
+                    total += xlstm_layer_params(i)
+            elif self.family == "hybrid":
+                total += ssm_layer_params()
+            elif self.family == "encdec":
+                total += attn_params() * 2 + ffn_params(self.d_ff)  # self+cross
+            total += 2 * d  # norms
+        if self.family == "hybrid" and self.shared_attn_period:
+            total += attn_params() + ffn_params(self.d_ff)  # ONE shared block
+        if self.family == "encdec":
+            for _ in range(self.encdec.num_encoder_layers):
+                total += attn_params() + ffn_params(self.d_ff) + 2 * d
+        if self.mtp_depth:
+            total += self.mtp_depth * (attn_params() + moe_layer_params() + 2 * d * d)
+        # exit heads
+        total += len(self.exits.exit_layers) * d * v if not self.tie_embeddings else 0
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.family != "moe":
+            return self.param_count()
+        m = self.moe
+        full = self.param_count()
+        # subtract inactive expert FFNs
+        mult = 3 if self.act == "silu" else 2
+        per_expert = mult * self.d_model * m.d_ff_expert
+        n_moe_layers = sum(
+            1 for i in range(self.num_layers)
+            if i >= m.first_dense_layers and (m.layer_period <= 1 or (i % m.layer_period) == (m.layer_period - 1))
+        )
+        inactive = n_moe_layers * (m.num_experts - m.top_k) * per_expert
+        return full - inactive
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approximate forward FLOPs per token: 2*N_active + attention term."""
+        n = self.active_param_count() - self.vocab_size * self.d_model  # exclude input embed gather
+        f = 2.0 * n
+        if self.family not in ("ssm",):
+            win = self.sliding_window or seq_len
+            ctx = min(seq_len, win)
+            f += 4.0 * self.num_layers * self.num_heads * self.resolved_head_dim * ctx
+        return f

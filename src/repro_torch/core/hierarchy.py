@@ -25,7 +25,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.cost_model import (CostGraph, DeviceProfile, LinkProfile,
                                          compute_time)
@@ -277,7 +276,7 @@ def staged_forward(model, params, batch, stage_of_block: Sequence[int],
     if handoffs is not None:
         _sync(dev)
         t0 = time.perf_counter()
-    dist.broadcast(logits, group_src=last, group=ctx.group("pod"))
+    comm.broadcast(logits, last, ctx.group("pod"))
     if handoffs is not None:
         _sync(dev)
         handoffs.append({"block": bi - 1, "src": last, "dst": None,

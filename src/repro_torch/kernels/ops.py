@@ -16,12 +16,23 @@ call, kernel or plain version, from the dispatch modes, and a stage
 counts the same on both devices.  Each formula equals what
 ``FlopCounterMode`` counts of the plain version (2 x M x N x K a
 product); the int8 kernels do no product and add nothing.
+
+Inside ``count_costs(sink)`` (``launch.op_cost``) every wrapper, the int8
+pair too, calls ``sink(kernel, flops, bytes)`` once a call, from its
+``*_flops`` and ``*_bytes`` formulas, and runs hidden from the dispatch
+modes, so the plain version's intermediates (attention's [B, H, S, S]
+scores) are never counted.  A byte formula counts each input read once
+and each output written once, from shapes alone; a paged kernel reads
+every page of its table, as its FLOP formula counts them.
+
+On the "meta" device (the dry run's stand-ins) a wrapper takes the plain
+version, which allocates and computes nothing there.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
@@ -46,6 +57,7 @@ def reset_launches() -> None:
 
 
 _FLOPS: Optional[Dict[str, float]] = None
+_SINK: Optional[Callable[[str, float, float], None]] = None
 
 
 @contextlib.contextmanager
@@ -60,20 +72,42 @@ def count_flops() -> Iterator[Dict[str, float]]:
         _FLOPS = outer
 
 
-def _counts(name: str, formula):
+@contextlib.contextmanager
+def count_costs(sink: Callable[[str, float, float], None]) -> Iterator[None]:
+    """Inside the block every kernel wrapper calls ``sink(kernel, flops,
+    bytes)`` once a call, from its formulas."""
+    global _SINK
+    outer, _SINK = _SINK, sink
+    try:
+        yield
+    finally:
+        _SINK = outer
+
+
+def _counts(name: str, nbytes, flops=None):
     """Decorate kernel ``name``'s wrapper: inside ``count_flops`` each call
-    adds ``formula(*positional args)`` and runs hidden from the dispatch
-    modes (``FlopCounterMode``)."""
+    adds ``flops(*args, **kw)`` (kernels that do a product), inside
+    ``count_costs`` it passes both formulas to the sink; counted calls run
+    hidden from the dispatch modes (``FlopCounterMode``, ``op_cost``)."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kw):
-            if _FLOPS is None:
+            add = _FLOPS is not None and flops is not None
+            if not add and _SINK is None:
                 return fn(*args, **kw)
-            _FLOPS[name] = _FLOPS.get(name, 0.0) + float(formula(*args))
+            f = float(flops(*args, **kw)) if flops is not None else 0.0
+            if add:
+                _FLOPS[name] = _FLOPS.get(name, 0.0) + f
+            if _SINK is not None:
+                _SINK(name, f, float(nbytes(*args, **kw)))
             with _disable_current_modes():
                 return fn(*args, **kw)
         return call
     return wrap
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def exit_head_flops(x, w) -> float:
@@ -81,30 +115,80 @@ def exit_head_flops(x, w) -> float:
     return 2.0 * x.numel() * w.shape[1]
 
 
-def flash_attention_flops(q, k, *_) -> float:
+def exit_head_bytes(x, w) -> float:
+    """x and w read, one fp32 entropy a row written."""
+    return _nbytes(x, w) + 4 * (x.numel() // x.shape[-1])
+
+
+def flash_attention_flops(q, k, *_, **__) -> float:
     """S = Q K^T and O = P V over every (query, key) pair, masked or not:
     q [B, Sq, Nq, H], k [B, Skv, Nkv, H]."""
     b, sq, nq, hd = q.shape
     return 4.0 * b * sq * nq * k.shape[1] * hd
 
 
-def flash_attention_bwd_flops(q, k, *_) -> float:
+def flash_attention_bytes(q, k, v, causal=True, window=0, with_lse=False
+                          ) -> float:
+    """q, k and v read, the output (and, with ``with_lse``, the fp32
+    log-sum-exp [B, Nq, Sq]) written."""
+    b, sq, nq, _ = q.shape
+    return 2 * _nbytes(q) + _nbytes(k, v) + (4 * b * nq * sq if with_lse
+                                              else 0)
+
+
+def flash_attention_bwd_flops(q, k, *_, **__) -> float:
     """The backward's five products: S again, dV, dP, dQ and dK."""
     return 2.5 * flash_attention_flops(q, k)
 
 
-def paged_gqa_flops(q, pool_k, pool_v, tbl, pos) -> float:
+def flash_attention_bwd_bytes(q, k, v, o, do, lse, **_) -> float:
+    """q, k, v, o, dO and the log-sum-exp read; dq, dk and dv written."""
+    return _nbytes(q, k, v, o, do, lse) + _nbytes(q, k, v)
+
+
+def paged_gqa_flops(q, pool_k, pool_v, tbl, pos, **_) -> float:
     """Q K^T and P V over the whole table (pps pages of P tokens a row)."""
     b, _, nq, hd = q.shape
     return 4.0 * b * nq * tbl.shape[1] * pool_k.shape[1] * hd
 
 
-def paged_mla_flops(q_lat, q_rope, pool_ckv, pool_krope, tbl, pos) -> float:
+def paged_gqa_bytes(q, pool_k, pool_v, tbl, pos, **_) -> float:
+    """q, the table and positions read, every page of the table of both
+    pools read (pps pages of P tokens a row), the output written."""
+    b = q.shape[0]
+    pages = b * tbl.shape[1]
+    page_bytes = pool_k[0].numel() * pool_k.element_size()
+    return 2 * _nbytes(q) + _nbytes(tbl, pos) + 2 * pages * page_bytes
+
+
+def paged_mla_flops(q_lat, q_rope, pool_ckv, pool_krope, tbl, pos,
+                    **_) -> float:
     """The latent and rope scores and the latent context over the whole
     table."""
     b, _, n, r = q_lat.shape
     t = tbl.shape[1] * pool_ckv.shape[1]
     return 2.0 * b * n * t * (2 * r + q_rope.shape[3])
+
+
+def paged_mla_bytes(q_lat, q_rope, pool_ckv, pool_krope, tbl, pos,
+                    **_) -> float:
+    """The queries, the table and positions read, every page of the table
+    of both latent pools read, the fp32 latent context written."""
+    pages = q_lat.shape[0] * tbl.shape[1]
+    page_bytes = (pool_ckv[0].numel() * pool_ckv.element_size()
+                  + pool_krope[0].numel() * pool_krope.element_size())
+    return (_nbytes(q_lat, q_rope, tbl, pos) + pages * page_bytes
+            + 4 * q_lat.numel())
+
+
+def quantize_rows_bytes(x) -> float:
+    """x read; the int8 rows and one fp32 scale a row written."""
+    return _nbytes(x) + x.numel() + 4 * (x.numel() // x.shape[-1])
+
+
+def dequantize_rows_bytes(q, scale, dtype=torch.bfloat16) -> float:
+    """q and the scales read, the rows written in ``dtype``."""
+    return _nbytes(q, scale) + q.numel() * dtype.itemsize
 
 
 def w8a8_expert_flops(aq, a_scale, wq, w_scale) -> float:
@@ -113,11 +197,17 @@ def w8a8_expert_flops(aq, a_scale, wq, w_scale) -> float:
     return 2.0 * e * c * k * wq.shape[2]
 
 
+def w8a8_expert_bytes(aq, a_scale, wq, w_scale) -> float:
+    """Every operand read, the fp32 [E, C, N] product written."""
+    e, c, _ = aq.shape
+    return _nbytes(aq, a_scale, wq, w_scale) + 4 * e * c * wq.shape[2]
+
+
 def _on_card(*tensors) -> bool:
     """True when every tensor is on a CUDA device, False when every one is
-    on the CPU; anything else raises."""
+    on the CPU or every one on "meta"; anything else raises."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     if kinds == {"cuda"}:
         if len({t.device for t in tensors}) != 1:
@@ -131,7 +221,7 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"repro_torch kernels: {msg}")
 
 
-@_counts("exit_head_entropy", exit_head_flops)
+@_counts("exit_head_entropy", exit_head_bytes, exit_head_flops)
 def exit_head_entropy(x, w):
     """x [..., D], w [D, V] -> entropy of softmax(x @ w) [...] fp32."""
     lead = x.shape[:-1]
@@ -182,7 +272,7 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     return _flash_forward(q, k, v, causal, window, with_lse=True)
 
 
-@_counts("flash_attention", flash_attention_flops)
+@_counts("flash_attention", flash_attention_bytes, flash_attention_flops)
 def _flash_forward(q, k, v, causal, window, with_lse=False):
     if not _on_card(q, k, v):
         out = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -196,7 +286,8 @@ def _flash_forward(q, k, v, causal, window, with_lse=False):
     return res
 
 
-@_counts("flash_attention_bwd", flash_attention_bwd_flops)
+@_counts("flash_attention_bwd", flash_attention_bwd_bytes,
+         flash_attention_bwd_flops)
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         window: int = 0):
     """Gradients (dq, dk, dv) of ``flash_attention`` at output ``o`` for
@@ -267,7 +358,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return _FlashAttention.apply(q, k, v, causal, window, with_lse)
 
 
-@_counts("paged_gqa_attention", paged_gqa_flops)
+@_counts("paged_gqa_attention", paged_gqa_bytes, paged_gqa_flops)
 def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):
     """Paged GQA decode attention: q [B, 1, Nq, H], pools
     [n_pages, P, Nkv, H], tbl [B, pps] int32 (sentinel entries allowed —
@@ -301,7 +392,7 @@ def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):
     return out
 
 
-@_counts("paged_mla_attention", paged_mla_flops)
+@_counts("paged_mla_attention", paged_mla_bytes, paged_mla_flops)
 def paged_mla_attention(q_lat, q_rope, pool_ckv, pool_krope, tbl, pos, *,
                         scale: float):
     """Paged MLA decode attention with matrix absorption: q_lat
@@ -348,6 +439,7 @@ def paged_mla_attention(q_lat, q_rope, pool_ckv, pool_krope, tbl, pos, *,
     return out
 
 
+@_counts("quantize_rows", quantize_rows_bytes)
 def compress_rows(x):
     """x [..., D] fp32/bf16 -> (q int8 [..., D], scale fp32 [..., 1]), per
     row: scale = max(amax * fl(1/127), 1e-8), q = round_half_even(x /
@@ -369,6 +461,7 @@ def compress_rows(x):
     return q.reshape(*lead, d), s.reshape(*lead, 1)
 
 
+@_counts("dequantize_rows", dequantize_rows_bytes)
 def decompress_rows(q, scale, dtype=torch.bfloat16):
     """(q int8 [..., D], scale fp32 [..., 1]) -> x [..., D] ``dtype``:
     float(q) * scale rounded once to ``dtype``.  Zero rows launch nothing."""
@@ -393,7 +486,7 @@ def decompress_rows(q, scale, dtype=torch.bfloat16):
     return out.reshape(*lead, d)
 
 
-@_counts("w8a8_expert_matmul", w8a8_expert_flops)
+@_counts("w8a8_expert_matmul", w8a8_expert_bytes, w8a8_expert_flops)
 def w8a8_expert_matmul(aq, a_scale, wq, w_scale):
     """W8A8 grouped expert GEMM: aq [E, C, K] int8 with a_scale [E, C, 1]
     fp32, wq [E, K, N] int8 with w_scale [E, 1, N] fp32 -> fp32 [E, C, N]

@@ -176,8 +176,9 @@ def w8a8_expert_matmul_ref(aq, a_scale, wq, w_scale):
     the CPU; on the card, which has no integer ``bmm``, one fp64 product
     an expert (exact, since every partial sum is an integer of magnitude
     at most K * 127^2 < 2^53; one expert at a time keeps the fp64 copy of
-    wq to one [K, N] matrix), cast back to int32."""
-    if aq.device.type == "cpu":
+    wq to one [K, N] matrix), cast back to int32.  On "meta" the shapes of
+    the CPU's one ``bmm``."""
+    if aq.device.type in ("cpu", "meta"):
         acc = torch.bmm(aq.int(), wq.int())
     else:
         e, c, _ = aq.shape

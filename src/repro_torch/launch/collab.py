@@ -21,7 +21,17 @@ rest made and dropped, so the parts equal a full init's).  Keys:
   "moe": "cfg", "x", "params" (a full layer) or "seed" with "w8a8",
       "warmup" (one untimed call first);
   "forward": "cfg", "params", "batch", "single" (rank 0 also runs the
-      one-device forward).
+      one-device forward);
+  "profile" (``launch.profile_pair --staged``): "cfg", "stages", "seed",
+      "batch", "runs" (compress flags): after an untimed warm-up run of
+      each flag, each run once under ``launch.op_cost.analyze`` (this
+      rank's flops, bytes, kernels, collectives by kind and the top
+      labels) and once timed.
+
+"staged" and "moe" jobs with "count" also record each run's collectives
+(``sharding.comm.count_collectives``: kind, bytes, site) under
+"collectives"; a "moe" job with "count" runs the layer a second time
+without the counter and keeps that output as "y_uncounted".
 
 A rank records its kernel launches (``kernels.ops.LAUNCHES``) and wall
 time for each run, and on the card its peak device memory.  Nothing here
@@ -29,12 +39,15 @@ catches an error: a rank that raises fails the world.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import time
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.sharding import comm
 
 
 def _sync(dev) -> None:
@@ -47,6 +60,12 @@ def _digest(t: torch.Tensor) -> str:
     processes without shipping the tensor)."""
     return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8)
                           .numpy().tobytes()).hexdigest()
+
+
+def _counter(job):
+    """The collective counter where the job asks to count, else nothing."""
+    return (comm.count_collectives() if job.get("count")
+            else contextlib.nullcontext())
 
 
 def run_jobs(rank: int, world: int, jobs_path: str, out_dir: str) -> None:
@@ -99,9 +118,10 @@ def _staged(job, mesh, dev, kops):
         kops.reset_launches()
         _sync(dev)
         t0 = time.perf_counter()
-        logits = staged_forward(model, params, batch, stages, mesh,
-                                compress_boundary=compress,
-                                handoffs=handoffs)
+        with _counter(job) as log:
+            logits = staged_forward(model, params, batch, stages, mesh,
+                                    compress_boundary=compress,
+                                    handoffs=handoffs)
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
         if i < n_warm:
@@ -128,6 +148,8 @@ def _staged(job, mesh, dev, kops):
             rec["handoffs"].append(r)
         if job.get("save_logits"):
             rec["logits"] = logits.cpu()
+        if job.get("count"):
+            rec["collectives"] = log
         logits_of[compress] = logits
         out["runs"].append(rec)
     if True in logits_of and False in logits_of:
@@ -163,12 +185,16 @@ def _moe(job, mesh, dev, kops):
     kops.reset_launches()
     _sync(dev)
     t0 = time.perf_counter()
-    y, aux = ffn.moe_ffn(params, x, cfg, ctx)
+    with _counter(job) as log:
+        y, aux = ffn.moe_ffn(params, x, cfg, ctx)
     _sync(dev)
     out = {"y": y.cpu(), "aux": aux.cpu(), "init_s": init_s,
            "local_experts": n_local,
            "wall_ms": (time.perf_counter() - t0) * 1e3,
            "launches": dict(kops.LAUNCHES)}
+    if job.get("count"):
+        out["collectives"] = log
+        out["y_uncounted"] = ffn.moe_ffn(params, x, cfg, ctx)[0].cpu()
     if ctx.model_axis:      # the combine's all_reduce alone, on its shape
         b, s, d = x.shape
         rows = (b // ctx.data_size if b % ctx.data_size == 0 else b) * s
@@ -200,4 +226,39 @@ def _forward(job, mesh, dev, kops):
     return res
 
 
-_KINDS = {"staged": _staged, "moe": _moe, "forward": _forward}
+def _profile(job, mesh, dev, kops):
+    from repro_torch.core.hierarchy import stage_parts, staged_forward
+    from repro_torch.launch import op_cost
+    from repro_torch.models import Model
+    model = Model(job["cfg"], device=dev)
+    stages = job["stages"]
+    params = model.init(job["seed"], keep=stage_parts(
+        model, stages, mesh.get_local_rank("pod")))
+    batch = job["batch"]
+
+    def run(compress):
+        return staged_forward(model, params, batch, stages, mesh,
+                              compress_boundary=compress)
+    for compress in sorted(set(job["runs"])):       # warm-up, untimed
+        run(compress)
+    out = {"runs": []}
+    for compress in job["runs"]:
+        kops.reset_launches()
+        cost = op_cost.analyze(run, compress)
+        launches = dict(kops.LAUNCHES)
+        _sync(dev)
+        t0 = time.perf_counter()
+        run(compress)
+        _sync(dev)
+        out["runs"].append({
+            "compress": compress, "flops": cost.flops, "bytes": cost.bytes,
+            "collective": cost.collective, "kernels": cost.kernels,
+            "top_bytes": cost.top_bytes(10),
+            "top_collective": cost.top_collective(10),
+            "launches": launches,
+            "wall_ms": (time.perf_counter() - t0) * 1e3})
+    return out
+
+
+_KINDS = {"staged": _staged, "moe": _moe, "forward": _forward,
+          "profile": _profile}

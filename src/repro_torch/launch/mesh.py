@@ -2,6 +2,7 @@
 
 Production meshes stay abstract (no devices), so the partition rules run
 on them anywhere:
+  one card:   (data=1, model=1), the dry run's "one";
   single pod: (data=16, model=16) = 256 chips;
   multi pod:  (pod=2, data=16, model=16) = 512 chips; the "pod" axis
   carries data parallelism across pods AND the collaborative tier boundary
@@ -37,6 +38,19 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_abstract_mesh(shape, axes)
+
+
+MESH_NAMES = ("one", "single", "multi")
+
+
+def named_mesh(name: str) -> AbstractMesh:
+    """The dry run's meshes by name: "one" (data 1 x model 1, one H100),
+    "single" and "multi" (``make_production_mesh``)."""
+    if name == "one":
+        return make_abstract_mesh((1, 1), ("data", "model"))
+    if name in ("single", "multi"):
+        return make_production_mesh(multi_pod=name == "multi")
+    raise ValueError(f"unknown mesh {name!r}: one of {MESH_NAMES}")
 
 
 def make_host_mesh(*, data: int = 1, model: int = 1, pod: int = 0):

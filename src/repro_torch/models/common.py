@@ -12,13 +12,14 @@ import torch.nn.functional as F
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  CUDA is the default of every
     entry point; asking for it without a GPU raises instead of falling back
-    to the CPU.  Only an explicit ``"cpu"`` runs on the host."""
+    to the CPU.  Only an explicit ``"cpu"`` runs on the host; ``"meta"``
+    (the dry run's stand-ins) allocates and computes nothing."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: CUDA device requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the host")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev
 

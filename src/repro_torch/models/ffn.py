@@ -38,7 +38,6 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
@@ -379,10 +378,10 @@ def moe_ffn(params, x, cfg, ctx: ShardCtx = SINGLE):
     e0 = ctx.coord(ctx.model_axis) * e_loc if ctx.model_axis else 0
     y = _dispatch_compute_combine(x2d, gates, idx, params, e0, cap, cfg.act)
     if ctx.model_axis:
-        dist.all_reduce(y, group=ctx.group(ctx.model_axis))  # the shards
+        comm.all_reduce(y, ctx.group(ctx.model_axis))  # the shards
     aux = _aux_loss(probs, idx, m.num_experts).reshape(1)
     for a in dax:
-        dist.all_reduce(aux, group=ctx.group(a))
+        comm.all_reduce(aux, ctx.group(a))
     aux = (aux / dsize if dax else aux).reshape(())
     y = y.reshape(bl, s, d)
     if dax:

@@ -1,6 +1,6 @@
 """Serving engine: batched decode with early-exit accounting.
 
-``make_serve_step(model)`` is the decode-shape step function: (params,
+``make_serve_step(model, long_mode=)`` is the decode-shape step function: (params,
 cache, tokens [B, 1], position [] or [B]) -> (logits [B, V], exit
 entropies [n_exits, B], cache).
 
@@ -68,11 +68,14 @@ class ServeConfig:
     readback_interval: int = 8
 
 
-def make_serve_step(model):
-    """The decode-shape step function."""
+def make_serve_step(model, *, long_mode: bool = False):
+    """The decode-shape step function (what the dry run prices);
+    ``long_mode`` decodes over the ring caches of ``long_context_window``,
+    as the reference's long_500k step does."""
 
     def serve_step(params, cache, tokens, position):
-        return model.decode_step(params, cache, tokens, position)
+        return model.decode_step(params, cache, tokens, position,
+                                 long_mode=long_mode)
 
     return serve_step
 

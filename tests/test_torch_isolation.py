@@ -41,7 +41,10 @@ want = {{"repro_torch.core.cost_model", "repro_torch.core.paradigms",
         "repro_torch.analysis.rules", "repro_torch.launch.analyze",
         "repro_torch.sharding", "repro_torch.sharding.mesh_compat",
         "repro_torch.sharding.specs", "repro_torch.sharding.comm",
-        "repro_torch.launch.mesh", "repro_torch.launch.collab"}}
+        "repro_torch.launch.mesh", "repro_torch.launch.collab",
+        "repro_torch.launch.roofline", "repro_torch.launch.op_cost",
+        "repro_torch.launch.dryrun", "repro_torch.launch.profile_pair",
+        "repro_torch.launch.report"}}
 assert want <= set(names), sorted(want - set(names))
 for name in names:
     importlib.import_module(name)
@@ -68,7 +71,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=REPO)],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 59      # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 64      # every submodule walked
 
 
 def test_entry_points_default_to_cuda():
@@ -132,9 +135,10 @@ def test_no_import_line_names_jax_or_reference():
 def test_rank_programs_import_no_jax_and_no_reference(tmp_path):
     """A world of 2 gloo ranks runs the rank programs
     (``launch.collab.run_jobs``: a staged forward across 2 pods, the
-    expert-parallel MoE, an expert-parallel model forward) with ``jax``
-    and ``repro`` shadowed by packages that raise on import: every rank
-    finishes, so none of them imports either."""
+    expert-parallel MoE, and ``profile_pair --staged``'s counted staged
+    runs, raw and int8) with ``jax`` and ``repro`` shadowed by packages
+    that raise on import: every rank finishes, so none of them imports
+    either."""
     import torch
     from repro_torch.configs import get_config
     for name in ("jax", "repro"):
@@ -150,7 +154,10 @@ def test_rank_programs_import_no_jax_and_no_reference(tmp_path):
                  device="cpu", cfg=granite, stages=[0, 1], seed=0,
                  batch={"tokens": toks}, runs=[False, True]),
             dict(kind="moe", name="moe", mesh=dict(model=2), device="cpu",
-                 cfg=llama, x=x, seed=1, w8a8=True)]
+                 cfg=llama, x=x, seed=1, w8a8=True),
+            dict(kind="profile", name="profile", mesh=dict(pod=2),
+                 device="cpu", cfg=granite, stages=[0, 1], seed=0,
+                 batch={"tokens": toks}, runs=[False, True])]
     torch.save(jobs, tmp_path / "jobs.pt")
     path = os.pathsep.join([str(tmp_path / "poison"),
                             os.path.join(REPO, "src")])
@@ -162,6 +169,17 @@ def test_rank_programs_import_no_jax_and_no_reference(tmp_path):
         env=dict(os.environ, PYTHONPATH=path), capture_output=True,
         text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    for name in ("staged", "moe"):
+    for name in ("staged", "moe", "profile"):
         for r in range(2):
             assert (tmp_path / f"{name}.{r}.pt").exists()
+    d, v = granite.d_model, granite.vocab_size
+    for r in range(2):
+        raw, comp = torch.load(tmp_path / f"profile.{r}.pt",
+                               weights_only=False)["runs"]
+        assert raw["collective"]["collective-permute"] == 2 * 8 * d * 2
+        assert comp["collective"]["collective-permute"] == 2 * 8 * (d + 4)
+        for run in (raw, comp):
+            assert run["collective"]["broadcast"] == 2 * 8 * v * 4
+            assert run["flops"] > 0 and run["bytes"] > 0
+        assert set(comp["kernels"]) == {"flash_attention", (
+            "quantize_rows", "dequantize_rows")[r]}

@@ -66,6 +66,7 @@ import dataclasses, sys
 import jax, jax.numpy as jnp, numpy as np
 from repro.configs import get_config
 from repro.core.hierarchy import staged_forward
+from repro.launch.roofline import collective_bytes_from_hlo
 from repro.models import Model, ffn
 
 inp = dict(np.load(sys.argv[1]))
@@ -96,9 +97,16 @@ with (jax.set_mesh(mesh2) if hasattr(jax, "set_mesh") else mesh2):
         for cf_key, cf in (("cfg", None), ("cf8", 8.0)):
             cfg = base if cf is None else dataclasses.replace(
                 base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
-            y, aux = jax.jit(lambda p, x, cfg=cfg: ffn.moe_ffn(
-                p, x, cfg, ffn.ShardCtx(mesh2)))(mp, x)
+            lowered = jax.jit(lambda p, x, cfg=cfg: ffn.moe_ffn(
+                p, x, cfg, ffn.ShardCtx(mesh2))).lower(mp, x)
+            compiled = lowered.compile()
+            y, aux = compiled(mp, x)
             k = f"moe_{'w8a8' if w8 else 'bf16'}_{cf_key}"
+            for stage, hlo in (("lowered", lowered.compiler_ir("hlo")
+                                .as_hlo_text()),
+                               ("compiled", compiled.as_text())):
+                out[k + "_all_reduce_" + stage] = np.float64(
+                    collective_bytes_from_hlo(hlo)["all-reduce"])
             out[k + "_y"] = np.asarray(y.astype(jnp.float32))
             out[k + "_aux"] = np.asarray(aux)
     cfg8 = dataclasses.replace(
@@ -168,7 +176,7 @@ def run(tmp_path_factory):
     jobs = [
         dict(staged, name="granite", cfg=get_config(GRANITE),
              params=params[GRANITE][1], batch={"tokens": t["granite_tokens"]},
-             runs=[False, True]),
+             runs=[False, True], count=True),
         dict(staged, name="zamba2", cfg=get_config(ZAMBA),
              params=params[ZAMBA][1], batch={"tokens": t["zamba2_tokens"]},
              runs=[False]),
@@ -179,7 +187,8 @@ def run(tmp_path_factory):
         dict(kind="staged", name="seeded", mesh=dict(pod=2, data=2),
              device="cpu",
              stages=STAGES, cfg=get_config(GRANITE), seed=5,
-             batch={"tokens": t["granite_tokens"]}, runs=[False]),
+             batch={"tokens": t["granite_tokens"]}, runs=[False],
+             count=True),
         dict(kind="staged", name="seeded_full", mesh=dict(pod=2, data=2),
              device="cpu",
              stages=STAGES, cfg=get_config(GRANITE),
@@ -202,7 +211,8 @@ def run(tmp_path_factory):
             jobs.append(dict(kind="moe", name=f"moe_{w8}_{cf_key}",
                              mesh=dict(data=2, model=2), device="cpu",
                              cfg=_cf(lcfg, cf),
-                             x=x, params=moe_q if w8 == "w8a8" else moe))
+                             x=x, params=moe_q if w8 == "w8a8" else moe,
+                             count=True))
     torch.save(jobs, os.path.join(tmp, "jobs.pt"))
     ties = _router_ties(params[LLAMA], inp["llama_tokens"])
     port = subprocess.run(
@@ -422,3 +432,70 @@ def test_model_forward_expert_parallel(run):
     assert err[keep].max() < ATOL, err
     assert abs(float(outs[0]["aux"]) - float(ref["forward_aux"])
                - shift) < AUX_TOL
+
+
+# ---------------------------------------------------------------------------
+# the collective counter (sharding.comm.count_collectives)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("w8", ["bf16", "w8a8"])
+@pytest.mark.parametrize("cf_key", sorted(CFS))
+def test_moe_all_reduce_bytes_equal_the_references_hlo(run, w8, cf_key):
+    """Each rank records two all-reduces: the combine of the shards'
+    partial y over "model" in bf16 [B*S / data, D] and the aux loss over
+    "data" (fp32, 4 bytes); together what ``collective_bytes_from_hlo``
+    reads off the reference's lowered shard_map program.  XLA's CPU
+    compiler then promotes the bf16 all-reduce to fp32, so the compiled
+    module's all-reduce bytes are twice the combine's plus the aux's."""
+    ref, got, _, _, _ = run
+    name = f"moe_{w8}_{cf_key}"
+    d = get_config(LLAMA).d_model
+    y_bytes = 4 * 8 // 2 * d * 2            # [B*S / data, D] bf16
+    for o in got[name]:
+        recs = o["collectives"]
+        reduces = [r for r in recs if r["kind"] == "all-reduce"]
+        assert [r["bytes"] for r in reduces] == [y_bytes, 4], recs
+        assert all("models/ffn.py" in r["site"] and "moe_ffn" in r["site"]
+                   for r in recs), recs
+        assert sum(r["bytes"] for r in reduces) \
+            == ref[name + "_all_reduce_lowered"]
+        assert ref[name + "_all_reduce_compiled"] == 2 * y_bytes + 4
+        gathers = [r for r in recs if r["kind"] == "all-gather"]
+        assert [r["bytes"] for r in gathers] == [4 * 8 * d * 2]
+
+
+def test_counting_changes_no_bit(run):
+    """A run under the counter gives the same bits as one without it: the
+    MoE layer run twice in one job, and a staged run with a counter
+    against the same seeded run without one (``seeded_full``)."""
+    _, got, _, _, _ = run
+    for w8 in ("bf16", "w8a8"):
+        for cf_key in CFS:
+            for o in got[f"moe_{w8}_{cf_key}"]:
+                assert torch.equal(o["y"], o["y_uncounted"])
+    for a, b in zip(got["seeded"], got["seeded_full"]):
+        assert "collectives" in a["runs"][0]
+        assert "collectives" not in b["runs"][0]
+        assert a["runs"][0]["digest"] == b["runs"][0]["digest"]
+
+
+def test_staged_boundary_bytes_are_the_shape_count(run):
+    """The counter's records of a staged granite run on (pod 2, data 2):
+    the boundary is one collective-permute on each side (raw: 2 rows x 16
+    tokens x D bf16; int8: the rows and their fp32 scales, two records),
+    the head's logits one broadcast of this rank's rows, then one
+    all-gather of every row over "data"."""
+    _, got, _, _, _ = run
+    cfg = get_config(GRANITE)
+    d, v = cfg.d_model, cfg.vocab_size
+    for o in got["granite"]:
+        raw, comp = (r["collectives"] for r in o["runs"])
+        perm = [r["bytes"] for r in raw if r["kind"] == "collective-permute"]
+        assert perm == [2 * 16 * d * 2]
+        perm = [r["bytes"] for r in comp if r["kind"] == "collective-permute"]
+        assert perm == [2 * 16 * d, 2 * 16 * 4]
+        for recs in (raw, comp):
+            assert [r["bytes"] for r in recs if r["kind"] == "broadcast"] \
+                == [2 * 16 * v * 4]
+            assert [r["bytes"] for r in recs if r["kind"] == "all-gather"] \
+                == [4 * 16 * v * 4]
+            assert all("core/hierarchy.py" in r["site"] for r in recs), recs
