@@ -1576,7 +1576,7 @@ def run_async(torch, ops):
         n = max(1, st["decode_steps"])
         st["host_ms_per_decode_step"] = (st["host_ms"]
                                          - st["prefill_ms"]) / n
-        st["readback_ms_per_decode_step"] = st["device_ms"] / n
+        st["readback_ms_per_decode_step"] = st["wait_ms"] / n
         print(f"  (d) {label}: {st['sustained_tok_s']:.2f} tok/s, p50 "
               f"{st['p50_latency_s'] * 1e3:.0f} ms, p95 "
               f"{st['p95_latency_s'] * 1e3:.0f} ms, makespan "
@@ -2566,9 +2566,11 @@ SSD_STATE_TOL = 5e-3   # of max(1, |ref|): fp32 final states summed from
 
 def layer_kernels(torch, cfg, kind, lp, slots):
     """One decode layer of ``kind`` at ``slots`` rows: its kernel time
-    under ``torch.profiler`` (summed, as ``profile_decode`` sums a step's),
-    its kernel count, its time between CUDA events (gaps between its
-    kernels included) and its four longest kernels."""
+    under ``torch.profiler`` (the union of its device operations'
+    intervals, as ``profile_decode`` reads a step's), its kernel count,
+    its time between CUDA events (gaps between its kernels included) and
+    its four longest kernels."""
+    from repro_torch.launch import device_trace
     from repro_torch.models import blocks as B
     cache = B.init_layer_cache(cfg, kind, slots, 0, "cuda")
     x = torch.randn(slots, 1, cfg.d_model, device="cuda").bfloat16()
@@ -2584,13 +2586,12 @@ def layer_kernels(torch, cfg, kind, lp, slots):
         for _ in range(10):
             layer(x, cache)
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
-    return {"kernel_ms": sum(e.self_device_time_total for e in kern) / 1e4,
-            "kernels": sum(e.count for e in kern) / 10, "event_ms": event_ms,
-            "top": [(e.key[:40], round(e.self_device_time_total / 1e4, 4))
-                    for e in top]}
+    dev_ops = device_trace.device_ops(prof)
+    top = sorted(device_trace.by_name(dev_ops).items(),
+                 key=lambda kv: -kv[1]["s"])[:4]
+    return {"kernel_ms": device_trace.busy_s(dev_ops) * 1e2,
+            "kernels": len(dev_ops) / 10, "event_ms": event_ms,
+            "top": [(n[:40], round(d["s"] * 1e2, 4)) for n, d in top]}
 
 
 def sync_vs_windows(torch, ops, model, params, loop, phase):
@@ -2780,9 +2781,10 @@ def run_zamba2(torch, ops, ref, results):
     prof = profile_decode(cfg, slots=tr["slots"], prompt_len=128, steps=4,
                           seed=tr["seed"], params=params)
     # the Mamba layers' share of a step's device time: one mamba decode
-    # layer at 16 slots under the same profiler (kernel time summed, as
-    # profile_decode sums a step's), times the layer count; and the
-    # layer's time between CUDA events, gaps between its kernels included
+    # layer at 16 slots under the same profiler (the union of its kernels'
+    # intervals, as profile_decode reads a step's), times the layer count;
+    # and the layer's time between CUDA events, gaps between its kernels
+    # included
     cell = layer_kernels(torch, cfg, "mamba",
                          tree_map(lambda t: t[0], params["blocks"][0]),
                          tr["slots"])
@@ -4158,6 +4160,7 @@ REPLAY_BATCH = (2, 128)    # each of the two token sets of its consistency
 def run_forward(torch, ops):
     """Phase 7 (see the module docstring).  Returns a summary and the
     launch counts of the timed forward."""
+    from repro_torch.launch import device_trace
     from repro_torch.configs import get_config
     from repro_torch.core.resilience import n_scan_blocks, resilient_forward
     from repro_torch.models import Model
@@ -4222,22 +4225,21 @@ def run_forward(torch, ops):
         model.forward(params, batch)
         torch.cuda.synchronize()
         prof_s = time.time() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    kern_ms = sum(e.self_device_time_total for e in events) / 1e3
-    flash_ms = sum(e.self_device_time_total for e in events
-                   if "flash_fwd_kernel" in e.key) / 1e3
-    top = [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
-            "calls": e.count}
-           for e in sorted(events, key=lambda e: -e.self_device_time_total)
-           [:8]]
+    # device time: the union of the operations' intervals
+    dev_ops = device_trace.device_ops(prof)
+    per = device_trace.by_name(dev_ops)
+    kern_ms = device_trace.busy_s(dev_ops) * 1e3
+    flash_ms = sum(d["s"] for n, d in per.items()
+                   if "flash_fwd_kernel" in n) * 1e3
+    top = [{"name": n[:60], "ms": d["s"] * 1e3, "calls": d["launches"]}
+           for n, d in sorted(per.items(), key=lambda kv: -kv[1]["s"])[:8]]
     print(f"  torch.profiler forward: wall {prof_s * 1e3:.1f} ms, device "
           f"kernels {kern_ms:.1f} ms (busy {kern_ms / (prof_s * 1e3) * 100:.1f}"
-          f" %), {sum(e.count for e in events)} CUDA kernels, flash "
+          f" %), {len(dev_ops)} CUDA kernels, flash "
           f"attention {flash_ms:.2f} ms; top {[(t['name'][:40], round(t['ms'], 2), t['calls']) for t in top]}")
     profile = {"wall_ms": prof_s * 1e3, "kernel_ms": kern_ms,
                "flash_ms": flash_ms,
-               "kernels": sum(e.count for e in events), "top": top}
+               "kernels": len(dev_ops), "top": top}
 
     # resilient_forward: all alive equals the forward; block 0 dead
     n = n_scan_blocks(model)
@@ -4515,6 +4517,7 @@ def run_training(torch, ops, ref, results):
     launch counts of each part."""
     import importlib.util
     import shutil
+    from repro_torch.launch import device_trace
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.data import batch_for_model
@@ -4637,17 +4640,16 @@ def run_training(torch, ops, ref, results):
         step_fn(params, opt, batch)
         torch.cuda.synchronize()
         prof_s = time.time() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    kern_ms = sum(e.self_device_time_total for e in events) / 1e3
+    # device time: the union of the operations' intervals
+    dev_ops = device_trace.device_ops(prof)
+    per = device_trace.by_name(dev_ops)
+    kern_ms = device_trace.busy_s(dev_ops) * 1e3
 
     def named(*keys):
-        return sum(e.self_device_time_total for e in events
-                   if any(kk in e.key for kk in keys)) / 1e3
-    top = [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
-            "calls": e.count}
-           for e in sorted(events, key=lambda e: -e.self_device_time_total)
-           [:10]]
+        return sum(d["s"] for n, d in per.items()
+                   if any(kk in n for kk in keys)) * 1e3
+    top = [{"name": n[:60], "ms": d["s"] * 1e3, "calls": d["launches"]}
+           for n, d in sorted(per.items(), key=lambda kv: -kv[1]["s"])[:10]]
     profile = {"wall_ms": prof_s * 1e3, "kernel_ms": kern_ms,
                "busy": kern_ms / (prof_s * 1e3),
                "flash_fwd_ms": named("flash_fwd_kernel"),
@@ -4655,7 +4657,7 @@ def run_training(torch, ops, ref, results):
                "flash_bwd_parts_ms": {
                    part: named(f"flash_bwd_{part}_kernel")
                    for part in ("prep", "dq", "dkv", "sum")},
-               "kernels": sum(e.count for e in events), "top": top}
+               "kernels": len(dev_ops), "top": top}
     bwd_parts = {k2: round(v2, 3)
                  for k2, v2 in profile["flash_bwd_parts_ms"].items()}
     print(f"  torch.profiler step: wall {prof_s * 1e3:.1f} ms, device "

@@ -12,13 +12,18 @@ activity).  With ``--async-decode`` the scheduler is monolithic and
 decodes in windows (one CUDA graph replayed R times a window): the
 profile covers ``ceil(steps / R)`` polls, each dispatching one window and
 committing the one before, and a final ``sync()``.  Reports the host wall
-time per step, the device kernel time per
-step (sum over CUDA kernels), the device busy share (kernel time / wall
-time), CUDA kernel launches per step, graph replays, the kernels that take the most
-device time, and each of the port's own kernels (``kernels/csrc``) with
-its time and launches per step.  Weights are random (seeded) unless the caller passes
-``params``; ``arch`` is an arch name or a ``ModelConfig``; the card is
-required.
+time per step, the device time per step (the union of every device
+operation's interval, ``launch/device_trace.py``: overlapping kernels
+count once), the device busy share (that time / wall time), CUDA kernel
+launches per step, graph replays, the kernels that take the most device
+time and each of the port's own kernels (``kernels/csrc``) with its time
+(the union of its own intervals) and launches per step, the idle ms per
+step by the serving span open when each gap began, each serving span's
+total and self ms per step, and with ``--async-decode`` each window's ms
+from its dispatch to its commit (the spans joined by the window's
+sequence number), the time its tokens wait before the host has them.
+Weights are random (seeded) unless the caller passes ``params``; ``arch``
+is an arch name or a ``ModelConfig``; the card is required.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import resolve_config
+from repro_torch.launch import device_trace
 from repro_torch.launch.serve import draw_frames
 from repro_torch.models.model import Model
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Request,
@@ -81,7 +87,9 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
     steps0 = sched._step_idx
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # record_shapes keeps the spans' sequence numbers (window_ms)
+    with torch.profiler.profile(activities=acts,
+                                record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(windows):
             sched.poll()                      # ends in the token readback
@@ -90,12 +98,17 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
     if sched._step_idx - steps0 != steps:
         raise RuntimeError(f"profiled {sched._step_idx - steps0} decode "
                            f"steps, expected {steps}")
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in events)
-    launches = sum(e.count for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    port = [e for e in events if any(k in e.key for k in PORT_KERNELS)]
+    ops = device_trace.device_ops(prof)
+    spans = device_trace.serving_spans(prof)
+    # the window: the profiled polls and the final sync
+    lo = min(a for n, a, _ in spans if n in ("poll", "sync"))
+    hi = max(b for n, _, b in spans if n in ("poll", "sync"))
+    dev_s = device_trace.busy_s(ops)
+    kernels = sorted(device_trace.by_name(ops).items(),
+                     key=lambda kv: -kv[1]["s"])
+    port = [kv for kv in kernels if any(k in kv[0] for k in PORT_KERNELS)]
+    ms = 1e3 / steps
+    win_ms = list(device_trace.window_ms(prof).values())
     return {
         "arch": model.cfg.name, "slots": slots, "prompt_len": prompt_len,
         "paged": paged,
@@ -105,18 +118,29 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
                           if async_decode else 0),
         "prefill_s_per_token_step": prefill_s / prompt_len,
         "wall_ms_per_step": wall_s / steps * 1e3,
-        "device_ms_per_step": dev_us / steps / 1e3,
-        "device_busy_share": (dev_us / 1e6) / wall_s if wall_s else 0.0,
-        "cuda_kernels_per_step": launches / steps,
-        "top_kernels": [_per_step(e, steps) for e in top],
-        "port_kernels": [_per_step(e, steps) for e in port],
+        "device_ms_per_step": dev_s * ms,
+        "device_busy_share": dev_s / wall_s if wall_s else 0.0,
+        "cuda_kernels_per_step": len(ops) / steps,
+        "top_kernels": [_per_step(kv, steps) for kv in kernels[:8]],
+        "port_kernels": [_per_step(kv, steps) for kv in port],
+        "idle_ms_per_step": {
+            n: s * ms for n, s in sorted(
+                device_trace.idle_gaps(ops, spans, lo, hi).items(),
+                key=lambda kv: -kv[1])},
+        "span_ms_per_step": {
+            n: {"total": d["total_s"] * ms, "self": d["self_s"] * ms,
+                "count": d["count"]}
+            for n, d in device_trace.span_seconds(spans, lo, hi).items()},
+        "window_ms": {"windows": len(win_ms),
+                      "mean": float(np.mean(win_ms)) if win_ms else 0.0,
+                      "max": max(win_ms, default=0.0)},
     }
 
 
-def _per_step(e, steps):
-    return {"name": e.key[:80],
-            "ms_per_step": e.self_device_time_total / steps / 1e3,
-            "calls_per_step": e.count / steps}
+def _per_step(kv, steps):
+    name, d = kv
+    return {"name": name[:80], "ms_per_step": d["s"] / steps * 1e3,
+            "calls_per_step": d["launches"] / steps}
 
 
 def main(argv=None):

@@ -42,7 +42,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.configs import INPUT_SHAPES, get_config
-from repro_torch.launch import op_cost
+from repro_torch.launch import device_trace, op_cost
 from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS, model_flops_for
 
 MAX_SHARE = 1.05
@@ -131,8 +131,10 @@ def print_cost(cost, k: int = 20) -> None:
 
 
 def busy_share(fn, args) -> float:
-    """Kernel time over the host wall time of one synchronized call, from
-    ``torch.profiler`` (as ``launch.profile_decode`` reads it)."""
+    """Device time over the host wall time of one synchronized call, from
+    ``torch.profiler``: the union of the device operations' intervals
+    (``launch/device_trace.py``, as ``launch.profile_decode`` reads it), so
+    overlapping kernels count once."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -141,9 +143,7 @@ def busy_share(fn, args) -> float:
         fn(*args)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    return dev_us / 1e6 / wall_s
+    return device_trace.busy_s(device_trace.device_ops(prof)) / wall_s
 
 
 def count_step(arch: str, shape_name: str, *, batch=None, seq=None,

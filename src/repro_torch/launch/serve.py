@@ -40,12 +40,13 @@ the prompt tokens a prefill round replays (Poisson modes).
 of them begin with one common ``prefix_len``-token prefix (so the paged
 arena's prefix cache can hit); reports p50/p95 request latency and
 sustained tok/s on the host clock, around work that ends with the
-per-step token readback.  ``--async-decode`` decodes in windows of
-``--readback-interval`` monolithic steps (a CUDA graph on the card) with
-one token readback a window.  Tiered (``--tiered``): the admission router
-places each request on a tier pool; latencies are on the tiers' virtual
-clocks (modelled by the planners' tier profiles, not measured), and the
-wall time of the whole run is on the host clock.
+per-step token readback, and p50/p95 time to first token (arrival to the
+first token appended, ``Request.t_first``).  ``--async-decode`` decodes
+in windows of ``--readback-interval`` monolithic steps (a CUDA graph on
+the card) with one token readback a window.  Tiered (``--tiered``): the
+admission router places each request on a tier pool; latencies are on
+the tiers' virtual clocks (modelled by the planners' tier profiles, not
+measured), and the wall time of the whole run is on the host clock.
 
 ``--models a,b,...`` serves requests for several architectures, assigned
 round-robin, through one ``MultiModelScheduler`` (one arena per model
@@ -154,8 +155,11 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
                   prefix_len: int = 0, async_decode: bool = False,
                   readback_interval: int = 8, seed: int = 0, params=None,
                   device="cuda", quiet: bool = False):
-    """Serve a seeded Poisson trace; returns a stats dict (latency
-    percentiles, sustained tok/s, host/device split, exit statistics,
+    """Serve a seeded Poisson trace; returns a stats dict (latency and
+    time-to-first-token percentiles, sustained tok/s, the polls' split of
+    host work, readback wait and counter-flush wait, the counter flushes,
+    the prompt tokens prefill replayed, the decode windows' device time,
+    exit statistics,
     prefix-cache hits, decode-window builds).  ``arch`` is an arch name or
     a ``ModelConfig``.  ``params`` default to ``Model(arch).init(seed)``
     on ``device``.  ``async_decode`` runs the window pipeline (and the
@@ -204,6 +208,8 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
     t0, makespan, _ = _drive_open_loop(sched, reqs, arrivals)
     lat = np.asarray([r.t_done - (t0 + arrivals[j])
                       for j, r in enumerate(reqs)])
+    ttft = np.asarray([r.t_first - (t0 + arrivals[j])
+                       for j, r in enumerate(reqs)])
     total_tokens = sum(len(r.out_tokens) for r in reqs)
     stats = {
         "requests": n_requests,
@@ -212,12 +218,18 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
         "makespan_s": makespan,
         "p50_latency_s": float(np.percentile(lat, 50)),
         "p95_latency_s": float(np.percentile(lat, 95)),
+        "p50_ttft_s": float(np.percentile(ttft, 50)),
+        "p95_ttft_s": float(np.percentile(ttft, 95)),
         "sustained_tok_s": total_tokens / makespan,
         "tokens": total_tokens,
         "async_decode": async_decode,
         "host_ms": sched.host_ms_total,
+        "wait_ms": sched.wait_ms_total,
+        "flush_wait_ms": sched.flush_wait_ms_total,
+        "flushes": sched.flushes,
         "device_ms": sched.device_ms_total,
         "prefill_ms": sched.prefill_ms_total,
+        "prefill_tokens": sched.prefill_tokens_total,
         "decode_steps": sched._step_idx - steps0,
         "peak_tokens_in_flight": sched.peak_tokens_in_flight,
         "jit_cache_sizes": sched.jit_cache_sizes(),
@@ -235,10 +247,17 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
               + f" device={model.device}")
         print(f"  p50={stats['p50_latency_s']*1e3:.0f}ms "
               f"p95={stats['p95_latency_s']*1e3:.0f}ms "
+              f"ttft p50={stats['p50_ttft_s']*1e3:.0f}ms "
+              f"p95={stats['p95_ttft_s']*1e3:.0f}ms "
               f"sustained={stats['sustained_tok_s']:.1f} tok/s "
               f"makespan={makespan:.2f}s")
         print(f"  host={stats['host_ms']:.0f}ms "
-              f"device={stats['device_ms']:.0f}ms peak-in-flight="
+              f"wait={stats['wait_ms']:.0f}ms "
+              f"device={stats['device_ms']:.0f}ms "
+              f"flush_wait={stats['flush_wait_ms']:.0f}ms in "
+              f"{stats['flushes']} flushes; prefill "
+              f"{stats['prefill_ms']:.0f}ms for {stats['prefill_tokens']} "
+              f"prompt tokens; peak-in-flight="
               f"{stats['peak_tokens_in_flight']} tokens; decode-window "
               f"builds (must stay 1): {stats['jit_cache_sizes']}")
     return stats
@@ -408,6 +427,7 @@ def serve_multi_poisson(archs, *, rate: float = 4.0, n_requests: int = 32,
 
     t0, makespan, polls = _drive_open_loop(sched, reqs, arrivals)
     lat = [r.t_done - (t0 + arrivals[j]) for j, r in enumerate(reqs)]
+    ttft = [r.t_first - (t0 + arrivals[j]) for j, r in enumerate(reqs)]
     total_tokens = sum(len(r.out_tokens) for r in reqs)
     per_model = {}
     for arch in archs:
@@ -428,11 +448,15 @@ def serve_multi_poisson(archs, *, rate: float = 4.0, n_requests: int = 32,
         "makespan_s": makespan,
         "p50_latency_s": _pctl(lat, 50),
         "p95_latency_s": _pctl(lat, 95),
+        "p50_ttft_s": _pctl(ttft, 50),
+        "p95_ttft_s": _pctl(ttft, 95),
         "sustained_tok_s": total_tokens / makespan,
         "tokens": total_tokens,
         "async_decode": async_decode,
         "polls": polls,
         "host_ms": sched.host_ms_total,
+        "wait_ms": sched.wait_ms_total,
+        "flush_wait_ms": sched.flush_wait_ms_total,
         "device_ms": sched.device_ms_total,
         "host_ms_per_poll": sched.host_ms_total / max(1, polls),
         "peak_tokens_in_flight": sched.peak_tokens_in_flight,
@@ -449,6 +473,8 @@ def serve_multi_poisson(archs, *, rate: float = 4.0, n_requests: int = 32,
               + (f" async(r={readback_interval})" if async_decode else ""))
         print(f"  p50={stats['p50_latency_s']*1e3:.0f}ms "
               f"p95={stats['p95_latency_s']*1e3:.0f}ms "
+              f"ttft p50={stats['p50_ttft_s']*1e3:.0f}ms "
+              f"p95={stats['p95_ttft_s']*1e3:.0f}ms "
               f"sustained={stats['sustained_tok_s']:.1f} tok/s "
               f"makespan={makespan:.2f}s host/poll="
               f"{stats['host_ms_per_poll']:.1f}ms")

@@ -1029,13 +1029,14 @@ class TieredServingCluster:
     def stats(self) -> Dict[str, object]:
         """Route counts, migration ledger and per-tier accounting.  Every
         latency and utilization here is on the virtual clocks (modelled by
-        the planners' tier profiles); ``host_ms``/``device_ms`` are the
-        pools' measured wall-time split.  ``stage_calls`` counts each
-        pool's segment, probe and finalize dispatches; ``jit_cache_sizes``
-        each pool's stage builds.  Group clusters add ``models`` (per-model
-        routes, tokens and latencies); a ``spec_draft`` cluster adds
-        ``speculative`` (measured rounds, acceptance and each request's
-        tokens per round)."""
+        the planners' tier profiles); ``host_ms``, ``wait_ms`` and
+        ``flush_wait_ms`` are the pools' measured wall-time split, and
+        ``device_ms`` their decode windows' device time.  ``stage_calls``
+        counts each pool's segment, probe and finalize dispatches;
+        ``jit_cache_sizes`` each pool's stage builds.  Group clusters add
+        ``models`` (per-model routes, tokens and latencies); a
+        ``spec_draft`` cluster adds ``speculative`` (measured rounds,
+        acceptance and each request's tokens per round)."""
         done = [cr for cr in self.requests if cr.done]
         lats = [cr.latency for cr in done]
         per_tier = {}
@@ -1054,6 +1055,8 @@ class TieredServingCluster:
                 "p50_latency_s": _pctl(tl, 50),
                 "p95_latency_s": _pctl(tl, 95),
                 "host_ms": tr.sched.host_ms_total,
+                "wait_ms": tr.sched.wait_ms_total,
+                "flush_wait_ms": tr.sched.flush_wait_ms_total,
                 "device_ms": tr.sched.device_ms_total,
                 "peak_tokens_in_flight": tr.sched.peak_tokens_in_flight,
                 "stage_calls": dict(tr.sched.stage_calls),

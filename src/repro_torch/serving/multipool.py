@@ -183,6 +183,14 @@ class MultiModelScheduler:
         return sum(p.host_ms_total for p in self.pools.values())
 
     @property
+    def wait_ms_total(self) -> float:
+        return sum(p.wait_ms_total for p in self.pools.values())
+
+    @property
+    def flush_wait_ms_total(self) -> float:
+        return sum(p.flush_wait_ms_total for p in self.pools.values())
+
+    @property
     def device_ms_total(self) -> float:
         return sum(p.device_ms_total for p in self.pools.values())
 
@@ -227,7 +235,8 @@ class MultiModelScheduler:
             rep.decode_steps = max(rep.decode_steps, sub.decode_steps)
             rep.decode_dispatched += sub.decode_dispatched
             rep.host_ms += sub.host_ms
-            rep.device_ms += sub.device_ms
+            rep.wait_ms += sub.wait_ms
+            rep.flush_wait_ms += sub.flush_wait_ms
             rep.tokens_in_flight += sub.tokens_in_flight
             active_depth += sub.decode_depth_frac * sub.n_active
         if rep.n_active:               # active-slot-weighted mean depth
@@ -449,12 +458,14 @@ class SpecPair(MultiModelScheduler):
         budget, then one speculation round runs: the draft proposes, the
         target verifies and commits.  ``per_model`` carries the draft and
         target sub-reports, with the propose and verify accounting split
-        as the tiered cluster charges it.  ``host_ms`` and ``device_ms``
-        split the round's wall time at the two readbacks."""
+        as the tiered cluster charges it.  ``wait_ms`` (the two
+        readbacks), ``flush_wait_ms`` (any counter flush) and ``host_ms``
+        (the rest) split the round's wall time."""
         t_poll = time.perf_counter()
         tgt = self.pools[self.target_name]
         drf = self.pools[self.draft_name]
-        dev0 = tgt.device_ms_total + drf.device_ms_total
+        wait0 = tgt.wait_ms_total + drf.wait_ms_total
+        flush0 = tgt.flush_wait_ms_total + drf.flush_wait_ms_total
         rep = StepReport()
         budget = self.cfg.max_prefill_chunks_per_step
         sub_t = tgt.prefill_poll(None if budget <= 0 else budget)
@@ -501,8 +512,11 @@ class SpecPair(MultiModelScheduler):
             rep.per_model[name] = sub
             _add_prefill(rep, sub)
         self.completed += rep.completed
-        rep.device_ms = tgt.device_ms_total + drf.device_ms_total - dev0
-        rep.host_ms = (time.perf_counter() - t_poll) * 1e3 - rep.device_ms
+        rep.wait_ms = tgt.wait_ms_total + drf.wait_ms_total - wait0
+        rep.flush_wait_ms = (tgt.flush_wait_ms_total
+                             + drf.flush_wait_ms_total - flush0)
+        rep.host_ms = ((time.perf_counter() - t_poll) * 1e3 - rep.wait_ms
+                       - rep.flush_wait_ms)
         return rep
 
     def spec_stats(self) -> Dict[str, float]:

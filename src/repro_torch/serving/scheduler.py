@@ -58,6 +58,18 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
 * **Multi-model pools** (``serving/multipool.py``) run one of these arenas
   per model: ``Request.model`` names the arena, and
   ``poll(prefill_budget=)`` shares one prefill budget across them.
+* **Spans and time counters**: while a ``torch.profiler`` collects, a poll
+  opens the spans of ``serving/spans.py`` where its work happens
+  (``poll``; ``admit``; ``prefill`` > ``first_token``; ``dispatch`` >
+  ``carry_load``, ``table_upload``, ``capture``, ``replay``,
+  ``ring_copy``; ``readback``; ``commit`` > ``flush``; and ``sync``).
+  Always on: each poll's wall time splits into ``host_ms`` (host work),
+  ``wait_ms`` (blocked in a token or ring readback) and ``flush_wait_ms``
+  (blocked in the counter flush's read), summed in ``host_ms_total``,
+  ``wait_ms_total`` and ``flush_wait_ms_total`` (with ``flushes``);
+  ``device_ms_total`` adds each committed window's device time between
+  its two events, and ``prefill_ms_total`` / ``prefill_tokens_total``
+  count ``prefill_poll``'s wall time and replayed prompt tokens.
 
 Host/device traffic per sync decode step: one upload of (tokens,
 positions, active), one upload of the block table when it changed (into
@@ -96,6 +108,7 @@ from repro_torch.models.common import resolve_device, tree_leaves, tree_map
 from repro_torch.serving import sampling
 from repro_torch.serving.paged import (PageAllocator, RadixPrefixCache,
                                        chunk_digests)
+from repro_torch.serving.spans import span
 from repro_torch.serving.window import DecodeWindow, RingHandle
 
 FIRST_TICK = 1_000_003                 # tick base of first-token draws
@@ -118,6 +131,7 @@ class Request:
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     t_submit: float = 0.0
     t_admit: float = 0.0
+    t_first: float = 0.0               # the first token appended
     t_done: float = 0.0
     slot: int = -1
     done: bool = False
@@ -181,8 +195,11 @@ class StepReport:
     # dispatch-only poll did device work though nothing committed yet
     decode_steps: int = 0
     decode_dispatched: int = 0
-    host_ms: float = 0.0               # host time of the poll
-    device_ms: float = 0.0             # time blocked in the token readback
+    # the poll's wall time split three ways: blocked in the token or ring
+    # readback, blocked in the counter flush's read, and host work
+    host_ms: float = 0.0
+    wait_ms: float = 0.0
+    flush_wait_ms: float = 0.0
     tokens_in_flight: int = 0          # in dispatched, unread windows
     # speculative rounds (SpecPair): verify rounds, tokens they committed
     # and draft tokens proposed
@@ -244,10 +261,12 @@ def _nbytes(t) -> int:
 @dataclasses.dataclass
 class _InFlight:
     """A dispatched, unread decode window: its ring, the mask of slots in
-    its chain, and how many of them were alive at dispatch."""
+    its chain, how many of them were alive at dispatch, and its sequence
+    number (the ``seq`` of its dispatch, readback and commit spans)."""
     ring: RingHandle
     part: Any                          # np [n_slots] bool
     alive_hint: int
+    seq: int = 0
 
 
 @dataclasses.dataclass
@@ -354,10 +373,17 @@ class ContinuousBatchScheduler:
         self.n_submitted = 0
         self._step_idx = 0
         self._pending: Optional[_PendingPrefill] = None
-        self._dev_s = 0.0
-        self.host_ms_total = 0.0
-        self.device_ms_total = 0.0
-        self.prefill_ms_total = 0.0        # wall time of the polls' prefill
+        # time accounting (``reset_stats`` zeroes the totals): a poll's
+        # waits on readbacks and on the counter flush, so far this poll
+        self._wait_s = 0.0
+        self._flush_s = 0.0
+        self.host_ms_total = 0.0           # polls' wall time less both waits
+        self.wait_ms_total = 0.0           # blocked in token/ring readbacks
+        self.flush_wait_ms_total = 0.0     # blocked in the counter flush
+        self.flushes = 0
+        self.device_ms_total = 0.0         # windows' device time (events)
+        self.prefill_ms_total = 0.0        # wall time of prefill_poll
+        self.prefill_tokens_total = 0      # prompt tokens it replayed
         # sampling: per-run tick counters, reset by set_rng / run() so the
         # same (requests, rng) reproduce the same samples
         self._rng: Optional[torch.Generator] = None
@@ -367,6 +393,7 @@ class ContinuousBatchScheduler:
         # valid while host state equals the window's device carry
         # (admission, import and sync invalidate it)
         self._win_q: deque = deque()
+        self._win_seq = 0                  # windows dispatched
         self._carry_valid = False
         self._window: Optional[DecodeWindow] = None
         self.peak_tokens_in_flight = 0
@@ -442,7 +469,8 @@ class ContinuousBatchScheduler:
         """The device block table, rewritten in place only when a host-side
         allocation or release changed it."""
         if self._tbl_dirty:
-            self._put(self._tbl_buf, self._tbl)
+            with span("table_upload"):
+                self._put(self._tbl_buf, self._tbl)
             self._tbl_dirty = False
         return self._tbl_buf
 
@@ -493,12 +521,16 @@ class ContinuousBatchScheduler:
         this poll (0 runs no chunk; a multi-model pool shares one budget
         across its arenas this way).  With ``async_decode`` the decode half
         is the window pipeline (``_poll_async``)."""
-        if self.cfg.async_decode:
-            return self._poll_async(prefill_budget)
+        with span("poll"):
+            if self.cfg.async_decode:
+                return self._poll_async(prefill_budget)
+            return self._poll_sync(prefill_budget)
+
+    def _poll_sync(self, prefill_budget: Optional[int]) -> StepReport:
+        """One sync round: ``prefill_poll``, then one ``step()``."""
         t_poll = time.perf_counter()
-        self._dev_s = 0.0
+        self._wait_s = self._flush_s = 0.0
         rep = self.prefill_poll(prefill_budget)
-        self.prefill_ms_total += (time.perf_counter() - t_poll) * 1e3
         done_before = len(self.completed)
         rep.decode_stepped = self.step()
         rep.decode_steps = 1 if rep.decode_stepped else 0
@@ -507,27 +539,40 @@ class ContinuousBatchScheduler:
             rep.decode_segments_run = self._last_segments_run
             rep.decode_depth_frac = self._last_depth_frac
         rep.completed += self.completed[done_before:]
-        rep.device_ms = self._dev_s * 1e3
-        rep.host_ms = (time.perf_counter() - t_poll) * 1e3 - rep.device_ms
-        self.host_ms_total += rep.host_ms
-        self.device_ms_total += rep.device_ms
+        self._split_time(rep, t_poll)
         return rep
+
+    def _split_time(self, rep: StepReport, t_poll: float):
+        """Split the poll's wall time since ``t_poll``: its waits on
+        readbacks and on the counter flush, and host work, the rest."""
+        rep.wait_ms = self._wait_s * 1e3
+        rep.flush_wait_ms = self._flush_s * 1e3
+        rep.host_ms = ((time.perf_counter() - t_poll) * 1e3 - rep.wait_ms
+                       - rep.flush_wait_ms)
+        self.host_ms_total += rep.host_ms
 
     def prefill_poll(self, prefill_budget: Optional[int] = None
                      ) -> StepReport:
         """Admission + chunked prefill only, no decode step (SpecPair
         drives its arenas' admissions through this).  ``prefill_budget``
-        as in ``poll``."""
+        as in ``poll``.  Its wall time counts in ``prefill_ms_total`` and
+        the prompt tokens it replays in ``prefill_tokens_total``, whether
+        ``poll`` or a caller runs it."""
+        t0 = time.perf_counter()
         rep = StepReport()
         done_before = len(self.completed)
-        if self._pending is None:
-            rep.admitted = self._begin_admit()
+        if self._pending is None and self.queue:
+            with span("admit"):
+                rep.admitted = self._begin_admit()
         if self._pending is not None and (prefill_budget is None
                                           or prefill_budget > 0):
             cap = self.cfg.max_prefill_chunks_per_step \
                 if prefill_budget is None else prefill_budget
-            self._advance_prefill(cap, rep)
+            with span("prefill"):
+                self._advance_prefill(cap, rep)
         rep.completed = self.completed[done_before:]
+        self.prefill_tokens_total += rep.prefill_tokens
+        self.prefill_ms_total += (time.perf_counter() - t0) * 1e3
         return rep
 
     def run(self, rng: Optional[torch.Generator] = None):
@@ -723,10 +768,13 @@ class ContinuousBatchScheduler:
                     self.prefix_cache.insert(
                         self._slot_digests[slot][:n_full], r.tokens,
                         [int(pg) for pg in self._tbl[slot, :n_full]])
-        first = self._first_tokens(p)              # one readback
+        with span("first_token"):
+            first = self._first_tokens(p)          # one readback
+        now = time.time()
         for slot, r in zip(p.slots, p.reqs):
             tok0 = int(first[slot])
             r.out_tokens.append(tok0)
+            r.t_first = now
             self.positions[slot] = p.lengths[slot]
             self.current_tok[slot] = tok0
             self.steps_taken[slot] = 0
@@ -885,7 +933,9 @@ class ContinuousBatchScheduler:
         greedy, sampled = step(tokens, positions, active_d, thr, tick)
         t0 = time.perf_counter()
         nxt = (greedy if sampled is None else sampled).cpu().numpy()
-        self._dev_s += time.perf_counter() - t0    # one readback per step
+        wait = time.perf_counter() - t0            # one readback per step
+        self._wait_s += wait
+        self.wait_ms_total += wait * 1e3
         self._step_idx += 1
         self._rng_tick += 1
         n_active = int(self.active.sum())
@@ -919,16 +969,17 @@ class ContinuousBatchScheduler:
         the host commits N), else dispatch a fresh window from host state.
         One ring readback per committed window."""
         t_poll = time.perf_counter()
-        self._dev_s = 0.0
+        self._wait_s = self._flush_s = 0.0
         rep = self.prefill_poll(prefill_budget)
-        self.prefill_ms_total += (time.perf_counter() - t_poll) * 1e3
         done_before = len(self.completed)
         if self._win_q:
             if self._carry_valid:
                 self._dispatch_window(from_carry=True)
                 rep.decode_dispatched += 1
             win = self._win_q.popleft()
-            self._commit_window(self._read_ring(win), win.part, rep)
+            ring = self._read_ring(win)
+            with span("commit", win.seq):
+                self._commit_window(ring, win.part, rep)
         elif self.active.any():
             self._dispatch_window(from_carry=False)
             rep.decode_dispatched += 1
@@ -936,17 +987,20 @@ class ContinuousBatchScheduler:
         rep.tokens_in_flight = self.tokens_in_flight
         self.peak_tokens_in_flight = max(self.peak_tokens_in_flight,
                                          rep.tokens_in_flight)
-        rep.device_ms = self._dev_s * 1e3
-        rep.host_ms = (time.perf_counter() - t_poll) * 1e3 - rep.device_ms
-        self.host_ms_total += rep.host_ms
-        self.device_ms_total += rep.device_ms
+        self._split_time(rep, t_poll)
         return rep
 
     def _read_ring(self, win: _InFlight) -> np.ndarray:
-        """The one readback of a window: wait for its ring copy."""
-        t0 = time.perf_counter()
-        ring = win.ring.read()
-        self._dev_s += time.perf_counter() - t0
+        """The one readback of a window: wait for its ring copy.  The
+        window's device time (between its events, both passed now) adds
+        to ``device_ms_total``."""
+        with span("readback", win.seq):
+            t0 = time.perf_counter()
+            ring = win.ring.read()
+            wait = time.perf_counter() - t0
+        self._wait_s += wait
+        self.wait_ms_total += wait * 1e3
+        self.device_ms_total += win.ring.device_ms()
         return ring
 
     def _eos_host(self) -> np.ndarray:
@@ -967,6 +1021,13 @@ class ContinuousBatchScheduler:
                    for w in self._win_q)
 
     def _dispatch_window(self, *, from_carry: bool):
+        """Enqueue the next decode window (``_enqueue_window``) inside its
+        ``dispatch`` span, which carries the window's sequence number."""
+        self._win_seq += 1
+        with span("dispatch", self._win_seq):
+            self._enqueue_window(from_carry)
+
+    def _enqueue_window(self, from_carry: bool):
         """Enqueue one decode window.  ``from_carry`` chains the previous
         window's device carry (cur, pos, alive, budget): nothing is
         uploaded, the chain and its slot mask stay the same.  A fresh
@@ -992,16 +1053,19 @@ class ContinuousBatchScheduler:
                                 - self.steps_taken[slot])
             host = (self.current_tok, self.positions, self.active, budget,
                     self._eos_host(), self._rng_tick, self._rng is not None)
-            if w.needs_build():
+            with span("carry_load"):
                 w.load(*host)
-                w.prepare()
-            w.load(*host)
+            if w.needs_build():
+                with span("capture"):
+                    w.prepare()
+                    w.load(*host)      # the warm-up froze every row
             part = self.active.copy()
         ring = w.run()
         self._carry_valid = True
         self._rng_tick += self.cfg.readback_interval
         self._win_q.append(_InFlight(ring, part,
-                                     int((self.active & part).sum())))
+                                     int((self.active & part).sum()),
+                                     self._win_seq))
 
     def _commit_window(self, ring: np.ndarray, part: np.ndarray,
                        rep: StepReport):
@@ -1061,11 +1125,14 @@ class ContinuousBatchScheduler:
         schedulers; ``export_slot``, ``release_slot`` and ``step()`` need
         it first, and ``reset_stats`` runs it."""
         n0 = len(self.completed)
-        while self._win_q:
-            win = self._win_q.popleft()
-            if not (self.active & win.part).any():
-                continue                # dead chain: no readback needed
-            self._commit_window(self._read_ring(win), win.part, StepReport())
+        with span("sync"):
+            while self._win_q:
+                win = self._win_q.popleft()
+                if not (self.active & win.part).any():
+                    continue            # dead chain: no readback needed
+                ring = self._read_ring(win)
+                with span("commit", win.seq):
+                    self._commit_window(ring, win.part, StepReport())
         self._carry_valid = False
         return self.completed[n0:]
 
@@ -1108,11 +1175,11 @@ class ContinuousBatchScheduler:
         return torch.argmax(logits, dim=-1)
 
     def _spec_readback(self, t) -> np.ndarray:
-        """A speculation stage's one readback; the wait counts as device
-        time (``device_ms_total``), as a decode step's readback does."""
+        """A speculation stage's one readback; the wait counts in
+        ``wait_ms_total``, as a decode step's readback does."""
         t0 = time.perf_counter()
         out = t.cpu().numpy()
-        self.device_ms_total += (time.perf_counter() - t0) * 1e3
+        self.wait_ms_total += (time.perf_counter() - t0) * 1e3
         return out
 
     def spec_window_lens(self) -> np.ndarray:
@@ -1610,8 +1677,18 @@ class ContinuousBatchScheduler:
 
     def flush_counters(self) -> np.ndarray:
         """Read the cumulative device exit histogram back to the host, plus
-        the host-side histogram of verify-committed tokens."""
-        self.exit_counts = (self._counters.cpu().numpy().astype(np.int64)
+        the host-side histogram of verify-committed tokens.  The read
+        waits for every step enqueued before it; that wait counts in
+        ``flush_wait_ms_total`` and ``flushes``, and a poll takes it out
+        of its ``host_ms``."""
+        with span("flush"):
+            t0 = time.perf_counter()
+            counts = self._counters.cpu()
+            wait = time.perf_counter() - t0
+        self._flush_s += wait
+        self.flush_wait_ms_total += wait * 1e3
+        self.flushes += 1
+        self.exit_counts = (counts.numpy().astype(np.int64)
                             + self._host_exit_extra)
         return self.exit_counts
 
@@ -1633,8 +1710,12 @@ class ContinuousBatchScheduler:
         for name in self.stage_calls:
             self.stage_calls[name] = 0
         self.host_ms_total = 0.0
+        self.wait_ms_total = 0.0
+        self.flush_wait_ms_total = 0.0
+        self.flushes = 0
         self.device_ms_total = 0.0
         self.prefill_ms_total = 0.0
+        self.prefill_tokens_total = 0
         self.peak_tokens_in_flight = 0
         self.completed.clear()
 

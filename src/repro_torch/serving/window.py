@@ -30,11 +30,14 @@ an all-sentinel table, as a released slot has), so greedy tokens stay
 bit-identical to the sync path's, also where MoE capacity couples the
 rows.
 
-A window on the card is R graph replays, a ``non_blocking`` copy of the
-ring into a pinned host buffer of its own, and an event; the host waits
-on that event only when it commits the window.  ``kernels.ops.LAUNCHES``
-counts Python calls, which a replay does not make, so each window adds the
-launches one step made during capture times R.
+A window on the card is a timing event, R graph replays, a
+``non_blocking`` copy of the ring into a pinned host buffer of its own,
+and a second timing event; the host waits on that event only when it
+commits the window, and then reads the device time between the two
+(``RingHandle.device_ms``), which needs no further wait.
+``kernels.ops.LAUNCHES`` counts Python calls, which a replay does not
+make, so each window adds the launches one step made during capture
+times R.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ import torch
 from repro_torch.core.early_exit import first_exit_index
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import PagedKV
+from repro_torch.serving.spans import span
 
 CUR, POS, ALIVE, BUDGET, EOS = range(5)     # rows of DecodeWindow.state
 TICK, COL, SAMPLED = range(3)                # entries of DecodeWindow.scal
@@ -56,16 +60,25 @@ WARMUP_STEPS = 2        # side-stream steps before capture (lazy inits)
 @dataclasses.dataclass
 class RingHandle:
     """One dispatched window's token ring: a host buffer that the ring
-    copy fills, and the event recorded behind that copy (None on the
-    CPU, where the copy has already happened)."""
+    copy fills, the event recorded behind that copy and the one recorded
+    before the window's first replay (both None on the CPU, where the
+    copy has already happened)."""
     host: torch.Tensor                 # [B, R] int64 (pinned on the card)
     event: Optional[torch.cuda.Event] = None
+    start: Optional[torch.cuda.Event] = None
 
     def read(self) -> np.ndarray:
         """The ring as numpy, after waiting on the window's event."""
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+    def device_ms(self) -> float:
+        """Device milliseconds from the window's first replay to the end
+        of its ring copy; call after ``read`` (0.0 on the CPU)."""
+        if self.event is None:
+            return 0.0
+        return self.start.elapsed_time(self.event)
 
 
 class DecodeWindow:
@@ -196,18 +209,24 @@ class DecodeWindow:
         """Enqueue one window of R steps from the carry; returns its ring."""
         R = self.R
         if not self.on_card:
-            for _ in range(R):
-                self._step()
+            with span("replay"):
+                for _ in range(R):
+                    self._step()
             self.replays += R
-            return RingHandle(self.ring.clone())
-        for _ in range(R):
-            self.graph.replay()
+            with span("ring_copy"):
+                return RingHandle(self.ring.clone())
+        with span("replay"):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(R):
+                self.graph.replay()
         self.replays += R
         for name, n in self.per_replay.items():
             kops.LAUNCHES[name] += n * R
-        host = torch.empty(tuple(self.ring.shape), dtype=torch.int64,
-                           pin_memory=True)
-        host.copy_(self.ring, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return RingHandle(host, event)
+        with span("ring_copy"):
+            host = torch.empty(tuple(self.ring.shape), dtype=torch.int64,
+                               pin_memory=True)
+            host.copy_(self.ring, non_blocking=True)
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+        return RingHandle(host, event, start)
