@@ -1458,11 +1458,11 @@ def run_async(torch, ops):
                for _ in range(ASYNC_SLOTS)]
     max_len = 64 + ASYNC_MAX_NEW
 
-    def pool(async_decode, **kw):
+    def pool(async_decode):
         return ContinuousBatchScheduler(model, params, SchedulerConfig(
             n_slots=ASYNC_SLOTS, max_len=max_len, prefill_chunk=16,
             exit_threshold=0.5, segmented=False, paged=True,
-            async_decode=async_decode, readback_interval=ASYNC_R, **kw),
+            async_decode=async_decode, readback_interval=ASYNC_R),
             device="cuda")
 
     print(f"async decode: granite-3-2b at full width, cut to {layers} "
@@ -1490,7 +1490,7 @@ def run_async(torch, ops):
     out["sync"] = {"decode_steps": steps, "wall_s": wall,
                    "ms_per_step": wall / steps * 1e3}
     del s_sync
-    s_win = pool(True, flush_every=10 ** 9)
+    s_win = pool(True)
     r_win, steps, launches, wall = closed_loop(
         torch, ops, s_win, prompts, ASYNC_MAX_NEW)
     check_launches("(a) async", steps, launches)
@@ -4933,7 +4933,7 @@ def run_guards(torch, ops):
         return ContinuousBatchScheduler(model, params, SchedulerConfig(
             n_slots=16, max_len=112, prefill_chunk=16, exit_threshold=0.5,
             segmented=False, paged=True, page_size=16, prefix_cache=True,
-            async_decode=True, readback_interval=8, flush_every=10 ** 9),
+            async_decode=True, readback_interval=8),
             device="cuda")
 
     def admit(s, w):

@@ -224,10 +224,10 @@ def guard_sync_budget(target: Any, *, bound: int = 1
     synchronizes the card once) is a build, not a readback.  So a poll
     counts the same on the CPU and on the card, and device-side work never
     counts.  A sync pool reads back once per decode step (plus a segmented
-    step's probe reads and the periodic counter flush); an async pool's
-    decode poll reads one ring.  Attach it around the decode phase
-    (admission and prefill done) for a tight bound, with ``flush_every``
-    past the guarded span.
+    step's probe reads); an async pool's decode poll reads one ring.  An
+    exact counter read (``exit_stats``, a controller's update) is one
+    more.  Attach it around the decode phase (admission and prefill done)
+    for a tight bound.
 
     Yields a stats dict (``polls``, ``syncs``, ``max_per_poll``) that keeps
     updating while the guard is attached."""

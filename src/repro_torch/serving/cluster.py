@@ -98,7 +98,6 @@ class ClusterConfig:
     long_mode: bool = False
     # one prefill chunk per poll so admissions interleave with decode
     max_prefill_chunks_per_step: int = 1
-    flush_every: int = 32
     # cross-tier KV handoff: "auto" = int8 when compression_decision says
     # the link pays for it, "raw" = always bf16 rows (exact continuation),
     # "int8" = always quantize
@@ -328,7 +327,6 @@ class TieredServingCluster:
             prefill_chunk=cfg.prefill_chunk,
             exit_threshold=cfg.exit_threshold,
             temperature=cfg.temperature, long_mode=cfg.long_mode,
-            flush_every=cfg.flush_every,
             max_prefill_chunks_per_step=cfg.max_prefill_chunks_per_step,
             paged=cfg.paged, page_size=cfg.page_size,
             segmented=not cfg.async_decode, async_decode=cfg.async_decode,
@@ -505,7 +503,7 @@ class TieredServingCluster:
                 SchedulerConfig(
                     n_slots=n, max_len=cfg.max_len,
                     prefill_chunk=cfg.prefill_chunk, exit_threshold=0.0,
-                    long_mode=cfg.long_mode, flush_every=cfg.flush_every,
+                    long_mode=cfg.long_mode,
                     max_prefill_chunks_per_step=(
                         cfg.max_prefill_chunks_per_step),
                     paged=cfg.paged, page_size=cfg.page_size),

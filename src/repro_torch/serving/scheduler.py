@@ -19,7 +19,10 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
   threshold stop being ``alive`` (hidden passthrough, no KV writes), and
   the host stops dispatching segments once no active slot is alive.
   ``segmented=False`` runs the monolithic ``decode_step`` instead.
-* **Device exit counters**, flushed to the host every ``flush_every`` steps.
+* **Device exit counters**, read to the host only when asked:
+  ``flush_counters()`` / ``exit_stats()`` / ``run()`` and the controller's
+  update read them exactly, waiting for the device; no poll reads them
+  otherwise, and ``exit_counts`` holds the last exact read.
   An optional ``controller`` (``serving/adaptive.py``) steers the exit
   threshold from the measured depth every ``adaptive_every`` served tokens.
 * **State rows** (hybrid Mamba2 models): per-slot SSM and conv rows beside
@@ -65,7 +68,7 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
   ``ring_copy``; ``readback``; ``commit`` > ``flush``; and ``sync``).
   Always on: each poll's wall time splits into ``host_ms`` (host work),
   ``wait_ms`` (blocked in a token or ring readback) and ``flush_wait_ms``
-  (blocked in the counter flush's read), summed in ``host_ms_total``,
+  (blocked in an exact counter read), summed in ``host_ms_total``,
   ``wait_ms_total`` and ``flush_wait_ms_total`` (with ``flushes``);
   ``device_ms_total`` adds each committed window's device time between
   its two events, and ``prefill_ms_total`` / ``prefill_tokens_total``
@@ -146,7 +149,6 @@ class SchedulerConfig:
     prefill_chunk: int = 16            # tokens per prefill round
     exit_threshold: float = 0.5
     temperature: float = 0.0           # 0 = greedy
-    flush_every: int = 32              # decode steps between counter reads
     # ring caches at the model's long_context_window (contiguous arenas)
     long_mode: bool = False
     max_prefill_chunks_per_step: int = 0   # 0 = whole prompt in one poll
@@ -196,7 +198,7 @@ class StepReport:
     decode_steps: int = 0
     decode_dispatched: int = 0
     # the poll's wall time split three ways: blocked in the token or ring
-    # readback, blocked in the counter flush's read, and host work
+    # readback, blocked in an exact counter read, and host work
     host_ms: float = 0.0
     wait_ms: float = 0.0
     flush_wait_ms: float = 0.0
@@ -544,7 +546,7 @@ class ContinuousBatchScheduler:
 
     def _split_time(self, rep: StepReport, t_poll: float):
         """Split the poll's wall time since ``t_poll``: its waits on
-        readbacks and on the counter flush, and host work, the rest."""
+        readbacks and on exact counter reads, and host work, the rest."""
         rep.wait_ms = self._wait_s * 1e3
         rep.flush_wait_ms = self._flush_s * 1e3
         rep.host_ms = ((time.perf_counter() - t_poll) * 1e3 - rep.wait_ms
@@ -1116,7 +1118,7 @@ class ContinuousBatchScheduler:
         if not (self.active & part).any():
             self._win_q.clear()
             self._carry_valid = False
-        self._maybe_flush(steps=max(1, replayed))
+        self._maybe_flush()
 
     def sync(self) -> List[Request]:
         """Drain the pipeline: read back and commit every window in
@@ -1657,14 +1659,15 @@ class ContinuousBatchScheduler:
     # ------------------------------------------------------------------
     # exit statistics
     # ------------------------------------------------------------------
-    def _maybe_flush(self, steps: int = 1):
-        """Periodic counter flush, or the controller's update.  With a
-        controller and at least ``adaptive_every`` tokens served since its
-        last update, it steers from the measured depth fraction of those
-        tokens (monolithic steps report 1.0: they never truncate).
-        Otherwise the counters flush iff ``_step_idx`` crossed a multiple
-        of ``flush_every`` within the last ``steps`` decode steps (a window
-        commit lands R at once; ``steps=1`` is the per-step check)."""
+    def _maybe_flush(self):
+        """The controller's update, the one counter read inside a poll.
+        With a controller and at least ``adaptive_every`` tokens served
+        since its last update, it reads the counters exactly and steers
+        from the measured depth fraction of those tokens (monolithic steps
+        report 1.0: they never truncate).  Without one a poll reads no
+        counters: nothing reads ``exit_counts`` between exact reads, and a
+        blocking read in a window's commit would wait for the window
+        dispatched after it."""
         if (self.controller is not None
                 and self._tokens_since_adapt >= self.adaptive_every):
             self.flush_counters()
@@ -1672,8 +1675,6 @@ class ContinuousBatchScheduler:
                 self._depth_since_adapt / max(1, self._tokens_since_adapt))
             self._tokens_since_adapt = 0
             self._depth_since_adapt = 0.0
-        elif (self._step_idx % self.cfg.flush_every) < steps:
-            self.flush_counters()
 
     def flush_counters(self) -> np.ndarray:
         """Read the cumulative device exit histogram back to the host, plus

@@ -3,8 +3,9 @@
 drift, a COW violation, orphaned draft shadows and an undelivered
 cluster migration; ``no_recompile`` trips on a second window build and
 on a rebound cache leaf; ``guard_sync_budget`` passes at bound 1 on an
-async pool's decode phase and raises at bound 0 on a sync pool (and on
-a planted ``.item()``).  The port's runs that mirror the reference's
+async pool's decode phase, also past the old 32-step counter flush
+(a controller's exact counter read is one more), and raises at bound 0
+on a sync pool (and on a planted ``.item()``).  The port's runs that mirror the reference's
 audited ones (``tests/test_scheduler.py:84``, ``test_paged.py:60``,
 ``test_multipool.py:69``, ``test_spec_decode.py:86,117,144,285``) run
 again under ``SlotAudit``, with ``audit.polls > 0`` and the same tokens
@@ -43,8 +44,8 @@ from repro_torch.analysis import (GuardError, SlotAudit, guard_polling,
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.models import Model
-from repro_torch.serving import (ClusterConfig, ContinuousBatchScheduler,
-                                 ModelGroup, MultiModelScheduler, Request,
+from repro_torch.serving import (AdaptiveExitController, ClusterConfig,
+                                 ContinuousBatchScheduler, ModelGroup, MultiModelScheduler, Request,
                                  SchedulerConfig, SpecPair,
                                  TieredServingCluster)
 
@@ -398,7 +399,7 @@ def test_slot_audit_catches_a_held_booking(bridge_run):
 def _async_pool(granite, **kw):
     return _sched(granite, n_slots=2, max_len=32, prefill_chunk=8,
                   segmented=False, async_decode=True, readback_interval=4,
-                  flush_every=10 ** 6, **kw)
+                  **kw)
 
 
 def test_no_recompile_trips_on_first_and_second_build(granite):
@@ -463,17 +464,46 @@ def test_sync_budget_passes_async_and_fails_sync(granite):
     assert stats["polls"] > 0 and stats["max_per_poll"] <= 1
     assert stats["syncs"] >= 1          # the ring readbacks happened
 
-    pool = _decode_phase(_sched(granite, max_len=32, segmented=False,
-                                flush_every=10 ** 6), prompts)
+    pool = _decode_phase(_sched(granite, max_len=32, segmented=False),
+                         prompts)
     with pytest.raises(GuardError, match="sync"):
         with guard_sync_budget(pool, bound=0):
             pool.run()
 
 
+def test_sync_budget_holds_past_the_counter_flush_period(granite):
+    """Forty decode steps, past the 32 between the counter flushes polls
+    once made: an async pool still reads back one ring a poll and reads
+    no counters.  A controller's update is an exact read, one more in the
+    polls that run it."""
+    prompts = [(np.arange(6) + j) % 1000 for j in range(2)]
+
+    def pool():
+        return _decode_phase(
+            _sched(granite, max_len=64, prefill_chunk=8, segmented=False,
+                   async_decode=True, readback_interval=4), prompts,
+            max_new=40)
+    plain = pool()
+    with guard_sync_budget(plain, bound=1) as stats:
+        while plain.has_work:
+            plain.poll()
+    assert stats["polls"] >= 10 and stats["max_per_poll"] == 1
+    assert plain._step_idx > 32
+    assert (plain.flushes, plain.flush_wait_ms_total) == (0, 0.0)
+
+    steered = pool()
+    steered.controller = AdaptiveExitController(0.5, threshold=0.3)
+    steered.adaptive_every = 16
+    with guard_sync_budget(steered, bound=2) as stats:
+        while steered.has_work:
+            steered.poll()
+    assert stats["max_per_poll"] == 2 and steered.flushes >= 2
+
+
 def test_sync_budget_counts_one_per_sync_step(granite):
     prompts = [(np.arange(6) + j) % 1000 for j in range(2)]
-    pool = _decode_phase(_sched(granite, max_len=32, segmented=False,
-                                flush_every=10 ** 6), prompts, max_new=8)
+    pool = _decode_phase(_sched(granite, max_len=32, segmented=False),
+                         prompts, max_new=8)
     with guard_sync_budget(pool, bound=1) as stats:
         while pool.has_work:
             pool.poll()

@@ -889,6 +889,32 @@ def test_whisper_window_graph_reads_readmitted_cross_rows(cuda):
     assert s_win.jit_cache_sizes() == {"decode_window": 1}
 
 
+def test_decode_polls_read_no_counters_on_the_card(cuda):
+    """Windows of 4 over 33 tokens, past the 32 steps between the counter
+    flushes polls once made: no poll reads the exit counters or waits in
+    a read, and the tokens and final counts equal those of a run whose
+    counters are read exactly after every poll."""
+    runs = []
+    for exact in (False, True):
+        sched, reqs = _smoke_pool(cuda, True, max_new=33)
+        while sched.has_work:
+            n0 = sched.flushes
+            rep = sched.poll()
+            if exact:
+                sched.exit_stats()
+            else:
+                assert sched.flushes == n0 and rep.flush_wait_ms == 0.0
+        assert sched._step_idx > 32
+        if not exact:
+            assert sched.flushes == 0 and sched.flush_wait_ms_total == 0.0
+        sched.flush_counters()
+        runs.append(([r.out_tokens for r in reqs], sched.exit_counts.copy(),
+                     sched.tokens_served))
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][2] == runs[1][2] == runs[0][1].sum()
+    assert runs[0][1].tolist() == runs[1][1].tolist()
+
+
 def test_window_threshold_moves_without_recapture(cuda):
     """An adaptive controller moves the exit threshold every 4 tokens: the
     window writes its device threshold before the next dispatch and

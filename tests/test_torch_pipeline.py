@@ -247,7 +247,6 @@ def test_one_ring_readback_per_decode_poll(monkeypatch):
         s = ContinuousBatchScheduler(
             tm, tp, SchedulerConfig(n_slots=2, max_len=24, prefill_chunk=8,
                                     exit_threshold=0.0, segmented=False,
-                                    flush_every=10 ** 6,
                                     async_decode=async_decode,
                                     readback_interval=4), device="cpu")
         for j in range(2):

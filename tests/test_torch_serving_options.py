@@ -21,8 +21,9 @@ or against the port's own default path.
 * ``ClusterConfig.stream_tokens``: the router prices per-token downlinks
   without a draft, as the reference's does; with a draft the speculative
   bridge equals the reference cluster's.
-* ``ClusterConfig.long_mode`` / ``flush_every``, ``ServeConfig.long_mode``
-  and the CLI's ``--long`` / ``--prefill-chunk`` reach every pool.
+* ``ClusterConfig.long_mode``, ``ServeConfig.long_mode`` and the CLI's
+  ``--long`` / ``--prefill-chunk`` reach every pool (the port has no
+  ``flush_every``: no poll reads the exit counters but a controller's).
 """
 import dataclasses
 
@@ -248,7 +249,7 @@ def test_prefix_cache_switch(granite):
 
 
 # ---------------------------------------------------------------------------
-# ClusterConfig.temperature, stream_tokens, long_mode, flush_every
+# ClusterConfig.temperature, stream_tokens, long_mode
 # ---------------------------------------------------------------------------
 
 def test_cluster_temperature_with_spec_draft_is_refused(granite):
@@ -357,9 +358,10 @@ def test_cluster_spec_bridge_with_stream_tokens(granite):
 
 
 def test_cluster_long_mode_and_flush_every_reach_every_pool(granite):
-    """``long_mode`` and ``flush_every`` reach the tier pools (and a
-    speculative pair's), and a ring-mode cluster's routes and tokens
-    equal the reference cluster's under the tie rule."""
+    """``long_mode`` reaches the tier pools (and a speculative pair's),
+    and a ring-mode cluster's routes and tokens equal the reference
+    cluster's under the tie rule.  ``flush_every`` is the reference's
+    alone: the port's polls read no counters."""
     rm, rp, tm, tp = granite
     w = tm.cfg.long_context_window
 
@@ -367,7 +369,7 @@ def test_cluster_long_mode_and_flush_every_reach_every_pool(granite):
         cl = cls(model, params, scenario=mod.Scenario.default(),
                  plan_cfg=plan,
                  cfg=cfg_cls(base_slots=2, max_len=w + 16, prefill_chunk=8,
-                             long_mode=True, flush_every=4))
+                             long_mode=True))
         prompts = _prompts(9, (w + 4, 10, w - 8))
         crs = [cl.submit(p.copy(), max_new=8, arrival=0.01 * i)
                for i, p in enumerate(prompts)]
@@ -377,7 +379,7 @@ def test_cluster_long_mode_and_flush_every_reach_every_pool(granite):
     cl, crs, prompts = run(TieredServingCluster, ClusterConfig, core, tm, tp,
                            get_config("granite-3-2b"))
     for tr in cl.tiers.values():
-        assert tr.sched.cfg.long_mode and tr.sched.cfg.flush_every == 4
+        assert tr.sched.cfg.long_mode
     ref_cl, ref_crs, _ = run(RefCluster, RefClusterConfig, ref_core, rm, rp,
                              ref_config("granite-3-2b"))
     for p, cr, rc in zip(prompts, crs, ref_crs):
@@ -390,10 +392,9 @@ def test_cluster_long_mode_and_flush_every_reach_every_pool(granite):
         plan_cfg={"small": get_config("granite-3-2b"),
                   "big": get_config("deepseek-v3-671b")},
         cfg=ClusterConfig(base_slots=2, max_len=48, exit_threshold=0.0,
-                          spec_draft="small", long_mode=True,
-                          flush_every=4))
+                          spec_draft="small", long_mode=True))
     pair_cfg = spec._spec_pair("big").pools["big"].cfg
-    assert pair_cfg.long_mode and pair_cfg.flush_every == 4
+    assert pair_cfg.long_mode
 
 
 def test_cli_long_and_prefill_chunk(granite, monkeypatch):

@@ -4,9 +4,11 @@
 context and records nothing; under a CPU ``torch.profiler`` an async paged
 scheduler opens every span of a poll, nested where the work happens
 (``flush`` inside ``commit``, ``replay`` inside ``dispatch``), and the
-spans of one window carry its sequence number.  The counters: with
-``flush_every = 1`` every commit flushes, and a poll's ``host_ms`` leaves
-the flush's wait out; ``prefill_poll`` counts its own time and tokens;
+spans of one window carry its sequence number.  The counters: no poll
+reads the exit counters unless a controller's update does, and then the
+read's wait leaves the poll's ``host_ms``; an exact read (``exit_stats``
+/ ``flush_counters`` / ``run``) is exact, and ``reset_stats`` zeroes the
+counts; ``prefill_poll`` counts its own time and tokens;
 ``Request.t_first`` falls between admission and completion.  The port's
 trace reader (``launch/device_trace.py``) counts overlapping device
 operations once and names each idle gap by the innermost serving span.
@@ -24,7 +26,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch import device_trace
 from repro_torch.launch.serve import poisson_trace, serve_poisson
 from repro_torch.models import Model
-from repro_torch.serving import (ContinuousBatchScheduler, Request,
+from repro_torch.serving import (AdaptiveExitController,
+                                 ContinuousBatchScheduler, Request,
                                  SchedulerConfig)
 from repro_torch.serving import spans as spans_mod
 from repro_torch.serving.spans import span
@@ -66,6 +69,14 @@ def _submit(sched, n=3, max_new=7):
     return reqs
 
 
+def _steered(sched, every):
+    """``sched`` with a controller whose update, and so an exact counter
+    read, runs once ``every`` tokens have been served since the last."""
+    sched.controller = AdaptiveExitController(0.5, threshold=0.3)
+    sched.adaptive_every = every
+    return sched
+
+
 def _profile():
     return torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU], record_shapes=True)
@@ -97,7 +108,7 @@ def _parent(spans, i):
 
 
 def test_a_poll_opens_its_spans_where_the_work_happens(granite):
-    sched = _sched(granite, flush_every=1)
+    sched = _steered(_sched(granite), 1)
     _submit(sched)
     with _profile() as prof:
         for _ in range(3):
@@ -138,10 +149,11 @@ def test_a_poll_opens_its_spans_where_the_work_happens(granite):
 
 
 class _SlowRead:
-    """The exit counters, whose read back to the host takes ``delay`` s."""
+    """The exit counters, whose read back to the host takes ``delay`` s;
+    ``reads`` counts those reads."""
 
     def __init__(self, t, delay):
-        self.t, self.delay = t, delay
+        self.t, self.delay, self.reads = t, delay, 0
 
     def __iadd__(self, x):
         self.t += x
@@ -152,12 +164,17 @@ class _SlowRead:
         return self
 
     def cpu(self):
+        self.reads += 1
         time.sleep(self.delay)
         return self.t.cpu()
 
 
 def test_every_commit_flushes_and_the_wait_leaves_host_time(granite):
-    sched = _sched(granite, flush_every=1)
+    """No commit reads the exit counters: no poll calls the slow read or
+    reports a flush wait, and ``exit_counts`` keeps the last exact read.
+    An exact read outside a poll (``exit_stats``) waits and counts;
+    ``reset_stats`` zeroes every counter."""
+    sched = _sched(granite)
     sched._counters = _SlowRead(sched._counters, 0.02)
     _submit(sched)
     commits = [0]
@@ -167,32 +184,102 @@ def test_every_commit_flushes_and_the_wait_leaves_host_time(granite):
         commits[0] += 1
         return commit(*a)
     sched._commit_window = counted
-    flushed = 0
     while sched.has_work:
-        n0 = commits[0]
         t0 = time.perf_counter()
         rep = sched.poll()
         wall = (time.perf_counter() - t0) * 1e3
         split = rep.host_ms + rep.wait_ms + rep.flush_wait_ms
         assert 0.0 <= wall - split < 5.0, (wall, rep)
-        if commits[0] > n0:
-            flushed += 1
-            assert rep.flush_wait_ms >= 20.0
-            assert rep.host_ms < wall - 20.0
-        else:
-            assert rep.flush_wait_ms == 0.0
-    assert flushed > 0
-    assert sched.flushes == commits[0] == flushed
-    assert sched.flush_wait_ms_total >= 20.0 * flushed
-    # outside a poll the wait still counts
-    n, waited = sched.flushes, sched.flush_wait_ms_total
+        assert rep.flush_wait_ms == 0.0
+        assert not sched.exit_counts.any()
+    assert commits[0] > 0 and sched.tokens_served > 0
+    assert sched._counters.reads == 0
+    assert (sched.flushes, sched.flush_wait_ms_total) == (0, 0.0)
+    # an exact read outside a poll waits, and the wait counts
     sched.exit_stats()
-    assert sched.flushes == n + 1
-    assert sched.flush_wait_ms_total >= waited + 20.0
+    assert sched._counters.reads == 1
+    assert sched.flushes == 1
+    assert sched.flush_wait_ms_total >= 20.0
+    assert sched.exit_counts.sum() == sched.tokens_served
     sched.reset_stats()
     assert (sched.flushes, sched.flush_wait_ms_total, sched.wait_ms_total,
             sched.host_ms_total, sched.prefill_ms_total,
             sched.prefill_tokens_total) == (0, 0.0, 0.0, 0.0, 0.0, 0)
+    assert not sched.exit_counts.any()
+
+
+@pytest.mark.parametrize("async_decode", [False, True],
+                         ids=["sync", "async"])
+def test_a_controller_read_waits_outside_host_time(granite, async_decode):
+    """The controller's update reads the counters exactly inside a poll:
+    that poll reports the read's wait as ``flush_wait_ms`` and leaves it
+    out of ``host_ms``, and ``flushes`` counts every such read."""
+    sched = _steered(_sched(granite, async_decode=async_decode), 4)
+    sched._counters = _SlowRead(sched._counters, 0.02)
+    _submit(sched, n=2, max_new=16)
+    reading = 0
+    while sched.has_work:
+        n0 = sched.flushes
+        t0 = time.perf_counter()
+        rep = sched.poll()
+        wall = (time.perf_counter() - t0) * 1e3
+        split = rep.host_ms + rep.wait_ms + rep.flush_wait_ms
+        assert 0.0 <= wall - split < 5.0, (wall, rep)
+        reads = sched.flushes - n0
+        if reads:
+            reading += 1
+            assert rep.flush_wait_ms >= 20.0 * reads
+            assert rep.host_ms < wall - 20.0 * reads
+        else:
+            assert rep.flush_wait_ms == 0.0
+    assert reading >= 2
+    assert sched.flushes == sched._counters.reads
+    assert sched.flush_wait_ms_total >= 20.0 * sched.flushes
+
+
+def _exact(sched):
+    """The counters as an exact read would give them, read without one."""
+    return sched._counters.numpy().astype(np.int64) + sched._host_exit_extra
+
+
+@pytest.mark.parametrize("read", ["exit_stats", "flush_counters", "run"])
+def test_an_exact_read_is_exact(granite, read):
+    """Polls leave ``exit_counts`` as the last exact read left it; after
+    ``exit_stats`` / ``flush_counters`` / ``run`` it equals the device
+    counters plus the host extras and sums to the tokens served."""
+    sched = _sched(granite, async_decode=False)
+    _submit(sched)
+    while sched._step_idx < 6:
+        sched.poll()
+        assert not sched.exit_counts.any()
+    assert _exact(sched).sum() == sched.tokens_served > 0
+    if read == "run":
+        sched.run()
+    else:
+        getattr(sched, read)()
+    assert sched.flushes == 1
+    assert sched.exit_counts.sum() == sched.tokens_served
+    np.testing.assert_array_equal(sched.exit_counts, _exact(sched))
+
+
+@pytest.mark.parametrize("async_decode", [False, True],
+                         ids=["sync", "async"])
+def test_reset_stats_zeroes_the_exit_counts(granite, async_decode):
+    """After ``reset_stats`` no count from before it comes back: the next
+    exact read covers only the tokens served after the reset."""
+    sched = _sched(granite, async_decode=async_decode)
+    _submit(sched, n=2, max_new=24)
+    for _ in range(4):
+        sched.poll()
+    sched.sync()
+    sched.exit_stats()
+    assert sched.exit_counts.sum() == sched.tokens_served > 0
+    sched.reset_stats()
+    assert not sched.exit_counts.any() and not _exact(sched).any()
+    while sched.has_work:
+        sched.poll()
+    sched.flush_counters()
+    assert sched.exit_counts.sum() == sched.tokens_served > 0
 
 
 def test_a_direct_prefill_poll_counts_its_time_and_tokens(granite):
@@ -238,18 +325,18 @@ def test_serve_reports_time_to_first_token_and_the_split():
     assert st["wait_ms"] >= 0.0 and st["flush_wait_ms"] >= 0.0
     assert st["host_ms"] > 0.0
     # every prompt of the trace replayed once (none shares a prefix), and
-    # at most one counter flush every flush_every = 32 decode steps
+    # no counter read inside the trace (no controller runs)
     _, lengths = poisson_trace(np.random.RandomState(0), 200.0, 4, 8)
     assert st["prefill_tokens"] == int(np.sum(lengths))
     assert st["prefill_ms"] > 0.0
-    assert 0 <= st["flushes"] <= st["decode_steps"] // 32 + 1
+    assert st["flushes"] == 0 and st["decode_steps"] > 0
 
 
 def test_the_lint_and_the_sync_budget_pass_with_the_spans_open(granite):
     root = spans_mod.__file__.rsplit("/", 1)[0]
     assert lint_paths([f"{root}/scheduler.py", f"{root}/window.py",
                        f"{root}/spans.py"]) == []
-    sched = _sched(granite, flush_every=10 ** 6)
+    sched = _sched(granite)
     _submit(sched, n=2, max_new=10)
     while sched.queue or sched._pending is not None \
             or not sched.active.any():
