@@ -642,7 +642,8 @@ def main(argv=None):
     want = ref.paged_gqa_attention_ref(*a)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    plan = paged_attention.plan(16, 8, 128, paged_mla.sm_count("cuda"))
+    plan = paged_attention.plan(16, 8, 128, paged_mla.sm_count("cuda"),
+                                64)
     print(f"paged_gqa_attention: max_abs_err {err:.3e} (tol {PAGED_TOL}); "
           f"plan {plan}")
     if not math.isfinite(err) or err > PAGED_TOL:
@@ -898,14 +899,14 @@ def main(argv=None):
     def capturing(kname, every):
         calls = [0]
 
-        def wrapper(*a):
+        def wrapper(*a, **kw):
             calls[0] += 1
-            if calls[0] % every == 0:
+            if calls[0] % every == 0 and kw.get("scale") is None:
                 # pools change in place later: copy them; weights do not
                 captured[kname] = tuple(
                     t.clone() if t.numel() * t.element_size() < 2 ** 26
                     else t for t in a)
-            return orig[kname](*a)
+            return orig[kname](*a, **kw)
         return wrapper
 
     ops.paged_gqa_attention = capturing("paged_gqa_attention", 997)
@@ -973,7 +974,8 @@ def main(argv=None):
                        [prep(*a)], paged_bound(a))
     live["plan"] = paged_attention.plan(a[0].shape[0], a[1].shape[2],
                                         a[3].shape[1],
-                                        paged_mla.sm_count("cuda"))
+                                        paged_mla.sm_count("cuda"),
+                                        a[0].shape[3])
     results["paged_gqa_attention"]["live"] = live
     print(f"  live paged_gqa_attention timing: {json.dumps(live)}")
 
@@ -1206,19 +1208,22 @@ def slice_shapes(torch, F, ops, ref, ab, gen, results, make_mask):
     # 4 and 8 kv heads, zamba2's shared attention (row 1c): 16 slots of 32
     # heads of 64 over 32 kv heads (G 1), qwen2-vl-2b's (row 1d): 16
     # slots of 12 heads of 128 over 2 (G 6), and llama4-maverick's (row
-    # 1e): 16 slots of 40 heads of 128 over 8 (G 5)
+    # 1e): 16 slots of 40 heads of 128 over 8 (G 5), and Zamba2-7B's
+    # sites (row 1f): 32 slots of 32 heads of 224 over 32 (G 1)
     for label, b, nq, nkv, hd in (("yi-6b", 8, 32, 4, 128),
                                   ("mistral-nemo-12b", 8, 32, 8, 128),
                                   ("zamba2-1.2b", 16, 32, 32, 64),
                                   ("qwen2-vl-2b", 16, 12, 2, 128),
-                                  ("llama4-maverick", 16, 40, 8, 128)):
+                                  ("llama4-maverick", 16, 40, 8, 128),
+                                  ("zamba2-7b-instruct", 32, 32, 32, 224)):
         sets = ab.paged_inputs(gen, b, nq, nkv, hd, 16, 128, 2048, 4)
         a = sets[0]
         got = ops.paged_gqa_attention(*a)
         want = ref.paged_gqa_attention_ref(*a)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        plan = paged_attention.plan(b, nkv, 128, paged_mla.sm_count("cuda"))
+        plan = paged_attention.plan(b, nkv, 128, paged_mla.sm_count("cuda"),
+                                    hd)
         print(f"paged_gqa_attention {label} q {tuple(a[0].shape)} Nkv {nkv}:"
               f" max_abs_err {err:.3e} (tol {PAGED_TOL}); plan {plan}")
         if not math.isfinite(err) or err > PAGED_TOL:
@@ -1458,11 +1463,11 @@ def run_async(torch, ops):
                for _ in range(ASYNC_SLOTS)]
     max_len = 64 + ASYNC_MAX_NEW
 
-    def pool(async_decode):
+    def pool(async_decode, **kw):
         return ContinuousBatchScheduler(model, params, SchedulerConfig(
             n_slots=ASYNC_SLOTS, max_len=max_len, prefill_chunk=16,
             exit_threshold=0.5, segmented=False, paged=True,
-            async_decode=async_decode, readback_interval=ASYNC_R),
+            async_decode=async_decode, readback_interval=ASYNC_R, **kw),
             device="cuda")
 
     print(f"async decode: granite-3-2b at full width, cut to {layers} "
@@ -2716,13 +2721,13 @@ def run_zamba2(torch, ops, ref, results):
     calls = dict.fromkeys(orig, 0)
 
     def capturing(kname, every):
-        def wrapper(*a):
+        def wrapper(*a, **kw):
             calls[kname] += 1
-            if calls[kname] % every == 0:
+            if calls[kname] % every == 0 and kw.get("scale") is None:
                 captured[kname] = tuple(
                     t.clone() if t.numel() * t.element_size() < 2 ** 26
                     else t for t in a)
-            return orig[kname](*a)
+            return orig[kname](*a, **kw)
         setattr(ops, kname, wrapper)
     capturing("paged_gqa_attention", 211)
     capturing("exit_head_entropy", 13)

@@ -7,7 +7,8 @@ skip rule over ``INPUT_SHAPES``.
 from __future__ import annotations
 
 from repro_torch.configs.base import (INPUT_SHAPES, EncDecConfig, ExitConfig,
-                                      InputShape, ModelConfig, SSMConfig)
+                                      GroupedSSMConfig, InputShape,
+                                      ModelConfig, SiteConfig, SSMConfig)
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _dsv3
 from repro_torch.configs.granite_3_2b import CONFIG as _granite
 from repro_torch.configs.llama4_maverick_400b import CONFIG as _llama4
@@ -44,6 +45,7 @@ def shape_applicable(config: ModelConfig, shape_name: str) -> bool:
     return True
 
 
-__all__ = ["ARCHS", "EncDecConfig", "ExitConfig", "INPUT_SHAPES",
-           "InputShape", "ModelConfig", "SSMConfig", "get_config",
+__all__ = ["ARCHS", "EncDecConfig", "ExitConfig", "GroupedSSMConfig",
+           "INPUT_SHAPES", "InputShape", "ModelConfig", "SSMConfig",
+           "SiteConfig", "get_config",
            "resolve_config", "shape_applicable"]

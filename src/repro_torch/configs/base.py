@@ -54,6 +54,20 @@ class SSMConfig:
     slstm_layers: Tuple[int, ...] = ()
     proj_factor: float = 2.0
 
+    @property
+    def n_groups(self) -> int:
+        """Mamba2 B/C groups (``GroupedSSMConfig`` sets them): one."""
+        return 1
+
+
+@dataclass(frozen=True)
+class GroupedSSMConfig(SSMConfig):
+    """Mamba2 with grouped B/C: head h reads group h // (H / G), and the
+    gated norm normalizes each group of channels on its own (Zamba2-7B:
+    G 2).  A subclass, so that the reference's configs, which have no
+    groups, convert field for field."""
+    n_groups: int = 1
+
 
 @dataclass(frozen=True)
 class EncDecConfig:
@@ -99,11 +113,21 @@ class ModelConfig:
     frontend: str = "none"
     frontend_tokens: int = 0
     norm: str = "rmsnorm"          # rmsnorm | layernorm
-    act: str = "silu"              # silu | gelu
+    act: str = "silu"              # silu | gelu | geglu (gated erf gelu)
     tie_embeddings: bool = False
     mtp_depth: int = 0
     dtype: str = "bfloat16"
     source: str = ""
+
+    # Zamba2's published shared blocks are fields of ``SiteConfig``; a
+    # ModelConfig reads the period layout's values: no explicit sites,
+    # one block on the residual stream, 1/sqrt(head_dim) scores
+    hybrid_layer_ids = property(lambda self: ())
+    num_mem_blocks = property(lambda self: 1)
+    site_concat_input = property(lambda self: False)
+    site_adapter_rank = property(lambda self: 0)
+    site_linear = property(lambda self: False)
+    attn_scale = property(lambda self: 0.0)
 
     @property
     def resolved_head_dim(self) -> int:
@@ -206,7 +230,7 @@ class ModelConfig:
             return d * nq * hd + 2 * d * nkv * hd + nq * hd * d
 
         def ffn_params(ff: int) -> int:
-            mult = 3 if self.act == "silu" else 2  # gated vs plain
+            mult = 3 if self.act in ("silu", "geglu") else 2  # gated vs plain
             return mult * d * ff
 
         def moe_layer_params() -> int:
@@ -220,8 +244,9 @@ class ModelConfig:
             s = self.ssm
             d_in = s.expand * d
             nheads = max(1, d_in // s.head_dim)
-            p = d * (2 * d_in + 2 * s.state_size + nheads)  # in_proj(x,z)+B,C,dt
-            p += s.conv_width * (d_in + 2 * s.state_size)
+            bc = 2 * s.n_groups * s.state_size
+            p = d * (2 * d_in + bc + nheads)  # in_proj(x,z)+B,C,dt
+            p += s.conv_width * (d_in + bc)
             p += d_in * d + nheads  # out proj + A
             return p
 
@@ -256,6 +281,15 @@ class ModelConfig:
             total += 2 * d  # norms
         if self.family == "hybrid" and self.shared_attn_period:
             total += attn_params() + ffn_params(self.d_ff)  # ONE shared block
+        if self.family == "hybrid" and self.hybrid_layer_ids:
+            d_in = d * (2 if self.site_concat_input else 1)
+            attn = (d_in * (nq + 2 * nkv) + nq * d) * hd
+            total += self.num_mem_blocks * (attn + ffn_params(self.d_ff)
+                                            + d_in + d)
+            r = self.site_adapter_rank
+            site = (r * (d + 2 * self.d_ff) if r else 0) + (
+                d * d if self.site_linear else 0)
+            total += len(self.hybrid_layer_ids) * site
         if self.family == "encdec":
             for _ in range(self.encdec.num_encoder_layers):
                 total += attn_params() + ffn_params(self.d_ff) + 2 * d
@@ -272,7 +306,7 @@ class ModelConfig:
         m = self.moe
         full = self.param_count()
         # subtract inactive expert FFNs
-        mult = 3 if self.act == "silu" else 2
+        mult = 3 if self.act in ("silu", "geglu") else 2
         per_expert = mult * self.d_model * m.d_ff_expert
         n_moe_layers = sum(
             1 for i in range(self.num_layers)
@@ -290,3 +324,23 @@ class ModelConfig:
             ctx = min(seq_len, win)
             f += 4.0 * self.num_layers * self.num_heads * self.resolved_head_dim * ctx
         return f
+
+
+@dataclass(frozen=True)
+class SiteConfig(ModelConfig):
+    """A hybrid with Zamba2's published shared blocks (Zamba2-7B).
+    ``hybrid_layer_ids``: a site before each of these layers, its output
+    added to that layer's norm input (not to the stream);
+    ``num_mem_blocks`` blocks alternate over the sites; a site reads
+    concat(x, input embedding) (``site_concat_input``), adds its own
+    low-rank adapter of ``site_adapter_rank`` to the FFN's gate/up and
+    ends in its own D x D ``site_linear``; ``attn_scale`` (0:
+    1/sqrt(head_dim)) scales the scores.  A subclass, so that the
+    reference's configs, which have none of these, convert field for
+    field."""
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 1
+    site_concat_input: bool = False
+    site_adapter_rank: int = 0
+    site_linear: bool = False
+    attn_scale: float = 0.0

@@ -152,7 +152,7 @@ def _layer_flops(cfg: ModelConfig, kind: str, batch: int, seq: int,
         return f, p
 
     def ffn_cost(ff):
-        mult = 3 if cfg.act == "silu" else 2
+        mult = 3 if cfg.act in ("silu", "geglu") else 2
         p = mult * d * ff
         return 2.0 * tok * p, p
 

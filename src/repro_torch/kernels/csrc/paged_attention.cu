@@ -58,9 +58,17 @@
 //    clipped and masked by pos; the masked sentinel stays the finite
 //    NEG_INF = -1e30.  The softmax runs in base 2 (the scale folds log2(e)
 //    in; (m, l) in the split scratch are in that base).
-// Instances: P 16, H 64 and 128; Nkv, G (1..8) and the split are runtime
-// values.  ptxas (CUDA 12.8, -O3, sm_90a): 86 registers a thread at H 64
-// (two 288-thread blocks an SM), 141 at H 128, 32 for the merge; no
+//  * H 224 (Zamba2-7B's shared blocks: 448-byte rows, 3.5 swizzled
+//    128-byte rows): a head is four boxes of 64 elements, the last one
+//    half outside the pool's row, which TMA fills with zeros (the box's
+//    full bytes still count toward the barrier); the products stop at
+//    element 224, so the zeros are never read.  A ring stage of 8 such
+//    heads would be 128 KB, so a block spans KVB_WIDE = 4 kv heads (64 KB
+//    a stage, 192 KB for the ring, one 160-thread block an SM).
+// Instances: P 16, H 64, 128 and 224; Nkv, G (1..8) and the split are
+// runtime values.  ptxas (CUDA 12.8, -O3, sm_90a): 86 registers a thread
+// at H 64 (two 288-thread blocks an SM), 141 at H 128, 255 at H 224 (the
+// cap; one 160-thread block an SM in any case), 32 for the merge; no
 // spills and no stack frame.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -74,17 +82,26 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int P = 16;            // tokens per page
 constexpr int KVB = 8;           // kv heads per block (one warp each)
+constexpr int KVB_WIDE = 4;      // ... at H above 128
 constexpr int ST = 3;            // ring stages, one page each
 constexpr int MAXG = 8;          // query rows per kv head, padded to 16
 constexpr int BOX = P * 128;     // one box: 16 tokens x 64 bf16, swizzled
 
+__host__ __device__ constexpr int kvb_of(int H) {
+  return H <= 128 ? KVB : KVB_WIDE;
+}
+
+__host__ __device__ constexpr int boxes_of(int H) {  // 64-element boxes
+  return (H + 63) / 64;
+}
+
 __host__ __device__ constexpr int stage_bytes(int kvb, int H) {
-  return 2 * kvb * (H / 64) * BOX;   // K and V of kvb heads
+  return 2 * kvb * boxes_of(H) * BOX;   // K and V of kvb heads
 }
 
 template <int H>
 constexpr int max_smem() {
-  return ST * stage_bytes(KVB, H) + 8 * 2 * ST + 1024;
+  return ST * stage_bytes(kvb_of(H), H) + 8 * 2 * ST + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -188,7 +205,7 @@ __device__ __forceinline__ uint32_t swz(uint32_t box, int row, int chunk) {
 // g), b1 = k + 8; C c0, c1 = (row g, cols 2t, 2t+1), c2, c3 = row g + 8.
 // Rows g + 8 are padding (G <= 8): their A entries are zero.
 template <int H>
-__global__ void __launch_bounds__(32 * (KVB + 1))
+__global__ void __launch_bounds__(32 * (kvb_of(H) + 1))
 paged_gqa_partial(const __grid_constant__ CUtensorMap tm_k,   // [n_pages, P, Nkv, H]
                   const __grid_constant__ CUtensorMap tm_v,
                   const __nv_bfloat16* __restrict__ q,        // [B, Nkv*G, H]
@@ -199,9 +216,10 @@ paged_gqa_partial(const __grid_constant__ CUtensorMap tm_k,   // [n_pages, P, Nk
                   float* __restrict__ part_ml,                // [B, S, Nkv*G, 2]
                   int nkv, int G, int n_pages, int pps, int split_pages,
                   float scale_log2) {
-  constexpr int NH = H / 64;           // 64-element halves of a head
-  const int kvb = min(nkv, KVB);       // kv heads a block spans
-  const int kvh0 = blockIdx.x * KVB;
+  constexpr int NH = boxes_of(H);      // 64-element boxes of a head
+  constexpr int KB = kvb_of(H);
+  const int kvb = min(nkv, KB);        // kv heads a block spans
+  const int kvh0 = blockIdx.x * KB;
   const int live = min(kvb, nkv - kvh0);   // ... of them inside Nkv
   const int b = blockIdx.y, split = blockIdx.z;
   const int p_b = pos[b];
@@ -460,7 +478,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A pool [n_pages, P, Nkv, H] bf16 as a 4-D tensor map whose box is 64
-// head elements (one 128-byte swizzled row) x 1 kv head x P tokens.
+// head elements (one 128-byte swizzled row) x 1 kv head x P tokens; at H
+// 224 the last box of a head reaches past the row and is zero-filled.
 bool make_map(CUtensorMap* map, const void* ptr, int n_pages, int nkv,
               int H) {
   EncodeTiled encode = encode_tiled();
@@ -495,10 +514,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   CUtensorMap mk, mv;
   if (!make_map(&mk, k, n_pages, nkv, H) || !make_map(&mv, v, n_pages, nkv, H))
     return cudaErrorInvalidValue;
-  const int kvb = nkv < KVB ? nkv : KVB;
+  constexpr int KB = kvb_of(H);
+  const int kvb = nkv < KB ? nkv : KB;
   const int S = (pps + split_pages - 1) / split_pages;
   const int smem = ST * stage_bytes(kvb, H) + 8 * 2 * ST + 1024;
-  dim3 grid((nkv + KVB - 1) / KVB, B, S);
+  dim3 grid((nkv + KB - 1) / KB, B, S);
   paged_gqa_partial<H><<<grid, 32 * (kvb + 1), smem, stream>>>(
       mk, mv, static_cast<const __nv_bfloat16*>(q),
       static_cast<const int32_t*>(tbl), static_cast<const int32_t*>(pos),
@@ -522,7 +542,8 @@ extern "C" {
 // Shapes the kernel is instantiated for; the Python wrapper raises on
 // anything else before launching.
 int repro_paged_gqa_supported(int P_, int H, int G) {
-  return P_ == P && (H == 64 || H == 128) && G >= 1 && G <= MAXG;
+  return P_ == P && (H == 64 || H == 128 || H == 224) && G >= 1 &&
+         G <= MAXG;
 }
 
 // q/out [B, Nkv*G, H] bf16, pools [n_pages, P, Nkv, H] bf16 (contiguous,
@@ -546,6 +567,10 @@ int repro_paged_gqa_attention(const void* q, const void* pool_k,
   if (H == 64)
     return (int)launch<64>(q, pool_k, pool_v, tbl, pos, out, part_o, part_ml,
                            B, nkv, G, n_pages, pps, split_pages, scale, s);
+  if (H == 224)
+    return (int)launch<224>(q, pool_k, pool_v, tbl, pos, out, part_o,
+                            part_ml, B, nkv, G, n_pages, pps, split_pages,
+                            scale, s);
   return (int)launch<128>(q, pool_k, pool_v, tbl, pos, out, part_o, part_ml,
                           B, nkv, G, n_pages, pps, split_pages, scale, s);
 }

@@ -359,12 +359,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 @_counts("paged_gqa_attention", paged_gqa_bytes, paged_gqa_flops)
-def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):
+def paged_gqa_attention(q, pool_k, pool_v, tbl, pos, scale=None):
     """Paged GQA decode attention: q [B, 1, Nq, H], pools
     [n_pages, P, Nkv, H], tbl [B, pps] int32 (sentinel entries allowed —
-    clipped, and always masked by ``pos``), pos [B] int32 -> [B, 1, Nq, H]."""
+    clipped, and always masked by ``pos``), pos [B] int32 -> [B, 1, Nq, H].
+    ``scale`` multiplies the scores (None: 1/sqrt(H))."""
     if not _on_card(q, pool_k, pool_v, tbl, pos):
-        return ref.paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos)
+        return ref.paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos,
+                                           scale)
     _require(q.ndim == 4 and q.shape[1] == 1,
              f"paged_gqa_attention decodes one token, q {tuple(q.shape)}")
     b, _, nq, hd = q.shape
@@ -387,7 +389,7 @@ def paged_gqa_attention(q, pool_k, pool_v, tbl, pos):
     _require(_pattn.supported(page, hd, nq // nkv),
              f"paged_gqa_attention has no instance for page={page}, "
              f"head_dim={hd}, group={nq // nkv}")
-    out = _pattn.attention_cuda(q, pool_k, pool_v, tbl, pos)
+    out = _pattn.attention_cuda(q, pool_k, pool_v, tbl, pos, scale)
     LAUNCHES["paged_gqa_attention"] += 1
     return out
 

@@ -109,10 +109,11 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos):
+def paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos, scale=None):
     """Gather-view version of the paged GQA decode kernel: q [B, 1, Nq, H],
     pools [n_pages, P, Nkv, H], tbl [B, pps] (sentinel entries clipped and
-    always masked by ``pos``), pos [B] -> [B, 1, Nq, H] in q's dtype."""
+    always masked by ``pos``), pos [B] -> [B, 1, Nq, H] in q's dtype.
+    Scores are scaled by ``scale`` (None: divided by sqrt(H))."""
     b, _, nq, hd = q.shape
     n_pages, page, nkv, _ = pool_k.shape
     smax = tbl.shape[1] * page
@@ -123,8 +124,8 @@ def paged_gqa_attention_ref(q, pool_k, pool_v, tbl, pos):
              <= pos.long()[:, None])
     g = nq // nkv
     qg = q.reshape(b, 1, nkv, g, hd)
-    s = torch.einsum("bsngh,btnh->bngst", qg.float(), ck.float()) \
-        / math.sqrt(hd)
+    s = torch.einsum("bsngh,btnh->bngst", qg.float(), ck.float())
+    s = s / math.sqrt(hd) if scale is None else s * scale
     s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bngst,btnh->bsngh", p, cv.float())

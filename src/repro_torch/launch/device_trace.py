@@ -2,7 +2,9 @@
 operations and the union of their intervals, the serving stack's spans
 (``serving/spans.py``) with their total and self time, the device's idle
 gaps, each named by the innermost span open on the host when it began,
-and each decode window's time from dispatch to commit.
+each decode window's time from dispatch to commit, and the device time
+of the kernels launched under each kind of the model's plan-step spans
+(``models/common.py: step_span``).
 
 Busy time is the union of the operations' intervals, never their sum: paged
 attention's combine is launched early behind its partial (programmatic
@@ -17,6 +19,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.models.common import SPAN_PREFIX
 from repro_torch.serving.spans import PREFIX
 
 Interval = Tuple[float, float]
@@ -43,6 +46,22 @@ def serving_spans(prof) -> List[Tuple[str, float, float]]:
                     e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CPU
                    and e.name.startswith(PREFIX)), key=lambda s: (s[1], -s[2]))
+
+
+def plan_device_s(prof) -> Dict[str, float]:
+    """Device seconds of the kernels launched inside each kind of plan-step
+    span (``mamba``, ``site``, ``exit``, ``head``, ...), by kind: each
+    span's ``device_time_total``, the kernels of the host operations
+    nested in it (0 on the CPU)."""
+    out: Dict[str, float] = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU \
+                and e.name.startswith(SPAN_PREFIX):
+            us = getattr(e, "device_time_total", None)
+            if us is None:                     # older torch
+                us = e.cuda_time_total
+            out[e.name[len(SPAN_PREFIX):]] += us * 1e-6
+    return dict(out)
 
 
 def window_ms(prof) -> Dict[int, float]:

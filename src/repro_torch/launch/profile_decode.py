@@ -21,7 +21,12 @@ time and each of the port's own kernels (``kernels/csrc``) with its time
 step by the serving span open when each gap began, each serving span's
 total and self ms per step, and with ``--async-decode`` each window's ms
 from its dispatch to its commit (the spans joined by the window's
-sequence number), the time its tokens wait before the host has them.
+sequence number), the time its tokens wait before the host has them,
+and, on the eager (segmented) step, the device ms a step of the kernels
+launched under each kind of plan step (``plan_ms_per_step``: a hybrid's
+``mamba`` scans, shared-block ``site`` s, ``exit`` probes and the final
+``head``; the model's ``repro.model.<kind>`` spans), which a captured
+window does not record.
 Weights are random (seeded) unless the caller passes ``params``; ``arch``
 is an arch name or a ``ModelConfig``; the card is required.
 """
@@ -131,6 +136,10 @@ def profile_decode(arch="granite-3-2b", slots: int = 16,
             n: {"total": d["total_s"] * ms, "self": d["self_s"] * ms,
                 "count": d["count"]}
             for n, d in device_trace.span_seconds(spans, lo, hi).items()},
+        "plan_ms_per_step": {
+            n: d * 1e3 / steps for n, d in sorted(
+                device_trace.plan_device_s(prof).items(),
+                key=lambda kv: -kv[1])},
         "window_ms": {"windows": len(win_ms),
                       "mean": float(np.mean(win_ms)) if win_ms else 0.0,
                       "max": max(win_ms, default=0.0)},

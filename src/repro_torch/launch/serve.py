@@ -158,7 +158,8 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
     """Serve a seeded Poisson trace; returns a stats dict (latency and
     time-to-first-token percentiles, sustained tok/s, the polls' split of
     host work, readback wait and counter-flush wait, the counter flushes,
-    the prompt tokens prefill replayed, the decode windows' device time,
+    the prompt tokens prefill replayed, the slots whose recurrent state
+    rows admission zeroed, the decode windows' device time,
     exit statistics,
     prefix-cache hits, decode-window builds).  ``arch`` is an arch name or
     a ``ModelConfig``.  ``params`` default to ``Model(arch).init(seed)``
@@ -230,6 +231,7 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
         "device_ms": sched.device_ms_total,
         "prefill_ms": sched.prefill_ms_total,
         "prefill_tokens": sched.prefill_tokens_total,
+        "state_resets": sched.state_resets,
         "decode_steps": sched._step_idx - steps0,
         "peak_tokens_in_flight": sched.peak_tokens_in_flight,
         "jit_cache_sizes": sched.jit_cache_sizes(),
@@ -257,7 +259,8 @@ def serve_poisson(arch, *, rate: float = 4.0, n_requests: int = 32,
               f"flush_wait={stats['flush_wait_ms']:.0f}ms in "
               f"{stats['flushes']} flushes; prefill "
               f"{stats['prefill_ms']:.0f}ms for {stats['prefill_tokens']} "
-              f"prompt tokens; peak-in-flight="
+              f"prompt tokens; {stats['state_resets']} state resets; "
+              f"peak-in-flight="
               f"{stats['peak_tokens_in_flight']} tokens; decode-window "
               f"builds (must stay 1): {stats['jit_cache_sizes']}")
     return stats

@@ -94,7 +94,7 @@ def run(rounds: int = 3):
         "paged_attention": (
             lambda pps, max_pos: ab.paged_inputs(gen, 16, 32, 8, 64, 16, pps,
                                                  max_pos, 4),
-            lambda pps: paged_attention.plan(16, 8, pps, sms),
+            lambda pps: paged_attention.plan(16, 8, pps, sms, 64),
             gqa_with_split,
             lambda a: ref.paged_gqa_attention_ref(*a).float(), 1e-2,
             {"long": (128, 2048, (4, 8, 12, 15, 16, 32, 128)),

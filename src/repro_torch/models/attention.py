@@ -52,15 +52,26 @@ ATTN_IMPL = _env_impl("REPRO_ATTN", "dense", ("dense", "chunked"))
 CHUNKED_THRESHOLD = 2048   # chunked when Sq * Skv exceeds its square
 
 
-def init_gqa(cfg):
+def init_gqa(cfg, d_in: int = 0):
+    """q/k/v from inputs of width ``d_in`` (0: d_model), o back to
+    d_model."""
     d, nq, nkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim)
+    di = d_in or d
     return {
-        "wq": scaled_init((d, nq, hd), d),
-        "wk": scaled_init((d, nkv, hd), d),
-        "wv": scaled_init((d, nkv, hd), d),
+        "wq": scaled_init((di, nq, hd), di),
+        "wk": scaled_init((di, nkv, hd), di),
+        "wv": scaled_init((di, nkv, hd), di),
         "wo": scaled_init((nq, hd, d), nq * hd),
     }
+
+
+def _scores(cfg, s):
+    """Raw scores times the attention scale: ``cfg.attn_scale`` where set,
+    else divided by sqrt(head_dim) as the reference divides."""
+    if cfg.attn_scale:
+        return s * cfg.attn_scale
+    return s / math.sqrt(cfg.resolved_head_dim)
 
 
 def init_mla(cfg):
@@ -203,6 +214,10 @@ def gqa_forward(cfg, params, x, positions, *, causal: bool = True,
         if rope_on:
             q = apply_positional(q, positions, cfg.rope, cfg.rope_theta)
             k = apply_positional(k, positions, cfg.rope, cfg.rope_theta)
+        if cfg.attn_scale:
+            # the flash kernels fix 1/sqrt(H): the rest of the scale goes
+            # into q (one more bf16 rounding of q)
+            q = q * (cfg.attn_scale * math.sqrt(cfg.resolved_head_dim))
         if _takes_chunked(q, k):
             out = _sdpa_chunked(q, k, v, causal=causal, window=window,
                                 scale=1.0 / math.sqrt(cfg.resolved_head_dim))
@@ -261,8 +276,8 @@ def gqa_decode(cfg, params, x, cache_k, cache_v, position, *, window: int = 0,
         valid = idx[None, :] <= pos_b[:, None]             # [B, Smax]
     nq, nkv = q.shape[2], cache_k.shape[2]
     qg = q.reshape(b, 1, nkv, nq // nkv, hd)
-    scores = torch.einsum("bsngh,btnh->bngst", qg.float(),
-                          cache_k.float()) / math.sqrt(hd)
+    scores = _scores(cfg, torch.einsum("bsngh,btnh->bngst", qg.float(),
+                                       cache_k.float()))
     scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngst,btnh->bsngh", probs, cache_v.float())
@@ -360,7 +375,8 @@ def gqa_decode_paged(cfg, params, x, pool_k, pool_v, position,
     q, k, v = _qkv(cfg, params, x, pos_b.long())
     paged_write(pool_k, paged, pos_b, k[:, 0])
     paged_write(pool_v, paged, pos_b, v[:, 0])
-    out = kops.paged_gqa_attention(q, pool_k, pool_v, paged.tbl, pos_b)
+    out = kops.paged_gqa_attention(q, pool_k, pool_v, paged.tbl, pos_b,
+                                   scale=cfg.attn_scale or None)
     return _out_proj(out, params["wo"]), (pool_k, pool_v)
 
 

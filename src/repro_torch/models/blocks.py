@@ -6,7 +6,16 @@ Every architecture compiles to a PLAN, an ordered list of steps
     ("shared_attn", site_idx)          — zamba2 weight-shared attention block
     ("exit", exit_idx, layer)          — early-exit head / partition boundary
 
-exactly as in the reference.  Stacked blocks keep their leading layer axis
+exactly as in the reference.  Zamba2's published layout
+(``cfg.hybrid_layer_ids``, Zamba2-7B) places site k *before* layer
+ids[k] instead: the site reads the stream and the input embedding and
+returns what it adds to that layer's norm input (``run_site``), and the
+scan block after it starts at that layer; ``num_mem_blocks`` shared
+blocks alternate over the sites, each site with its own adapter and
+linear.  An exit at the same boundary comes before the site, so a site
+and the layer it feeds always share a decode segment.
+
+Stacked blocks keep their leading layer axis
 ([n_units, ...]); the full-sequence forward (``run_scan_block``) and
 decode (``decode_scan_block``) walk it in a Python loop.  The ``dense``
 and ``moe`` kinds are ported, with GQA or MLA attention, ``mamba``
@@ -57,6 +66,10 @@ def layer_kind(cfg, i: int) -> str:
 
 
 def shared_attn_sites(cfg) -> Tuple[int, ...]:
+    """The layers the shared block's sites follow (period layout), or
+    precede (``hybrid_layer_ids``)."""
+    if cfg.hybrid_layer_ids:
+        return tuple(cfg.hybrid_layer_ids)
     if not cfg.shared_attn_period:
         return ()
     p = cfg.shared_attn_period
@@ -67,8 +80,12 @@ def build_plan(cfg) -> List[Tuple]:
     """Returns the ordered plan (see module docstring)."""
     L = cfg.num_layers
     exits = set(cfg.exits.exit_layers)
-    sa = set(i + 1 for i in shared_attn_sites(cfg))
-    bounds = {0, L} | exits | sa
+    before = set(cfg.hybrid_layer_ids)
+    if any(not 0 <= i < L for i in before):
+        raise ValueError(f"hybrid_layer_ids {cfg.hybrid_layer_ids} outside "
+                         f"{L} layers")
+    sa = set() if before else set(i + 1 for i in shared_attn_sites(cfg))
+    bounds = {0, L} | exits | sa | before
     for i in range(1, L):
         if layer_kind(cfg, i) != layer_kind(cfg, i - 1):
             bounds.add(i)
@@ -83,6 +100,9 @@ def build_plan(cfg) -> List[Tuple]:
     exit_idx = 0
     sa_idx = 0
     for a, b in zip(bl[:-1], bl[1:]):
+        if a in before:
+            plan.append(("shared_attn", sa_idx))
+            sa_idx += 1
         kind = layer_kind(cfg, a)
         n = b - a
         if kind == "pair":
@@ -189,6 +209,28 @@ def init_shared_attn(cfg):
     }
 
 
+def init_sites(cfg):
+    """Leaf specs of Zamba2's published shared blocks: ``num_mem_blocks``
+    blocks, each an RMSNorm over the site input (2 D when it is
+    concatenated with the embedding), attention from that width back to
+    D, a pre-FFN RMSNorm and the gated FFN; and per site its adapter of
+    the FFN's gate/up and its D x D linear."""
+    d = cfg.d_model
+    d_in = 2 * d if cfg.site_concat_input else d
+    block = {"ln1": init_norm(cfg.norm, d_in),
+             "attn": attn.init_gqa(cfg, d_in),
+             "ln2": init_norm(cfg.norm, d),
+             "ffn": ffn_mod.init_ffn(d, cfg.d_ff, cfg.act)}
+    site = {}
+    if cfg.site_adapter_rank:
+        site["adapter"] = ffn_mod.init_adapter(d, cfg.d_ff,
+                                               cfg.site_adapter_rank)
+    if cfg.site_linear:
+        site["linear"] = scaled_init((d, d), d)
+    return {"blocks": [block for _ in range(cfg.num_mem_blocks)],
+            "sites": [site for _ in cfg.hybrid_layer_ids]}
+
+
 def init_exit_head(cfg):
     """Leaf specs of one exit head (``Model.init`` makes them)."""
     hid = cfg.exits.head_hidden
@@ -232,17 +274,20 @@ def _ffn_residual(cfg, kind: str, lp, x, ctx=ffn_mod.SINGLE):
 
 
 def forward_layer(cfg, kind: str, lp, x, positions, window, enc_out=None,
-                  ctx=ffn_mod.SINGLE):
+                  ctx=ffn_mod.SINGLE, inject=None):
     """One layer over the full sequence (the reference's ``_dense_fwd`` /
     ``_moe_fwd`` / ``_pair_fwd`` / ``_mamba_fwd`` / ``_mlstm_fwd`` /
     ``_slstm_fwd`` / ``_enc_fwd`` and ``_make_decx_fwd(enc_out)``).
-    Returns (x, aux); a pair unit's aux is its MoE layer's."""
+    ``inject`` (a site's output, state kinds only) is added to the norm's
+    input, not to the residual.  Returns (x, aux); a pair unit's aux is
+    its MoE layer's."""
     if kind == "pair":
         x, _ = forward_layer(cfg, "dense", lp["a"], x, positions, window)
         return forward_layer(cfg, "moe", lp["b"], x, positions, window,
                              ctx=ctx)
     if kind in _STATE_FWD:
-        h = apply_norm(cfg.norm, x, lp["ln"])
+        h = apply_norm(cfg.norm, x if inject is None else x + inject,
+                       lp["ln"])
         y, _ = _STATE_FWD[kind](cfg, lp[kind], h)
         return x + y, 0.0
     if kind == "decx":
@@ -282,10 +327,11 @@ def _unbind_layers(tree):
 
 
 def run_scan_block(cfg, kind: str, bparams, x, positions, window,
-                   enc_out=None, ctx=ffn_mod.SINGLE):
+                   enc_out=None, ctx=ffn_mod.SINGLE, inject=None):
     """A stacked block over the full sequence: a loop over its layer axis.
     ``enc_out`` is the encoder output a ``decx`` block attends to; ``ctx``
-    the mesh of its expert-parallel MoE layers.
+    the mesh of its expert-parallel MoE layers; ``inject`` what a site
+    adds to the first layer's norm input.
     Returns (x, aux): one layer's aux as it is, the sum over layers
     otherwise (the reference's rule)."""
     _require_ported(kind)
@@ -293,7 +339,8 @@ def run_scan_block(cfg, kind: str, bparams, x, positions, window,
     auxs = []
     for lp in _unbind_layers(bparams):
         x, aux = forward_layer(cfg, kind, lp, x, positions, window, enc_out,
-                               ctx)
+                               ctx, inject)
+        inject = None
         auxs.append(aux)
     return x, auxs[0] if n == 1 else sum(auxs[1:], auxs[0])
 
@@ -305,6 +352,53 @@ def run_shared_attn(cfg, sp, x, positions, window):
     x = x + y
     h = apply_norm(cfg.norm, x, sp["ln2"])
     return x + ffn_mod.ffn_forward(sp["ffn"], h, cfg.act)
+
+
+def _site_input(cfg, block, x, emb):
+    """The site's normed input: concat(x, embedding) or x."""
+    if cfg.site_concat_input:
+        x = torch.cat([x, emb], dim=-1)
+    return apply_norm(cfg.norm, x, block["ln1"])
+
+
+def _site_output(cfg, block, site, y):
+    """Attention output -> pre-FFN norm -> FFN with the site's adapter ->
+    the site's linear: no residual inside the block."""
+    h = apply_norm(cfg.norm, y, block["ln2"])
+    y = ffn_mod.ffn_forward(block["ffn"], h, cfg.act, site.get("adapter"))
+    if "linear" in site:
+        y = torch.matmul(y, site["linear"].to(y.dtype))
+    return y
+
+
+def site_params(cfg, sp, k: int):
+    """(shared block, own params) of site k: the blocks alternate."""
+    return sp["blocks"][k % cfg.num_mem_blocks], sp["sites"][k]
+
+
+def run_site(cfg, sp, k: int, x, emb, positions, window):
+    """Zamba2's published site k over the full sequence: what it adds to
+    the next layer's norm input (the stream x is left as it is)."""
+    block, site = site_params(cfg, sp, k)
+    h = _site_input(cfg, block, x, emb)
+    y, _ = attn.gqa_forward(cfg, block["attn"], h, positions, window=window)
+    return _site_output(cfg, block, site, y)
+
+
+def run_site_decode(cfg, sp, k: int, x, emb, cache, position, window,
+                    paged=None, write_mask=None):
+    """Site k at one token, against its own KV cache (paged pools through
+    ``attn.gqa_decode_paged``: the paged GQA kernel at head 224, G 1 for
+    Zamba2-7B); returns what it adds to the next layer's norm input."""
+    block, site = site_params(cfg, sp, k)
+    h = _site_input(cfg, block, x, emb)
+    if paged is not None:
+        y, _ = attn.gqa_decode_paged(cfg, block["attn"], h, cache[0],
+                                     cache[1], position, paged)
+    else:
+        y, _ = attn.gqa_decode(cfg, block["attn"], h, cache[0], cache[1],
+                               position, window=window, write_mask=write_mask)
+    return _site_output(cfg, block, site, y)
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +499,8 @@ def _store_rows(dst, new, mask):
 
 
 def decode_layer(cfg, kind: str, lp, x, cache, position, window,
-                 paged=None, write_mask=None, ctx=ffn_mod.SINGLE):
+                 paged=None, write_mask=None, ctx=ffn_mod.SINGLE,
+                 inject=None):
     """One-token decode through one layer; the layer's cache is updated in
     place.  Returns (x, cache, aux): ``aux`` is the MoE load-balance loss
     (0 for dense layers), which decode callers drop.  ``paged`` (an
@@ -414,9 +509,10 @@ def decode_layer(cfg, kind: str, lp, x, cache, position, window,
     per slot in both arenas: every leaf stores under ``paged.write_mask``
     or ``write_mask`` (the reference merges them row-wise on the same
     mask).  A ``decx`` layer writes its self-attention row under
-    ``write_mask`` and reads its cross rows, which admission primed.  A
-    ``pair`` unit decodes its dense layer, then its MoE layer, each with
-    its own half of the cache."""
+    ``write_mask`` and reads its cross rows, which admission primed.
+    ``inject`` is added to a state kind's norm input, as in
+    ``forward_layer``.  A ``pair`` unit decodes its dense layer, then its
+    MoE layer, each with its own half of the cache."""
     _require_ported(kind)
     if kind == "pair":
         x, _, _ = decode_layer(cfg, "dense", lp["a"], x, cache["a"],
@@ -438,7 +534,8 @@ def decode_layer(cfg, kind: str, lp, x, cache, position, window,
         h = apply_norm(cfg.norm, x, lp["ln3"])
         return x + ffn_mod.ffn_forward(lp["ffn"], h, cfg.act), cache, 0.0
     if kind in _STATE_FWD:
-        h = apply_norm(cfg.norm, x, lp["ln"])
+        h = apply_norm(cfg.norm, x if inject is None else x + inject,
+                       lp["ln"])
         if kind == "mamba":
             y, st, cv = ssm_mod.mamba2_decode(cfg, lp["mamba"], h, cache[0],
                                               cache[1])
@@ -459,16 +556,18 @@ def decode_layer(cfg, kind: str, lp, x, cache, position, window,
 
 
 def decode_scan_block(cfg, kind: str, bparams, x, caches, position, window,
-                      paged=None, write_mask=None, ctx=ffn_mod.SINGLE):
+                      paged=None, write_mask=None, ctx=ffn_mod.SINGLE,
+                      inject=None):
     """Decode through a stacked block: a loop over its layer axis.  Layer
     i's params and cache are views ``[i]`` of the stacked tensors, so the
-    in-place cache writes land in the stacked caches."""
+    in-place cache writes land in the stacked caches.  ``inject`` goes to
+    the first layer."""
     n = tree_leaves(bparams)[0].shape[0]
     for i in range(n):
         lp = tree_map(lambda a: a[i], bparams)
         cc = tree_map(lambda a: a[i], caches)
         x, _, _ = decode_layer(cfg, kind, lp, x, cc, position, window, paged,
-                               write_mask, ctx)
+                               write_mask, ctx, inject if i == 0 else None)
     return x, caches
 
 

@@ -1,12 +1,34 @@
-"""Shared building blocks: device check, norms, activations, init, embed."""
+"""Shared building blocks: device check, norms, activations, init, embed,
+and the model's spans."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+SPAN_PREFIX = "repro.model."
+_NULL = contextlib.nullcontext()
+
+
+def _capturing() -> bool:
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def step_span(name: str):
+    """A context that records ``repro.model.<name>`` around one plan step
+    of an eager decode step or forward (a scan block's kind, ``site``,
+    ``exit``, ``head``) while a profiler collects, as
+    ``serving/spans.py``'s spans do (a function-scope record, never a user
+    annotation).  With no profiler it costs one check; inside a CUDA
+    graph capture it records nothing, since a replay re-runs no Python."""
+    if not torch.autograd._profiler_enabled() or _capturing():
+        return _NULL
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
 
 
 def resolve_device(device) -> torch.device:
@@ -140,6 +162,17 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return out.to(x.dtype)
 
 
+def group_rmsnorm(x, scale, groups: int, eps: float = 1e-6):
+    """RMSNorm over each of ``groups`` equal groups of the last axis (one
+    group: ``rmsnorm``), then the scale over the whole axis."""
+    if groups == 1:
+        return rmsnorm(x, scale, eps)
+    xf = x.float().reshape(*x.shape[:-1], groups, x.shape[-1] // groups)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = (xf * torch.rsqrt(var + eps)).reshape(x.shape) * scale.float()
+    return out.to(x.dtype)
+
+
 def layernorm(x, scale, bias, eps: float = 1e-5):
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
@@ -167,7 +200,9 @@ def _gelu_tanh(x):
 
 
 def activation(kind: str):
-    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[kind]
+    """The FFN activation; ``geglu`` is a gated FFN on the erf gelu."""
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu,
+            "geglu": F.gelu}[kind]
 
 
 # ---------------------------------------------------------------------------

@@ -101,8 +101,11 @@ class ShardCtx:
 SINGLE = ShardCtx(None)
 
 
+GATED = ("silu", "geglu")
+
+
 def init_ffn(d: int, ff: int, act: str):
-    if act == "silu":
+    if act in GATED:
         return {
             "w_gate": scaled_init((d, ff), d),
             "w_up": scaled_init((d, ff), d),
@@ -114,11 +117,28 @@ def init_ffn(d: int, ff: int, act: str):
     }
 
 
-def ffn_forward(params, x, act: str):
+def init_adapter(d: int, ff: int, rank: int):
+    """A low-rank adapter of a gated FFN's gate and up projections:
+    x @ a [D, r] @ b [r, 2F], gate columns first (Zamba2's per-site
+    ``gate_up_proj_adapter``)."""
+    return {"a": scaled_init((d, rank), d),
+            "b": scaled_init((rank, 2 * ff), rank)}
+
+
+def ffn_forward(params, x, act: str, adapter=None):
+    """The FFN; ``adapter`` (``init_adapter``) adds its low-rank term to
+    a gated FFN's gate and up pre-activations."""
     fn = activation(act)
     w = {k: v.to(x.dtype) for k, v in params.items()}
     if "w_gate" in params:
-        h = fn(torch.matmul(x, w["w_gate"])) * torch.matmul(x, w["w_up"])
+        gate = torch.matmul(x, w["w_gate"])
+        up = torch.matmul(x, w["w_up"])
+        if adapter is not None:
+            low = torch.matmul(torch.matmul(x, adapter["a"].to(x.dtype)),
+                               adapter["b"].to(x.dtype))
+            gate = gate + low[..., :gate.shape[-1]]
+            up = up + low[..., gate.shape[-1]:]
+        h = fn(gate) * up
     else:
         h = fn(torch.matmul(x, w["w_in"]))
     return torch.matmul(h, w["w_down"])

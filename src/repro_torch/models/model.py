@@ -27,6 +27,12 @@ segments each token still needs:
     entropy    = m.exit_probe_entropy(params, seg.exit_index, x)  # kernel
     logits     = m.finalize_decode(params, x)
 
+A Zamba2 model with published sites (``cfg.hybrid_layer_ids``) also hands
+``decode_segment`` the token embeddings (``emb=``), which every site reads
+beside the stream.  Each plan step of an eager step or forward opens a
+``repro.model.<kind>`` span while a profiler collects
+(``common.step_span``).
+
 ``alive`` [B] gates per-slot work: an exited slot's hidden state is frozen
 (passthrough) and its KV and state rows are not written; every slot's
 token comes from ``finalize_decode`` over its possibly early-frozen hidden
@@ -50,7 +56,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models.ffn import SINGLE, ShardCtx
 from repro_torch.models.common import (Leaf, apply_norm, embed, init_norm,
                                        materialize, normal_init,
-                                       resolve_device, tree_map, unembed)
+                                       resolve_device, step_span, tree_map,
+                                       unembed)
 
 
 @dataclasses.dataclass
@@ -144,7 +151,10 @@ class Model:
                 gen, cfg, kind, n, dev, keep=k))
             for bi, (_, kind, n, _) in enumerate(
                 s for s in self.plan if s[0] == "scan")]
-        if cfg.shared_attn_period:
+        if cfg.hybrid_layer_ids:
+            params["shared_attn"] = part("shared_attn", lambda k: materialize(
+                gen, B.init_sites(cfg), dev, keep=k))
+        elif cfg.shared_attn_period:
             params["shared_attn"] = part("shared_attn", lambda k: materialize(
                 gen, B.init_shared_attn(cfg), dev, keep=k))
         if self.n_exits:
@@ -247,8 +257,9 @@ class Model:
             enc_out = self.encode(params, batch["frames"])
         x, aux, exit_logits = self.run_plan(params, x, positions, window,
                                             enc_out=enc_out)
-        h = apply_norm(cfg.norm, x, params["final_norm"])
-        logits = unembed(h, params.get("lm_head", params["embed"]))
+        with step_span("head"):
+            h = apply_norm(cfg.norm, x, params["final_norm"])
+            logits = unembed(h, params.get("lm_head", params["embed"]))
         mtp_logits = None
         if cfg.mtp_depth and "mtp" in params:
             mtp_logits = self._mtp_forward(params, h, batch, positions,
@@ -256,23 +267,30 @@ class Model:
         return ModelOutputs(logits, exit_logits, aux, h, mtp_logits)
 
     def run_plan(self, params, x, positions, window, alive=None,
-                 enc_out=None):
+                 enc_out=None, emb=None):
         """The plan's blocks and exit heads over the full sequence x
         [B, S, D].  ``alive`` [n_blocks] (bool or float; None = all
         alive) makes a failed block an identity bypass, x = a * y +
         (1 - a) * x, as ``core.resilience.resilient_forward`` asks; a
         shared-attention site follows the block before it.  ``enc_out``
         [B, Tenc, D] is what the decoder layers of an encdec model attend
-        to.  Returns (x, aux loss, exit logits)."""
+        to; ``emb`` [B, S, D] the input embeddings Zamba2's published
+        sites read (default: x as given).  Returns (x, aux loss, exit
+        logits)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         exit_logits: List[torch.Tensor] = []
+        emb = x if emb is None else emb
+        inject = None
         bi = 0
         for step in self.plan:
             if step[0] == "scan":
-                y, a = B.run_scan_block(cfg, step[1], params["blocks"][bi],
-                                        x, positions, window, enc_out,
-                                        self.ctx)
+                with step_span(step[1]):
+                    y, a = B.run_scan_block(cfg, step[1],
+                                            params["blocks"][bi], x,
+                                            positions, window, enc_out,
+                                            self.ctx, inject)
+                inject = None
                 if alive is None:
                     x = y
                 else:
@@ -280,6 +298,10 @@ class Model:
                     x = keep * y + (1.0 - keep) * x
                 aux = aux + a
                 bi += 1
+            elif step[0] == "shared_attn" and cfg.hybrid_layer_ids:
+                with step_span("site"):
+                    inject = B.run_site(cfg, params["shared_attn"], step[1],
+                                        x, emb, positions, window)
             elif step[0] == "shared_attn":
                 y = B.run_shared_attn(cfg, params["shared_attn"], x,
                                       positions, window)
@@ -289,8 +311,9 @@ class Model:
                     keep = alive[bi - 1].to(y.dtype)
                     x = keep * y + (1.0 - keep) * x
             else:
-                exit_logits.append(B.exit_head_logits(
-                    cfg, params["exit_heads"][step[1]], x))
+                with step_span("exit"):
+                    exit_logits.append(B.exit_head_logits(
+                        cfg, params["exit_heads"][step[1]], x))
         return x, aux, exit_logits
 
     def _mtp_forward(self, params, h, batch, positions, window):
@@ -353,7 +376,7 @@ class Model:
             self._stack([B.init_layer_cache(self.cfg, kind, batch_size, clen,
                                             dev) for _ in range(n)])
             for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]}
-        if self.cfg.shared_attn_period:
+        if B.shared_attn_sites(self.cfg):
             cache["shared_attn"] = self._shared_attn_cache(
                 (batch_size, clen), dev)
         return cache
@@ -385,7 +408,7 @@ class Model:
                 self.cfg, kind, batch_size, n_pages, page_size, dev)
                 for _ in range(n)])
             for _, kind, n, _ in (s for s in self.plan if s[0] == "scan")]}
-        if self.cfg.shared_attn_period:
+        if B.shared_attn_sites(self.cfg):
             cache["shared_attn"] = self._shared_attn_cache(
                 (n_pages, page_size), dev)
         return cache
@@ -421,31 +444,54 @@ class Model:
         Returns (logits [B,V] fp32, exit_entropies [n_exits,B] fp32, cache).
         """
         cfg = self.cfg
-        x = embed(tokens, params["embed"])
+        x = emb = embed(tokens, params["embed"])
         window = self._window(long_mode)
         exit_entropies = []
+        inject = None
         bi = 0
         for step in self.plan:
             if step[0] == "scan":
-                x, _ = B.decode_scan_block(
-                    cfg, step[1], params["blocks"][bi], x,
-                    cache["blocks"][bi], position, window, paged, write_mask,
-                    self.ctx)
+                with step_span(step[1]):
+                    x, _ = B.decode_scan_block(
+                        cfg, step[1], params["blocks"][bi], x,
+                        cache["blocks"][bi], position, window, paged,
+                        write_mask, self.ctx, inject)
+                inject = None
                 bi += 1
             elif step[0] == "shared_attn":
-                x, _ = B.run_shared_attn_decode(
-                    cfg, params["shared_attn"], x,
-                    cache["shared_attn"][step[1]], position, window, paged,
-                    write_mask)
+                with step_span("site"):
+                    x, inject = self._decode_site(
+                        params, cache, step[1], x, emb, position, window,
+                        paged, write_mask)
             elif step[0] == "exit":
-                lg = B.exit_head_logits(cfg, params["exit_heads"][step[1]],
-                                        x)[:, 0]
-                exit_entropies.append(_entropy(lg))
+                with step_span("exit"):
+                    lg = B.exit_head_logits(
+                        cfg, params["exit_heads"][step[1]], x)[:, 0]
+                    exit_entropies.append(_entropy(lg))
         logits = self.finalize_decode(params, x)
         ee = (torch.stack(exit_entropies) if exit_entropies
               else torch.zeros((0, tokens.shape[0]), dtype=torch.float32,
                                device=x.device))
         return logits, ee, cache
+
+    def _decode_site(self, params, cache, k, x, emb, position, window,
+                     paged, write_mask):
+        """Shared-attention site k at one token: (x, what it adds to the
+        next layer's norm input).  The period layout updates x and adds
+        nothing; Zamba2's published sites leave x and return their
+        output."""
+        cfg = self.cfg
+        if not cfg.hybrid_layer_ids:
+            x, _ = B.run_shared_attn_decode(
+                cfg, params["shared_attn"], x, cache["shared_attn"][k],
+                position, window, paged, write_mask)
+            return x, None
+        if emb is None:
+            raise ValueError("decode: Zamba2's sites read the token "
+                             "embeddings; pass emb=")
+        return x, B.run_site_decode(cfg, params["shared_attn"], k, x, emb,
+                                    cache["shared_attn"][k], position,
+                                    window, paged, write_mask)
 
     def _build_decode_segments(self) -> List[DepthSegment]:
         """Split the plan at exit heads into index-resolved depth segments."""
@@ -479,7 +525,7 @@ class Model:
 
     def decode_segment(self, params, cache, x, seg: DepthSegment, position,
                        alive, *, long_mode: bool = False, paged=None,
-                       passthrough=None):
+                       passthrough=None, emb=None):
         """One-token decode through one depth segment.
 
         ``alive`` [B] bool gates cache writes (contiguous rows here; paged
@@ -487,24 +533,29 @@ class Model:
         caller sets).  ``passthrough`` (default ``alive``) selects which
         rows take the segment's hidden output; the others keep ``x``.
         With ``alive`` all-true this is exactly the matching slice of
-        ``decode_step``.
+        ``decode_step``.  ``emb`` [B, 1, D]: the token embeddings, which
+        Zamba2's published sites read.
         """
         window = self._window(long_mode)
         x_in = x
         if passthrough is None:
             passthrough = alive
         wm = None if paged is not None else alive
+        inject = None
         for st in seg.steps:
             if st[0] == "scan":
                 _, kind, bi = st
-                x, _ = B.decode_scan_block(
-                    self.cfg, kind, params["blocks"][bi], x,
-                    cache["blocks"][bi], position, window, paged, wm,
-                    self.ctx)
+                with step_span(kind):
+                    x, _ = B.decode_scan_block(
+                        self.cfg, kind, params["blocks"][bi], x,
+                        cache["blocks"][bi], position, window, paged, wm,
+                        self.ctx, inject)
+                inject = None
             else:
-                x, _ = B.run_shared_attn_decode(
-                    self.cfg, params["shared_attn"], x,
-                    cache["shared_attn"][st[1]], position, window, paged, wm)
+                with step_span("site"):
+                    x, inject = self._decode_site(params, cache, st[1], x,
+                                                  emb, position, window,
+                                                  paged, wm)
         x = torch.where(passthrough[:, None, None], x, x_in)
         return x, cache
 
@@ -513,13 +564,15 @@ class Model:
         through the fused exit-head kernel: the [B,V] exit logits are never
         stored."""
         p = params["exit_heads"][exit_index]
-        h = B.exit_head_hidden(self.cfg, p, x[:, 0, :])
-        return kops.exit_head_entropy(h, p["w"])
+        with step_span("exit"):
+            h = B.exit_head_hidden(self.cfg, p, x[:, 0, :])
+            return kops.exit_head_entropy(h, p["w"])
 
     def finalize_decode(self, params, x):
         """Final norm + LM head over decode hidden x [B,1,D] -> [B,V] fp32."""
-        h = apply_norm(self.cfg.norm, x, params["final_norm"])
-        return unembed(h, params.get("lm_head", params["embed"]))[:, 0]
+        with step_span("head"):
+            h = apply_norm(self.cfg.norm, x, params["final_norm"])
+            return unembed(h, params.get("lm_head", params["embed"]))[:, 0]
 
     # ------------------------------------------------------------------
     def prefill(self, params, batch, *, long_mode: bool = False):

@@ -1,5 +1,9 @@
 """Mamba2 (SSD: state-space duality) layer, as the reference computes it.
 
+Grouped B/C (``ssm.n_groups`` G, Zamba2-7B's 2): head h reads group
+h // (H / G), and the gated RMSNorm normalizes each group of d_inner / G
+channels on its own; G = 1 is the reference's single group.
+
 Chunked-scan formulation [arXiv:2405.21060]: the sequence is split into
 chunks of Q tokens.  Within a chunk the recurrence is evaluated in its
 quadratic "attention" dual (matmuls, decays via masked segment sums);
@@ -16,13 +20,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Leaf, rmsnorm, scaled_init
+from repro_torch.models.common import Leaf, group_rmsnorm, scaled_init
 
 
 def _dims(cfg):
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
-    return d_in, max(1, d_in // s.head_dim), d_in + 2 * s.state_size
+    return (d_in, max(1, d_in // s.head_dim),
+            d_in + 2 * s.n_groups * s.state_size)
 
 
 def init_mamba2(cfg):
@@ -31,8 +36,8 @@ def init_mamba2(cfg):
     d_in, n_heads, conv_ch = _dims(cfg)
     return {
         # order: [z | x | B | C | dt]
-        "in_proj": scaled_init((d, 2 * d_in + 2 * s.state_size + n_heads),
-                               d),
+        "in_proj": scaled_init(
+            (d, 2 * d_in + 2 * s.n_groups * s.state_size + n_heads), d),
         "conv_w": scaled_init((s.conv_width, conv_ch), s.conv_width),
         "conv_b": Leaf((conv_ch,), fill=0.0),
         "a_log": Leaf((n_heads,), fill=0.0),       # A = -exp(a_log) = -1
@@ -46,9 +51,17 @@ def init_mamba2(cfg):
 def _split_in_proj(cfg, proj):
     s = cfg.ssm
     d_in, n_heads, _ = _dims(cfg)
-    z, xin, b, c, dt = torch.split(
-        proj, [d_in, d_in, s.state_size, s.state_size, n_heads], dim=-1)
+    gn = s.n_groups * s.state_size
+    z, xin, b, c, dt = torch.split(proj, [d_in, d_in, gn, gn, n_heads],
+                                   dim=-1)
     return z, xin, b, c, dt, d_in, n_heads
+
+
+def _per_head(t, groups: int, heads: int):
+    """B or C [..., G * N] -> [..., H, N]: head h reads group
+    h // (H / G)."""
+    t = t.reshape(*t.shape[:-1], groups, t.shape[-1] // groups)
+    return t.repeat_interleave(heads // groups, -2)
 
 
 def _causal_conv(u, w, bias):
@@ -74,9 +87,11 @@ def _segsum(log_a):
     return dif.masked_fill(~mask, float("-inf"))
 
 
-def _gate_norm_out(params, y, z, x_dtype):
-    """y * silu(z) in the input dtype, RMSNorm, then the out projection."""
-    y = rmsnorm(y * F.silu(z.float()).to(x_dtype), params["norm"])
+def _gate_norm_out(cfg, params, y, z, x_dtype):
+    """y * silu(z) in the input dtype, RMSNorm over each of the
+    ``n_groups`` groups of channels, then the out projection."""
+    y = group_rmsnorm(y * F.silu(z.float()).to(x_dtype), params["norm"],
+                      cfg.ssm.n_groups)
     return torch.matmul(y, params["out_proj"].to(x_dtype))
 
 
@@ -90,8 +105,8 @@ def mamba2_forward(cfg, params, x, state=None):
     z, xin, bb, cc, dt, d_in, h = _split_in_proj(cfg, proj)
     conv_out = _causal_conv(torch.cat([xin, bb, cc], dim=-1),
                             params["conv_w"], params["conv_b"])
-    xin, bb, cc = torch.split(conv_out, [d_in, s.state_size, s.state_size],
-                              dim=-1)
+    g, gn = s.n_groups, s.n_groups * s.state_size
+    xin, bb, cc = torch.split(conv_out, [d_in, gn, gn], dim=-1)
     p, n = s.head_dim, s.state_size
     xh = xin.reshape(b_sz, seq, h, p).float()
     dt = F.softplus(dt.float() + params["dt_bias"])            # [B, S, H]
@@ -102,23 +117,29 @@ def mamba2_forward(cfg, params, x, state=None):
     assert nc * q == seq, f"seq {seq} not divisible by chunk {q}"
     xc = xh.reshape(b_sz, nc, q, h, p)
     lac = log_a.reshape(b_sz, nc, q, h)
-    bc = bb.float().reshape(b_sz, nc, q, n)
-    ccg = cc.float().reshape(b_sz, nc, q, n)
+    if g == 1:          # one group: B and C broadcast over the heads
+        bc = bb.float().reshape(b_sz, nc, q, n)
+        ccg = cc.float().reshape(b_sz, nc, q, n)
+        eqs = ("bcin,bcjn->bcij", "bcjhp,bcjn->bchpn", "bcin,bchpn->bcihp")
+    else:               # head h reads group h // (H / G): [B,nc,Q,H,N]
+        bc = _per_head(bb.float().reshape(b_sz, nc, q, g * n), g, h)
+        ccg = _per_head(cc.float().reshape(b_sz, nc, q, g * n), g, h)
+        eqs = ("bcihn,bcjhn->bchij", "bcjhp,bcjhn->bchpn",
+               "bcihn,bchpn->bcihp")
     dtx = xc * dt.reshape(b_sz, nc, q, h)[..., None]           # [B,nc,Q,H,P]
 
     # intra-chunk (quadratic dual): scores x decays, then the values
     lmat = torch.exp(_segsum(lac.transpose(-1, -2)))           # [B,nc,H,Q,Q]
-    scores = torch.einsum("bcin,bcjn->bcij", ccg, bc)          # [B,nc,Q,Q]
+    scores = torch.einsum(eqs[0], ccg, bc)       # [B,nc,Q,Q] / [B,nc,H,Q,Q]
     # out of place: exp's backward reads lmat
-    lmat = lmat * scores[:, :, None]
+    lmat = lmat * (scores[:, :, None] if g == 1 else scores)
     y = torch.einsum("bchij,bcjhp->bcihp", lmat, dtx)
     del lmat
 
     # chunk states and the scan across chunks
     cum = torch.cumsum(lac, dim=2)                             # [B,nc,Q,H]
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
-    chunk_state = torch.einsum("bcjhp,bcjn->bchpn",
-                               dtx * decay_to_end[..., None], bc)
+    chunk_state = torch.einsum(eqs[1], dtx * decay_to_end[..., None], bc)
     chunk_decay = torch.exp(cum[:, :, -1, :])                  # [B,nc,H]
     st = (torch.zeros((b_sz, h, p, n), dtype=torch.float32, device=x.device)
           if state is None else state)
@@ -127,13 +148,13 @@ def mamba2_forward(cfg, params, x, state=None):
         init_states.append(st)                                 # before chunk
         st = st * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
     init_states = torch.stack(init_states, dim=1)              # [B,nc,H,P,N]
-    y_inter = torch.einsum("bcin,bchpn->bcihp", ccg, init_states)
+    y_inter = torch.einsum(eqs[2], ccg, init_states)
     y = y + y_inter * torch.exp(cum)[..., None]
 
     y = y.reshape(b_sz, seq, h, p) + xh * params["d_skip"][None, None, :,
                                                            None]
     y = y.reshape(b_sz, seq, d_in).to(x.dtype)
-    return _gate_norm_out(params, y, z, x.dtype), st
+    return _gate_norm_out(cfg, params, y, z, x.dtype), st
 
 
 def mamba2_decode(cfg, params, x, state, conv_state):
@@ -149,19 +170,26 @@ def mamba2_decode(cfg, params, x, state, conv_state):
     conv_out = torch.einsum("bkc,kc->bc", window.float(),
                             params["conv_w"].float()) + params["conv_b"]
     conv_out = F.silu(conv_out)[:, None, :].to(x.dtype)
-    xin, bb, cc = torch.split(conv_out, [d_in, s.state_size, s.state_size],
-                              dim=-1)
+    g, gn = s.n_groups, s.n_groups * s.state_size
+    xin, bb, cc = torch.split(conv_out, [d_in, gn, gn], dim=-1)
     xh = xin.reshape(b_sz, h, s.head_dim).float()
     dt = F.softplus(dt[:, 0].float() + params["dt_bias"])     # [B, H]
     decay = torch.exp(dt * -torch.exp(params["a_log"]))
-    bbf = bb[:, 0].float()                                     # [B, N]
+    bbf = bb[:, 0].float()                                     # [B, G*N]
     ccf = cc[:, 0].float()
-    state = (state * decay[:, :, None, None]
-             + (dt[:, :, None] * xh)[..., None] * bbf[:, None, None, :])
-    y = torch.einsum("bn,bhpn->bhp", ccf, state)
+    if g == 1:
+        state = (state * decay[:, :, None, None]
+                 + (dt[:, :, None] * xh)[..., None] * bbf[:, None, None, :])
+        y = torch.einsum("bn,bhpn->bhp", ccf, state)
+    else:               # head h reads group h // (H / G): [B, H, N]
+        bh, ch = _per_head(bbf, g, h), _per_head(ccf, g, h)
+        state = (state * decay[:, :, None, None]
+                 + (dt[:, :, None] * xh)[..., None] * bh[:, :, None, :])
+        y = torch.einsum("bhn,bhpn->bhp", ch, state)
     y = y + xh * params["d_skip"][None, :, None]
     y = y.reshape(b_sz, 1, d_in).to(x.dtype)
-    return _gate_norm_out(params, y, z, x.dtype), state, window[:, 1:]
+    return (_gate_norm_out(cfg, params, y, z, x.dtype), state,
+            window[:, 1:])
 
 
 def init_mamba2_state(cfg, batch: int, device="cpu"):

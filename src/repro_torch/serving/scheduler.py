@@ -63,7 +63,8 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
   ``poll(prefill_budget=)`` shares one prefill budget across them.
 * **Spans and time counters**: while a ``torch.profiler`` collects, a poll
   opens the spans of ``serving/spans.py`` where its work happens
-  (``poll``; ``admit``; ``prefill`` > ``first_token``; ``dispatch`` >
+  (``poll``; ``admit`` > ``state_reset``; ``prefill`` >
+  ``first_token``; ``dispatch`` >
   ``carry_load``, ``table_upload``, ``capture``, ``replay``,
   ``ring_copy``; ``readback``; ``commit`` > ``flush``; and ``sync``).
   Always on: each poll's wall time splits into ``host_ms`` (host work),
@@ -72,7 +73,11 @@ The port of the reference's single-model ``ContinuousBatchScheduler``:
   ``wait_ms_total`` and ``flush_wait_ms_total`` (with ``flushes``);
   ``device_ms_total`` adds each committed window's device time between
   its two events, and ``prefill_ms_total`` / ``prefill_tokens_total``
-  count ``prefill_poll``'s wall time and replayed prompt tokens.
+  count ``prefill_poll``'s wall time and replayed prompt tokens;
+  ``state_resets`` counts the admitted slots whose recurrent state rows
+  (Mamba2, xLSTM) were zeroed.  An eager decode step inside a profiler
+  also opens the model's ``repro.model.<kind>`` spans, one a plan step
+  (``models/common.py: step_span``).
 
 Host/device traffic per sync decode step: one upload of (tokens,
 positions, active), one upload of the block table when it changed (into
@@ -386,6 +391,7 @@ class ContinuousBatchScheduler:
         self.device_ms_total = 0.0         # windows' device time (events)
         self.prefill_ms_total = 0.0        # wall time of prefill_poll
         self.prefill_tokens_total = 0      # prompt tokens it replayed
+        self.state_resets = 0              # admitted slots' state rows zeroed
         # sampling: per-run tick counters, reset by set_rng / run() so the
         # same (requests, rng) reproduce the same samples
         self._rng: Optional[torch.Generator] = None
@@ -658,7 +664,8 @@ class ContinuousBatchScheduler:
             self.slot_req[slot] = r
         if self.page_alloc is not None:
             fresh = None               # paged prefill writes the pool itself
-            self._reset_states(take)
+            with span("state_reset"):
+                self._reset_states(take)
         else:
             fresh = self._init_cache()
             if self.model.cfg.family == "encdec":
@@ -698,6 +705,7 @@ class ContinuousBatchScheduler:
         kinds = self.model.scan_block_kinds()
         if all(k in PAGED_KINDS for k in kinds):
             return
+        self.state_resets += len(slots)
         idx = self._upload(np.asarray(slots, np.int64))
         for kind, c in zip(kinds, self.cache["blocks"]):
             if kind not in PAGED_KINDS:
@@ -853,11 +861,11 @@ class ContinuousBatchScheduler:
         model = self.model
         alive = self._alive0
         first_exit = self._first_exit0
-        x = model.embed_decode_tokens(self.params, tokens)
+        x = emb = model.embed_decode_tokens(self.params, tokens)
         layers_run = segs_run = 0
         probing = thr > 0.0            # normalized entropy >= 0: no exits
         for seg in self._segments:
-            x = self._segment(seg, x, positions, alive, active_d)
+            x = self._segment(seg, x, positions, alive, active_d, emb)
             self.stage_calls[f"segment{seg.index}"] += 1
             layers_run += seg.layers
             segs_run += 1
@@ -874,9 +882,10 @@ class ContinuousBatchScheduler:
         self._last_depth_frac = layers_run / max(1, model.cfg.num_layers)
         return self._finalize(x, first_exit, active_d, tick)
 
-    def _segment(self, seg, x, positions, alive, active_d):
+    def _segment(self, seg, x, positions, alive, active_d, emb=None):
         """One depth segment over the arena's cache; returns the hidden
-        state."""
+        state.  ``emb``: the step's token embeddings (Zamba2's sites read
+        them)."""
         model, lm = self.model, self.cfg.long_mode
         if self.page_alloc is not None:
             # writes gate on alive & active (stale slots own no pages), but
@@ -888,11 +897,11 @@ class ContinuousBatchScheduler:
             x, self.cache = model.decode_segment(
                 self.params, self.cache, x, seg, positions, wm,
                 long_mode=lm, paged=PagedKV(self._tbl_dev(), wm),
-                passthrough=alive)
+                passthrough=alive, emb=emb)
         else:
             x, self.cache = model.decode_segment(
                 self.params, self.cache, x, seg, positions, alive,
-                long_mode=lm)
+                long_mode=lm, emb=emb)
         return x
 
     def _finalize(self, x, first_exit, active_d, tick):
@@ -1717,6 +1726,7 @@ class ContinuousBatchScheduler:
         self.device_ms_total = 0.0
         self.prefill_ms_total = 0.0
         self.prefill_tokens_total = 0
+        self.state_resets = 0
         self.peak_tokens_in_flight = 0
         self.completed.clear()
 

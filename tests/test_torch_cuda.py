@@ -93,6 +93,28 @@ def test_paged_gqa_kernel_long_tables(cuda, b, nkv, group, hd, pps):
                             seed=b + pps, pos0=True))
 
 
+@pytest.mark.parametrize("b,nkv,group,pps", [
+    (32, 32, 1, 256),          # Zamba2-7B's sites: 32 rows to 4,096 tokens
+    (2, 32, 1, 256),           # ... two rows over many splits (combine)
+    (3, 6, 2, 40)])            # G 2, a part-full block of kv heads
+def test_paged_gqa_kernel_head_224(cuda, b, nkv, group, pps):
+    """The H 224 instance (448-byte rows, the last TMA box of a head half
+    outside it) at Zamba2's score scale (224 / 2)^-0.5: a one-token
+    sequence, a full table and a ragged last page among the rows."""
+    q, pk, pv, tbl, pos = _paged(cuda, b, nkv * group, nkv, 224, pps=pps,
+                                 seed=b + pps, pos0=True)
+    n_pages, page = pk.shape[0], pk.shape[1]
+    pos[-1] = pps * page - 1                   # the whole table
+    if b > 2:
+        pos[1] = pps * page - 6                # a ragged last page
+    rows = torch.arange(pps, device=cuda)[None, :]
+    tbl = torch.where(rows < (pos.long() // page + 1)[:, None],
+                      torch.arange(b * pps, device=cuda, dtype=torch.int32)
+                      .reshape(b, pps) % n_pages,
+                      torch.full_like(tbl, n_pages))
+    _check_paged_gqa((q, pk, pv, tbl, pos, (224 / 2) ** -0.5))
+
+
 def _paged_mla(dev, b, n, r, hr, page=16, pps=8, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     n_pages = b * pps + 3

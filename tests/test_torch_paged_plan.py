@@ -32,6 +32,10 @@ def test_constants_match_the_cuda_sources():
     assert _constant("P", "paged_mla.cu") == PAGE
     assert paged_attention.KV_HEADS_PER_BLOCK == _constant(
         "KVB", "paged_attention.cu")
+    assert paged_attention.KV_HEADS_PER_BLOCK_WIDE == _constant(
+        "KVB_WIDE", "paged_attention.cu")
+    assert [paged_attention.kv_heads_per_block(h)
+            for h in (64, 128, 224)] == [8, 8, 4]
     assert _constant("P", "paged_attention.cu") == PAGE
 
 
@@ -74,18 +78,21 @@ def test_mla_plan(b, n, pps, splits, split_pages):
     _covers_exactly_once(p, pps)
 
 
-@pytest.mark.parametrize("b,nkv,pps,splits,split_pages", [
-    (16, 8, 18, 9, 2),         # phase 4's live tables (granite-3-2b)
-    (16, 8, 128, 9, 15),       # phase 2's shape
-    (16, 8, 9, 3, 3),
-    (1, 8, 2, 1, 2),           # one split: one launch
-    (5, 2, 8, 4, 2),
-    (3, 12, 37, 13, 3),        # two kv-head groups
-    (64, 8, 128, 3, 43)])      # many sequences: fewer, longer splits
-def test_gqa_plan(b, nkv, pps, splits, split_pages):
-    p = paged_attention.plan(b, nkv, pps, H100_SMS)
+@pytest.mark.parametrize("b,nkv,hd,pps,splits,split_pages", [
+    (16, 8, 64, 18, 9, 2),     # phase 4's live tables (granite-3-2b)
+    (16, 8, 64, 128, 9, 15),   # phase 2's shape
+    (16, 8, 64, 9, 3, 3),
+    (1, 8, 64, 2, 1, 2),       # one split: one launch
+    (5, 2, 128, 8, 4, 2),
+    (3, 12, 128, 37, 13, 3),   # two kv-head groups
+    (64, 8, 64, 128, 3, 43),   # many sequences: fewer, longer splits
+    (32, 32, 224, 256, 1, 256),    # Zamba2-7B's sites: 8 blocks of 4
+    (2, 32, 224, 256, 9, 29)])     # ... two rows: splits fill the wave
+def test_gqa_plan(b, nkv, hd, pps, splits, split_pages):
+    p = paged_attention.plan(b, nkv, pps, H100_SMS, hd)
     assert (p["splits"], p["split_pages"]) == (splits, split_pages)
-    assert p["grid"] == (-(-nkv // 8), b, splits)
+    kvb = 8 if hd <= 128 else 4
+    assert p["grid"] == (-(-nkv // kvb), b, splits)
     assert p["launches"] == (1 if splits == 1 else 2)
     assert p["split_pages"] >= min(pps, paged_attention.MIN_SPLIT_PAGES)
     _covers_exactly_once(p, pps)
@@ -100,7 +107,7 @@ def test_split_scratch_sizes(kind, b, heads, width, pps):
     if kind == "mla":
         p = paged_mla.plan(b, heads, pps, H100_SMS)
     else:
-        p = paged_attention.plan(b, heads // 4, pps, H100_SMS)
+        p = paged_attention.plan(b, heads // 4, pps, H100_SMS, width)
     acc = b * p["splits"] * heads * width * 4 if p["splits"] > 1 else 0
     ml = b * p["splits"] * heads * 2 * 4 if p["splits"] > 1 else 0
     want = {("mla", 128): (20_971_520, 81_920), ("mla", 9): (0, 0),
@@ -192,7 +199,7 @@ def test_gqa_merge_of_splits_matches_plain(g, hd, pps):
     pk = torch.randn(n_pages, PAGE, nkv, hd, generator=gen).bfloat16()
     pv = torch.randn(n_pages, PAGE, nkv, hd, generator=gen).bfloat16()
     want = ref.paged_gqa_attention_ref(q, pk, pv, tbl, pos).float()
-    p = paged_attention.plan(b, nkv, pps, H100_SMS)
+    p = paged_attention.plan(b, nkv, pps, H100_SMS, hd)
     assert p["splits"] > 1
     tblc = tbl.long().clamp(0, n_pages - 1)
     got = torch.empty(b, nkv * g, hd)

@@ -13,6 +13,10 @@ counts; ``prefill_poll`` counts its own time and tokens;
 trace reader (``launch/device_trace.py``) counts overlapping device
 operations once and names each idle gap by the innermost serving span.
 The analyzer's lint and ``guard_sync_budget`` pass with the spans open.
+A paged admission's ``state_reset`` nests in ``admit`` and
+``state_resets`` counts a state model's admitted slots; an eager decode
+step opens the model's plan-step spans (``models/common.py``), a captured
+one none.
 """
 import time
 from types import SimpleNamespace
@@ -26,6 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch import device_trace
 from repro_torch.launch.serve import poisson_trace, serve_poisson
 from repro_torch.models import Model
+from repro_torch.models import common
 from repro_torch.serving import (AdaptiveExitController,
                                  ContinuousBatchScheduler, Request,
                                  SchedulerConfig)
@@ -420,3 +425,52 @@ def test_a_window_is_timed_from_its_dispatch_to_its_commit():
     # window 4 was dispatched before the trace, window 6 not yet
     # committed in it (a device-side event is not the host's span)
     assert device_trace.window_ms(prof) == {5: pytest.approx(1.0)}
+
+
+@pytest.mark.parametrize("arch,resets", [("zamba2-1.2b-smoke", 3),
+                                         (ARCH, 0)])
+def test_state_reset_nests_in_admit_and_counts_state_slots(arch, resets):
+    """A paged admission zeroes the admitted slots' recurrent state rows
+    inside ``state_reset``, itself inside ``admit``; ``state_resets``
+    counts those slots for a state model and stays 0 for a dense one."""
+    m = Model(get_config(arch), device="cpu")
+    sched = _sched((m, m.init(0)), n_slots=3)
+    _submit(sched)
+    with _profile() as prof:
+        sched.prefill_poll()
+    spans = device_trace.serving_spans(prof)
+    at = [i for i, (n, _, _) in enumerate(spans) if n == "state_reset"]
+    assert at and all(_parent(spans, i) == "admit" for i in at)
+    assert sched.state_resets == resets
+    sched.reset_stats()
+    assert sched.state_resets == 0
+
+
+def _plan_spans(prof):
+    return [e.name for e in prof.events()
+            if e.name.startswith(common.SPAN_PREFIX)]
+
+
+def test_plan_step_spans_on_an_eager_step_and_none_in_a_capture(
+        monkeypatch):
+    """An eager decode step inside a profiler opens one span a plan step,
+    named by its kind; the trace reader sums each kind's device time (0 on
+    the CPU).  While a CUDA graph is captured none is recorded, and with
+    no profiler a span is the shared null context."""
+    m = Model(get_config("zamba2-1.2b-smoke"), device="cpu")
+    params = m.init(0)
+    cache = m.init_decode_cache(2, 8)
+    tok = torch.zeros((2, 1), dtype=torch.int64)
+    assert common.step_span("mamba") is common._NULL
+    with _profile() as prof:
+        m.decode_step(params, cache, tok, 0)
+    names = _plan_spans(prof)
+    kinds = [s[1] if s[0] == "scan" else {"shared_attn": "site"}.get(
+        s[0], s[0]) for s in m.plan] + ["head"]
+    assert names == [common.SPAN_PREFIX + k for k in kinds]
+    assert set(device_trace.plan_device_s(prof)) == set(kinds)
+    assert all(v == 0.0 for v in device_trace.plan_device_s(prof).values())
+    monkeypatch.setattr(common, "_capturing", lambda: True)
+    with _profile() as prof:
+        m.decode_step(params, cache, tok, 1)
+    assert _plan_spans(prof) == []
